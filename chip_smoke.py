@@ -11,19 +11,30 @@ Phases (any failure exits non-zero; nothing is caught):
 2. build: nvcc builds every kernel source of the path (printing ptxas -v);
 3. kernels: each CUDA kernel against its plain PyTorch version at the
    serving shapes, in bf16 (atol 2e-2, and each output row's largest error
-   within a tenth of that row's RMS) and fp32 (atol 2e-5, rtol 1e-3);
+   within a tenth of that row's RMS) and fp32 (atol 2e-5, rtol 1e-3); the
+   paged kernels over the auto-sized pool (3073 pages of 16) with shuffled,
+   shared and trash table entries, in fp32 at page sizes 8 and 64, and the
+   single-stage paged decode and paged mixed step at phase 5b's fp32
+   max_len 1024 (769 pages);
 4. serve: EngineClient serves full-width qwen3-0.6b (28 layers, bf16,
    seeded random weights) at the default EngineConfig: 16 requests,
    prompts 16..2000 tokens, 32 new tokens each; launch counters are
    zeroed just before and read just after;
+4b. serve, paged: the same model at EngineConfig(paged_kv=True): 16
+   requests of 32 new tokens -- two groups of 4 sharing a 1024-token
+   system prompt, 4 cold prompts, and 4 exact repeats each submitted right
+   after its original (full hits with copy-on-write); every page must be
+   released after the drain;
 5. card vs CPU: the same kind of traffic at fp32 (full width, 4 layers,
    max_len 1024, prompts up to 900) on the card and on the CPU (plain
    versions); greedy streams must agree token for token, or each first
    divergence must be a near-tie, printed with its logit margin;
+5b. card vs CPU, paged: the same check over paged_kv=True with
+   shared-prefix traffic (single-stage paged decode: 64 pages of 16);
 6. timing: every kernel, its plain version and the one PyTorch call with
    the same result (scaled_dot_product_attention, used only as a
-   yardstick) timed with CUDA events; bounds from the bytes and
-   operations of the inputs timed.
+   yardstick; no one call reads a block table) timed with CUDA events;
+   bounds from the bytes and operations of the inputs timed.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout
@@ -31,7 +42,9 @@ of the repository, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -60,6 +73,7 @@ NEAR_TIE = 1e-3            # logit margin below which an argmax flip is a near-t
 # main-path shapes of qwen3-0.6b at the default EngineConfig
 B, HKV, G, D = 8, 8, 2, 128
 S_MAX = 4096
+PAGE = 16
 
 
 class SmokeFailure(RuntimeError):
@@ -108,8 +122,9 @@ def _close(name: str, got: torch.Tensor, want: torch.Tensor, dtype) -> float:
 
 
 def phase_kernels() -> dict:
-    """Every kernel vs its plain version; returns max abs err per kernel and dtype."""
-    from repro_torch.kernels.decode_attention import kernel, ref
+    """Every kernel vs its plain version; returns max abs err per kernel and
+    dtype (the paged kernels' at the default page size)."""
+    from repro_torch.kernels.decode_attention import kernel, ops, ref
 
     gen = torch.Generator("cuda").manual_seed(1)
     errs = {name: {} for name in kernel.LAUNCHES}
@@ -158,8 +173,95 @@ def phase_kernels() -> dict:
             note("mixed_attention", _close(f"mixed Q={Q}", kernel.mixed_attention_cuda(
                 qm, k, v, cl), ref.mixed_attention(qm, k, v, cl), dtype))
         del k, v
+
+    # paged kernels: the default page size in both dtypes, 8 and 64 in fp32
+    for dtype, ps in ((torch.bfloat16, PAGE), (torch.float32, PAGE), (torch.float32, 8),
+                      (torch.float32, 64)):
+        def note(name, err):
+            if ps == PAGE:
+                errs[name][str(dtype)] = max(errs[name].get(str(dtype), 0.0), err)
+
+        lens_np = np.array([1, 15, 16, 17, 1024, 999, 1001, S_MAX])
+        kp, vp, tbl = paged_inputs(gen, lens_np, ps, dtype)
+        lens = torch.as_tensor(lens_np, dtype=torch.int32, device="cuda")
+        q = _rand(gen, (B, HKV * G, D), dtype)
+        tag = f"ps={ps}"
+        note("decode_attention_paged", _close(
+            f"decode_attention_paged {tag}", kernel.decode_attention_paged_cuda(
+                q, kp, vp, tbl, lens), ref.decode_attention_paged(q, kp, vp, tbl, lens), dtype))
+
+        K = ops.auto_paged_k_splits(tbl.shape[1], ps)
+        check(K == 8, f"paged split at nb={tbl.shape[1]}, ps={ps} is {K}, not 8")
+        m, l, acc = kernel.paged_splitk_partial_cuda(q, kp, vp, tbl, lens, k_splits=K)
+        m_r, l_r, acc_r = ref.decode_attention_paged_splitk_partial(q, kp, vp, tbl, lens,
+                                                                    k_splits=K)
+        empty = m_r <= -1e29
+        check(bool(empty.any()), "paged split-K case has no empty chunk")
+        check(bool((m[empty] <= -1e29).all() and (l[empty] == 0).all()
+                   and (acc[empty] == 0).all()),
+              "empty paged split chunk is not the identity state")
+        check(_err(m[~empty], m_r[~empty]) < 1e-4, f"paged split-K partial m differs ({tag})")
+        check(bool(torch.allclose(l, l_r, rtol=1e-3, atol=1e-4)),
+              f"paged split-K partial l differs ({tag})")
+        norm = lambda a, ll: a / ll.clamp(min=1e-30)[..., None]  # noqa: E731
+        note("decode_attention_paged_splitk_partial", _close(
+            f"paged splitk_partial (acc/l) {tag}", norm(acc, l), norm(acc_r, l_r), dtype))
+        _close(f"paged splitk pair {tag}", kernel.decode_attention_paged_splitk_cuda(
+            q, kp, vp, tbl, lens, k_splits=K), ref.decode_attention_paged(q, kp, vp, tbl, lens),
+            dtype)
+
+        # Q=8 through the table cut to its first 2048 keys (a column slice)
+        Q, W = 8, 2048
+        cl_np = np.array([0, 1, 15, 16, 17, 999, 1500, W - Q])
+        kp, vp, tbl = paged_inputs(gen, cl_np + Q, ps, dtype)
+        cl = torch.as_tensor(cl_np, dtype=torch.int32, device="cuda")
+        qm = _rand(gen, (B, Q, HKV * G, D), dtype)
+        view = tbl[:, :W // ps]
+        note("mixed_attention_paged", _close(
+            f"mixed_attention_paged Q={Q} {tag}", kernel.mixed_attention_paged_cuda(
+                qm, kp, vp, view, cl), ref.mixed_attention_paged(qm, kp, vp, view, cl), dtype))
+        del kp, vp
+
+    # the single-stage paged decode and the paged mixed step at their phase
+    # 5b shape: fp32, max_len 1024 (64 columns of 16) over a 769-page pool
+    dtype, S5 = torch.float32, 1024
+    lens_np = np.array([1, 15, 16, 17, 512, 999, 1001, S5])
+    kp, vp, tbl = paged_inputs(gen, lens_np, PAGE, dtype, S5)
+    check(ops.auto_paged_k_splits(tbl.shape[1], PAGE) == 1,
+          f"paged decode at nb={tbl.shape[1]} is split")
+    lens = torch.as_tensor(lens_np, dtype=torch.int32, device="cuda")
+    q = _rand(gen, (B, HKV * G, D), dtype)
+    err = _close(f"decode_attention_paged max_len={S5}", kernel.decode_attention_paged_cuda(
+        q, kp, vp, tbl, lens), ref.decode_attention_paged(q, kp, vp, tbl, lens), dtype)
+    errs["decode_attention_paged"][str(dtype)] = max(
+        errs["decode_attention_paged"][str(dtype)], err)
+    Q, W = 8, 512
+    cl = torch.as_tensor([0, 1, 15, 16, 17, 300, 495, W - Q], dtype=torch.int32, device="cuda")
+    qm = _rand(gen, (B, Q, HKV * G, D), dtype)
+    view = tbl[:, :W // PAGE]
+    err = _close(f"mixed_attention_paged Q={Q} max_len={S5}", kernel.mixed_attention_paged_cuda(
+        qm, kp, vp, view, cl), ref.mixed_attention_paged(qm, kp, vp, view, cl), dtype)
+    errs["mixed_attention_paged"][str(dtype)] = max(
+        errs["mixed_attention_paged"][str(dtype)], err)
     torch.cuda.synchronize()
     return errs
+
+
+def paged_inputs(gen, lens_np, ps, dtype, max_len=S_MAX):
+    """The auto-sized pool of an engine at ``max_len`` (1 + ceil(1.5·B·nb)
+    pages) and (B, nb) tables over it: shuffled pages, rows 5 and 6 sharing
+    row 4's first 768 tokens of pages (prefix reuse), TRASH_PAGE (0) past
+    each length."""
+    nb = max_len // ps
+    P = 1 + math.ceil(1.5 * B * nb)
+    kp = _rand(gen, (P, ps, HKV, D), dtype)
+    vp = _rand(gen, (P, ps, HKV, D), dtype)
+    rng = np.random.default_rng(ps)
+    tbl = rng.permutation(np.arange(1, P))[: B * nb].reshape(B, nb)
+    tbl[5:7, : 768 // ps] = tbl[4, : 768 // ps]
+    used = -(-np.asarray(lens_np) // ps)
+    tbl[np.arange(nb)[None, :] >= used[:, None]] = 0
+    return kp, vp, torch.as_tensor(tbl, dtype=torch.int32, device="cuda")
 
 
 # --------------------------------------------------------------------------
@@ -215,29 +317,70 @@ def prompts_for(rng, n, lo, hi, vocab):
     return [rng.integers(0, vocab, int(L)) for L in np.linspace(lo, hi, n).round()]
 
 
-def phase_serve(name_line: str) -> dict:
-    from repro_torch.configs import get_config
+def shared_prefix_prompts(rng, vocab, sys_len, suffixes, cold, repeat):
+    """Two groups sharing a ``sys_len``-token system prompt each (distinct
+    suffixes of the lengths in ``suffixes``), then ``cold`` prompts; the
+    prompts whose index is in ``repeat`` are followed at once by an exact
+    repeat (a full-prompt hit while the original still decodes)."""
+    base = []
+    for g in range(2):
+        system = rng.integers(0, vocab, sys_len)
+        base += [np.concatenate([system, rng.integers(0, vocab, n)]) for n in suffixes[g]]
+    base += [rng.integers(0, vocab, n) for n in cold]
+    prompts = []
+    for i, p in enumerate(base):
+        prompts.append(p)
+        if i in repeat:
+            prompts.append(p.copy())
+    return prompts
+
+
+def free_memory() -> None:
+    """Return the caches of finished runs to the card (handles and their
+    client form reference cycles, so they go with gc)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve(name_line: str, model, *, paged: bool) -> dict:
+    """Phase 4 (contiguous) or 4b (paged) over the full-width model."""
     from repro_torch.kernels.decode_attention import kernel
-    from repro_torch.models import Model
     from repro_torch.serving import EngineConfig
 
-    cfg = get_config("qwen3-0.6b")
-    dev = torch.device("cuda")
-    model = Model(cfg, device=dev).init_(torch.Generator("cuda").manual_seed(0))
-    ecfg = EngineConfig()
+    cfg = model.cfg
+    dev = model.device
+    ecfg = EngineConfig(paged_kv=paged)
+    label = "serve paged" if paged else "serve"
     rng = np.random.default_rng(0)
     # warm-up (cuBLAS handles, allocator) outside the counted run
     serve(model, ecfg, prompts_for(rng, 2, 16, 64, cfg.vocab_size), 4, dev)
+    free_memory()
 
-    prompts = prompts_for(rng, 16, 16, 2000, cfg.vocab_size)
+    if paged:
+        # suffix and cold lengths make every repeated prompt end mid-page
+        # (1045, 1047, 677, 1339 tokens), so its full hit copies a page
+        prompts = shared_prefix_prompts(
+            rng, cfg.vocab_size, 1024, ([21, 177, 339, 500], [23, 180, 340, 497]),
+            [16, 677, 1339, 2000], repeat={0, 4, 9, 10})
+        check(len(prompts) == 16, f"paged traffic has {len(prompts)} requests")
+    else:
+        prompts = prompts_for(rng, 16, 16, 2000, cfg.vocab_size)
     max_new = 32
+    torch.cuda.reset_peak_memory_stats()
     kernel.reset_launches()
     handles, wall, engine = serve(model, ecfg, prompts, max_new, dev)
     launches = dict(kernel.LAUNCHES)
-    check_handles(handles, engine, max_new, cfg.vocab_size, "serve")
-    for k_ in ("mixed_attention", "decode_attention_splitk_partial",
-               "decode_attention_splitk_combine"):
-        check(launches[k_] > 0, f"serve: kernel {k_} never launched on the main path")
+    check_handles(handles, engine, max_new, cfg.vocab_size, label)
+    if paged:
+        path = ("mixed_attention_paged", "decode_attention_paged_splitk_partial",
+                "decode_attention_splitk_combine")
+        for k_ in ("decode_attention", "decode_attention_splitk_partial", "mixed_attention"):
+            check(launches[k_] == 0, f"{label}: contiguous kernel {k_} launched")
+    else:
+        path = ("mixed_attention", "decode_attention_splitk_partial",
+                "decode_attention_splitk_combine")
+    for k_ in path:
+        check(launches[k_] > 0, f"{label}: kernel {k_} never launched on the main path")
     ttft = np.array([h.record.ttft_s for h in handles])
     tel = engine.telemetry
     out = dict(
@@ -250,8 +393,21 @@ def phase_serve(name_line: str) -> dict:
         launches=launches, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         card=name_line,
     )
-    del model, engine, handles
-    torch.cuda.empty_cache()
+    if paged:
+        session = handles[0]._client.session
+        al = session.allocator
+        st = al.stats
+        check(st.full_hits >= 1 and st.prefix_hits >= 1 and st.cow_copies >= 1,
+              f"{label}: full_hits {st.full_hits}, prefix_hits {st.prefix_hits}, "
+              f"cow_copies {st.cow_copies}: each must be >= 1")
+        check(al.live_pages == 0, f"{label}: {al.live_pages} pages still live after the drain")
+        out.update(num_pages=engine.num_pages, page_size=ecfg.page_size,
+                   pool_gb=2 * session.cache.k.numel() * session.cache.k.element_size() / 1e9,
+                   full_hits=st.full_hits, prefix_hits=st.prefix_hits, misses=st.misses,
+                   cow_copies=st.cow_copies, evictions=st.evictions,
+                   reused_tokens=st.reused_tokens, prefilled_tokens=st.prefilled_tokens,
+                   cache_hit_rate=tel.cache_hit_rate, live_pages=al.live_pages,
+                   cached_pages=al.cached_pages)
     return out
 
 
@@ -263,30 +419,31 @@ def _margin(model, tokens, a: int, b: int) -> float:
     return float((logits[a] - logits[b]).abs())
 
 
-def phase_card_vs_cpu() -> dict:
-    import dataclasses
-
-    from repro_torch.configs import get_config
+def phase_card_vs_cpu(cpu_model, card_model, *, paged: bool) -> dict:
+    """Phase 5 (contiguous) or 5b (paged): fp32 card streams vs the CPU's."""
     from repro_torch.kernels.decode_attention import kernel
-    from repro_torch.models import Model
     from repro_torch.serving import EngineConfig
 
-    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=4, dtype="float32")
-    ecfg = EngineConfig(max_len=1024)
-    cpu_model = Model(cfg, device="cpu").init_(torch.Generator().manual_seed(1))
-    card_model = Model(cfg, device="cuda")
-    card_model.load_state_dict(cpu_model.state_dict())
+    cfg = cpu_model.cfg
+    ecfg = EngineConfig(max_len=1024, paged_kv=paged)
+    label = "card-vs-cpu paged" if paged else "card-vs-cpu"
     rng = np.random.default_rng(1)
-    prompts = prompts_for(rng, 16, 16, 900, cfg.vocab_size)
+    if paged:
+        # 64 pages of 16 per slot: 1024 logical keys, so decode is single-stage
+        prompts = shared_prefix_prompts(rng, cfg.vocab_size, 256, ([5, 60, 150], [7, 90, 200]),
+                                        [16, 333, 700], repeat={0, 3, 7})
+    else:
+        prompts = prompts_for(rng, 16, 16, 900, cfg.vocab_size)
     max_new = 32
     kernel.reset_launches()
     card_h, card_wall, card_eng = serve(card_model, ecfg, prompts, max_new, torch.device("cuda"))
     launches = dict(kernel.LAUNCHES)
-    check(launches["decode_attention"] > 0, "card-vs-cpu: single-stage decode never launched")
-    check(launches["mixed_attention"] > 0, "card-vs-cpu: mixed kernel never launched")
+    for k_ in (("decode_attention_paged", "mixed_attention_paged") if paged
+               else ("decode_attention", "mixed_attention")):
+        check(launches[k_] > 0, f"{label}: kernel {k_} never launched")
     cpu_h, cpu_wall, cpu_eng = serve(cpu_model, ecfg, prompts, max_new, torch.device("cpu"))
-    check_handles(card_h, card_eng, max_new, cfg.vocab_size, "card fp32")
-    check_handles(cpu_h, cpu_eng, max_new, cfg.vocab_size, "cpu fp32")
+    check_handles(card_h, card_eng, max_new, cfg.vocab_size, f"{label} card fp32")
+    check_handles(cpu_h, cpu_eng, max_new, cfg.vocab_size, f"{label} cpu fp32")
     exact, ties = 0, []
     for p, hc, hp in zip(prompts, card_h, cpu_h):
         a, b = hc.result(), hp.result()
@@ -306,8 +463,13 @@ def phase_card_vs_cpu() -> dict:
     out = dict(requests=len(prompts), exact_streams=exact, near_ties=ties, layers=cfg.n_layers,
                dtype=cfg.dtype, max_len=ecfg.max_len, launches=launches,
                card_wall_s=card_wall, cpu_wall_s=cpu_wall)
-    del card_model, card_eng, card_h
-    torch.cuda.empty_cache()
+    if paged:
+        sts = [h[0]._client.session.allocator.stats for h in (card_h, cpu_h)]
+        check(sts[0] == sts[1], f"{label}: card and cpu prefix stats differ: {sts}")
+        check(sts[0].full_hits >= 1 and sts[0].prefix_hits >= 1,
+              f"{label}: no full or prefix hit: {sts[0]}")
+        out.update(full_hits=sts[0].full_hits, prefix_hits=sts[0].prefix_hits,
+                   cow_copies=sts[0].cow_copies)
     return out
 
 
@@ -354,7 +516,15 @@ def phase_timing() -> dict:
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                          library_ms=library_ms, shape=shape)
 
-    # single-stage decode: its main path is the fp32 max_len=1024 serving run
+    ps = PAGE
+    no_call = "none (no one call reads a block table)"
+
+    def table_bytes(lengths):
+        """The int32 table entries of the pages that hold keys below each length."""
+        return 4 * int((-(-np.asarray(lengths) // ps)).sum())
+
+    # single-stage decode, contiguous and paged: their main path is the fp32
+    # max_len=1024 serving run (64 columns of 16 over a 769-page pool)
     dt, S = torch.float32, 1024
     es = torch.finfo(dt).bits // 8
     k, v = _rand(gen, (B, S, HKV, D), dt), _rand(gen, (B, S, HKV, D), dt)
@@ -370,6 +540,15 @@ def phase_timing() -> dict:
         4 * keys * HKV * G * D,
         time_ms(lambda: _sdpa(q[:, None], k, v, mask), 50),
         f"fp32 B={B} S={S} Hkv={HKV} G={G} D={D} lengths={lens_np.tolist()}")
+    kp, vp, tbl = paged_inputs(gen, lens_np, ps, dt, S)
+    row("decode_attention_paged", dt,
+        time_ms(lambda: kernel.decode_attention_paged_cuda(q, kp, vp, tbl, lens), 200),
+        time_ms(lambda: ref.decode_attention_paged(q, kp, vp, tbl, lens), 20),
+        2 * keys * HKV * D * es + 2 * B * HKV * G * D * es + 4 * B + table_bytes(lens_np),
+        4 * keys * HKV * G * D, None,
+        f"fp32 B={B} pool {kp.shape[0]}x{ps} tables ({B},{tbl.shape[1]}) Hkv={HKV} G={G} "
+        f"D={D} lengths={lens_np.tolist()}; library: {no_call}")
+    del k, v, kp, vp
 
     # split-K at the default max_len=4096 (K=8), bf16, lengths of a 2000-token serving run
     dt, S, K = torch.bfloat16, S_MAX, 8
@@ -416,6 +595,30 @@ def phase_timing() -> dict:
         time_ms(lambda: _sdpa(qm, kw, vw, mmask), 50),
         f"bf16 B={B} Q={Q} window={W} of S={S} Hkv={HKV} G={G} D={D} "
         f"cache_lens={cl_np.tolist()}")
+
+    # the paged split-K partial and mixed step over the auto-sized bf16 pool,
+    # at the same lengths as their contiguous twins above.  Bytes: the keys
+    # below each length, q, out, lengths and the table entries of their pages.
+    kp, vp, tbl = paged_inputs(gen, lens_np, ps, dt)
+    shape = (f"bf16 B={B} pool {kp.shape[0]}x{ps} tables ({B},{tbl.shape[1]}) "
+             f"Hkv={HKV} G={G} D={D}")
+    row("decode_attention_paged_splitk_partial", dt,
+        time_ms(lambda: kernel.paged_splitk_partial_cuda(q, kp, vp, tbl, lens, k_splits=K), 200),
+        time_ms(lambda: ref.decode_attention_paged_splitk_partial(q, kp, vp, tbl, lens,
+                                                                  k_splits=K), 20),
+        2 * keys * HKV * D * es + B * HKV * G * D * es + 4 * B + table_bytes(lens_np)
+        + part_bytes,
+        4 * keys * HKV * G * D, None,
+        f"{shape} K={K} lengths={lens_np.tolist()}; library: {no_call}")
+    view = tbl[:, :W // ps]
+    row("mixed_attention_paged", dt,
+        time_ms(lambda: kernel.mixed_attention_paged_cuda(qm, kp, vp, view, cl), 200),
+        time_ms(lambda: ref.mixed_attention_paged(qm, kp, vp, view, cl), 20),
+        2 * seen * HKV * D * es + 2 * B * Q * HKV * G * D * es + 4 * B
+        + table_bytes(np.minimum(cl_np + Q, W)),
+        4 * pairs * HKV * G * D, None,
+        f"{shape} Q={Q} tables cut to {W // ps} columns, cache_lens={cl_np.tolist()}; "
+        f"library: {no_call}")
     return out
 
 
@@ -427,6 +630,19 @@ REPLACES = {
     "decode_attention_splitk_partial": "src/repro/kernels/decode_attention/kernel.py:218",
     "decode_attention_splitk_combine": "src/repro/kernels/decode_attention/kernel.py:272",
     "mixed_attention": "src/repro/kernels/decode_attention/kernel.py:599",
+    "decode_attention_paged": "src/repro/kernels/decode_attention/kernel.py:342",
+    "decode_attention_paged_splitk_partial": "src/repro/kernels/decode_attention/kernel.py:444",
+    "mixed_attention_paged": "src/repro/kernels/decode_attention/kernel.py:692",
+}
+# the main-path runs whose launches each kernel reports (the combine serves both layouts)
+LAUNCH_PHASES = {
+    "decode_attention": ("card_vs_cpu",),
+    "decode_attention_splitk_partial": ("serve",),
+    "decode_attention_splitk_combine": ("serve", "serve_paged"),
+    "mixed_attention": ("serve",),
+    "decode_attention_paged": ("card_vs_cpu_paged",),
+    "decode_attention_paged_splitk_partial": ("serve_paged",),
+    "mixed_attention_paged": ("serve_paged",),
 }
 
 
@@ -437,8 +653,12 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    import dataclasses
+
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import kernel
+    from repro_torch.models import Model
 
     t_start = time.perf_counter()
     name_line = card_line()
@@ -459,15 +679,31 @@ def main() -> int:
           + json.dumps(errs), flush=True)
     print("  worst bf16 row error / row RMS: " + json.dumps(ROW_FRAC), flush=True)
 
-    t0 = time.perf_counter()
-    srv = phase_serve(name_line)
-    print(f"[4/6] served full-width qwen3-0.6b in {time.perf_counter() - t0:.1f} s "
-          f"on {name_line}: " + json.dumps(srv), flush=True)
+    cfg = get_config("qwen3-0.6b")
+    model = Model(cfg, device="cuda").init_(torch.Generator("cuda").manual_seed(0))
+    runs = {}
+    for key, tag, paged in (("serve", "4", False), ("serve_paged", "4b", True)):
+        t0 = time.perf_counter()
+        runs[key] = phase_serve(name_line, model, paged=paged)
+        free_memory()
+        print(f"[{tag}/6] served full-width qwen3-0.6b{' (paged)' if paged else ''} in "
+              f"{time.perf_counter() - t0:.1f} s on {name_line}: " + json.dumps(runs[key]),
+              flush=True)
+    del model
+    free_memory()
 
-    t0 = time.perf_counter()
-    cmp_ = phase_card_vs_cpu()
-    print(f"[5/6] card vs cpu in {time.perf_counter() - t0:.1f} s: " + json.dumps(cmp_),
-          flush=True)
+    small = dataclasses.replace(cfg, n_layers=4, dtype="float32")
+    cpu_model = Model(small, device="cpu").init_(torch.Generator().manual_seed(1))
+    card_model = Model(small, device="cuda")
+    card_model.load_state_dict(cpu_model.state_dict())
+    for key, tag, paged in (("card_vs_cpu", "5", False), ("card_vs_cpu_paged", "5b", True)):
+        t0 = time.perf_counter()
+        runs[key] = phase_card_vs_cpu(cpu_model, card_model, paged=paged)
+        free_memory()
+        print(f"[{tag}/6] card vs cpu{' (paged)' if paged else ''} in "
+              f"{time.perf_counter() - t0:.1f} s: " + json.dumps(runs[key]), flush=True)
+    del cpu_model, card_model
+    free_memory()
 
     t0 = time.perf_counter()
     tim = phase_timing()
@@ -476,12 +712,12 @@ def main() -> int:
 
     rows = []
     for name, t in tim.items():
-        launches = (cmp_["launches"][name] if name == "decode_attention"
-                    else srv["launches"][name])
+        by_phase = {ph: runs[ph]["launches"][name] for ph in LAUNCH_PHASES[name]}
         e = errs[name]
         rows.append(dict(
             name=name, route="cuda", source=str(kernel.SOURCE.relative_to(ROOT)),
-            replaces=REPLACES[name], launches=launches,
+            replaces=REPLACES[name], launches=sum(by_phase.values()),
+            launches_by_phase=by_phase,
             max_abs_err=e[str(torch.bfloat16)], max_abs_err_fp32=e[str(torch.float32)],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], shape=t["shape"]))

@@ -6,6 +6,12 @@
 //                                                           partial state out
 //                              (_splitk_combine_kernel)  -> splitk_combine
 //   * mixed_attention_pallas   (_mixed_kernel)           -> flash_rows, add=1, splits=1
+//   * decode_attention_paged   (_paged_decode_kernel)    -> flash_rows, tbl, Q=1, add=0, splits=1
+//   * decode_attention_paged_splitk
+//                              (_paged_splitk_partial_kernel) -> flash_rows, tbl, Q=1, add=0,
+//                                                           splits=K, partial state out
+//                              (combine: the same splitk_combine)
+//   * mixed_attention_paged    (_mixed_paged_kernel)     -> flash_rows, tbl, add=1, splits=1
 //
 // What bounds it: memory.  Every KV byte below a sequence's length is read
 // once per (row block) and does 2 multiply-adds per element of math, far
@@ -29,6 +35,18 @@
 // The KV operands are addressed through a batch stride, so an attention
 // window view k[:, :W] of a larger cache is read in place.  Still simple:
 // fp32 CUDA-core math, no wgmma/TMA; later work makes it fast.
+//
+// Paged KV.  With a block table (tbl != nullptr) the KV operands are a
+// shared pool (P, ps, Hkv, D) and key ``pos`` of sequence b lives at row
+// pos % ps of page tbl[b * tbl_sb + pos / ps]; the logical length is
+// S = nb * ps and there is no batch stride.  The TPU kernels DMA one page
+// per grid step through scalar-prefetched tables; here only the address
+// of a key row changes.  The page is resolved per key row, never per
+// tile, so any page size works with the 32-key tile (a tile may span
+// several pages, or a page several tiles).  The row stride tbl_sb lets a
+// column slice tables[:, :w] (the mixed step's attention window) be read
+// in place.  Keys are only fetched below hi <= S, so tbl is never indexed
+// at or past nb; a split-K chunk is nb / splits whole pages.
 //
 // Numerics match the TPU kernels: fp32 scores and softmax state, masking
 // with -1e30 (not -inf: a fully masked row stays finite), p rounded to V's
@@ -76,15 +94,17 @@ __device__ __forceinline__ void unpack(const uint4& u, float* f, __nv_bfloat16) 
 
 struct RowsParams {
   const void* q;      // (B, Q, Hq, D) with strides q_sb, q_sq; heads contiguous
-  const void* k;      // (B, S, Hkv, D) with batch stride k_sb; (S, Hkv, D) dense
-  const void* v;
+  const void* k;      // (B, S, Hkv, D) with batch stride k_sb; (S, Hkv, D) dense,
+  const void* v;      //   or with tbl the pool (P, ps, Hkv, D) dense, k_sb = 0
+  const int* tbl;     // (B, nb) block tables with row stride tbl_sb, or nullptr
   const int* lens;    // (B,) decode: valid length; mixed: cached length
   void* out;          // (B, Q, Hq, D) contiguous, when m_out == nullptr
   float* m_out;       // (B, Hkv, splits, R) partial state, else nullptr
   float* l_out;
   float* acc_out;     // (B, Hkv, splits, R, D)
   int B, Q, Hq, Hkv, S, splits, add;
-  long long q_sb, q_sq, k_sb, v_sb;
+  long long q_sb, q_sq, k_sb, v_sb, tbl_sb;
+  int ps;             // page size (paged only)
   float scale;
 };
 
@@ -155,7 +175,9 @@ __global__ void __launch_bounds__(kThreads) flash_rows_kernel(RowsParams p) {
       kreg[i] = make_uint4(0, 0, 0, 0);
       vreg[i] = make_uint4(0, 0, 0, 0);
       if (pos < hi) {
-        const long long off = (long long)pos * p.Hkv * D + (long long)h * D + d0;
+        long long row = pos;   // contiguous: the key's own row
+        if (p.tbl != nullptr) row = (long long)p.tbl[b * p.tbl_sb + pos / p.ps] * p.ps + pos % p.ps;
+        const long long off = row * p.Hkv * D + (long long)h * D + d0;
         kreg[i] = *reinterpret_cast<const uint4*>(k + off);
         vreg[i] = *reinterpret_cast<const uint4*>(v + off);
       }
@@ -291,17 +313,20 @@ int dispatch_rows(int D, const RowsParams& p, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns 0 on a launch cudaGetLastError
-// accepted, the CUDA error code otherwise, -1 for an unsupported dtype/D.
+// dtype: 0 = float32, 1 = bfloat16.  tbl: nullptr for a contiguous cache,
+// else the (B, nb) int32 block tables with row stride tbl_sb and S = nb*ps.
+// Returns 0 on a launch cudaGetLastError accepted, the CUDA error code
+// otherwise, -1 for an unsupported dtype/D.
 extern "C" int flash_rows(int dtype, int D, const void* q, const void* k, const void* v,
-                          const void* lens, void* out, void* m_out, void* l_out, void* acc_out,
-                          int B, int Q, int Hq, int Hkv, int S, int splits, int add,
+                          const void* tbl, const void* lens, void* out, void* m_out,
+                          void* l_out, void* acc_out,
+                          int B, int Q, int Hq, int Hkv, int S, int splits, int add, int ps,
                           long long q_sb, long long q_sq, long long k_sb, long long v_sb,
-                          float scale, void* stream) {
-  RowsParams p{q, k, v, static_cast<const int*>(lens), out,
+                          long long tbl_sb, float scale, void* stream) {
+  RowsParams p{q, k, v, static_cast<const int*>(tbl), static_cast<const int*>(lens), out,
                static_cast<float*>(m_out), static_cast<float*>(l_out),
                static_cast<float*>(acc_out),
-               B, Q, Hq, Hkv, S, splits, add, q_sb, q_sq, k_sb, v_sb, scale};
+               B, Q, Hq, Hkv, S, splits, add, q_sb, q_sq, k_sb, v_sb, tbl_sb, ps, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_rows<float>(D, p, s);
   if (dtype == 1) return dispatch_rows<__nv_bfloat16>(D, p, s);

@@ -4,8 +4,14 @@ These are the oracles the CUDA kernels in ``csrc/decode_attention.cu`` are
 held against on the card, and what ``ops`` runs for a tensor on the CPU.
 Counterparts of the JAX package's ``kernels/decode_attention/ref.py``
 (``decode_attention_ref``, ``decode_attention_splitk_ref``,
-``mixed_attention_ref``) and of its split-K stages (``kernel.py``
-``_splitk_partial_kernel`` / ``_splitk_combine_kernel``).
+``mixed_attention_ref`` and their paged forms) and of its split-K stages
+(``kernel.py`` ``_splitk_partial_kernel`` / ``_splitk_combine_kernel``).
+
+The paged versions read a shared page pool (P, page_size, Hkv, D) through
+(B, n_blocks) block tables: ``gather_pages`` restores logical order, after
+which each is exactly its contiguous twin at S = n_blocks·page_size.  So
+paged split-K chunk ``kc`` covers pages ``[kc·nb/K, (kc+1)·nb/K)``, the
+same keys as contiguous chunk ``kc``.
 
 Numerics follow the TPU kernels: scores and softmax state in fp32, masking
 with ``-1e30`` (never ``-inf``), ``p`` cast to V's dtype before the PV
@@ -126,3 +132,57 @@ def mixed_attention(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v_cache.dtype).float(), v_cache.float())
     return out.reshape(B, Q, Hq, D).to(q.dtype)
+
+
+def gather_pages(pages: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
+    """(P, ps, Hkv, D) pool + (B, nb) tables -> contiguous (B, nb·ps, Hkv, D).
+    Logical position ``t`` of sequence ``b`` lives at row ``t % ps`` of page
+    ``block_tables[b, t // ps]``."""
+    B, nb = block_tables.shape
+    _, ps, Hkv, D = pages.shape
+    return pages[block_tables.long()].reshape(B, nb * ps, Hkv, D)
+
+
+def decode_attention_paged(
+    q: torch.Tensor,              # (B, Hq, D)
+    k_pages: torch.Tensor,        # (P, ps, Hkv, D) shared pool
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,   # (B, nb) int32 page ids
+    lengths: torch.Tensor,        # (B,) int32 valid prefix
+) -> torch.Tensor:
+    return decode_attention(q, gather_pages(k_pages, block_tables),
+                            gather_pages(v_pages, block_tables), lengths)
+
+
+def decode_attention_paged_splitk_partial(
+    q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+    block_tables: torch.Tensor, lengths: torch.Tensor, *, k_splits: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stage 1 of paged split-K: the contiguous partial over the gathered
+    pages; ``n_blocks`` must divide by ``k_splits``."""
+    if block_tables.shape[1] % k_splits:
+        raise ValueError(f"{block_tables.shape[1]} blocks not divisible by k_splits={k_splits}")
+    return decode_attention_splitk_partial(
+        q, gather_pages(k_pages, block_tables), gather_pages(v_pages, block_tables), lengths,
+        k_splits=k_splits)
+
+
+def decode_attention_paged_splitk(
+    q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+    block_tables: torch.Tensor, lengths: torch.Tensor, *, k_splits: int,
+) -> torch.Tensor:
+    """Two-stage paged split-K decode: paged partial, then the shared combine."""
+    m, l, acc = decode_attention_paged_splitk_partial(
+        q, k_pages, v_pages, block_tables, lengths, k_splits=k_splits)
+    return splitk_combine(m, l, acc, q.dtype)
+
+
+def mixed_attention_paged(
+    q: torch.Tensor,              # (B, Q, Hq, D)
+    k_pages: torch.Tensor,        # (P, ps, Hkv, D), chunk KV already written
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,   # (B, nb) int32, possibly a column slice
+    cache_lens: torch.Tensor,     # (B,) int32 tokens cached BEFORE the chunk
+) -> torch.Tensor:
+    return mixed_attention(q, gather_pages(k_pages, block_tables),
+                           gather_pages(v_pages, block_tables), cache_lens)

@@ -1,11 +1,12 @@
 """Profile the port's serving path on the card with ``torch.profiler``.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--out build/profile]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--paged] [--out build/profile]
 
 Serves full-width qwen3-0.6b (all 28 layers, seeded random weights, bf16)
-through ``EngineClient`` at the default ``EngineConfig`` -- 8 requests with
-prompts of 16 to 1024 tokens, 16 new tokens each -- once to warm up and once
-under the profiler, and prints one JSON line: wall time, device busy time
+through ``EngineClient`` at the default ``EngineConfig`` (with ``--paged``,
+``EngineConfig(paged_kv=True)``) -- 8 requests with distinct prompts of 16
+to 1024 tokens, 16 new tokens each -- once to warm up and once under the
+profiler, and prints one JSON line: wall time, device busy time
 (the union of kernel and memcpy intervals in the trace) and idle share,
 time per mixed step and per decode step, the top device kernels, and the
 host-side calls that synchronise (``cudaStreamSynchronize``, pageable
@@ -56,12 +57,13 @@ def _union_us(intervals):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--paged", action="store_true", help="serve from the paged KV pool")
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args(argv)
 
     cfg = get_config("qwen3-0.6b")
     model = Model(cfg).init_(torch.Generator("cuda").manual_seed(0))
-    ecfg = EngineConfig()
+    ecfg = EngineConfig(paged_kv=args.paged)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, int(n))
                for n in np.linspace(16, PROMPT_MAX, REQUESTS).round()]
@@ -85,7 +87,8 @@ def main(argv=None) -> int:
     rt = Counter(e["name"] for e in events if e.get("cat") == "cuda_runtime")
     steps = tel.mixed_steps + tel.chunks * ecfg.decode_chunk
     print(json.dumps(dict(
-        card=torch.cuda.get_device_name(0), layers=cfg.n_layers, requests=len(handles),
+        card=torch.cuda.get_device_name(0), paged_kv=args.paged, layers=cfg.n_layers,
+        requests=len(handles),
         prompt_tokens=int(sum(len(p) for p in prompts)), max_new=MAX_NEW,
         wall_s=wall, mixed_steps=tel.mixed_steps, decode_steps=tel.chunks * ecfg.decode_chunk,
         ms_per_step=wall * 1e3 / max(1, steps),

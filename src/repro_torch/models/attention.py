@@ -1,11 +1,11 @@
 """Full attention block of the serving path: fused qkv, qk-norm, RoPE, GQA
-against a contiguous KV cache.
+against a contiguous KV cache or a shared page pool.
 
 Counterpart of the JAX package's ``models/attention.py`` for full
-attention on the contiguous cache (the sliding-window ring and the paged
-pool come with later slices).  The cache is a per-layer (B, S_max, Hkv,
-Dh) pair updated IN PLACE — where the JAX engine donated the buffer to
-its jitted step, the port writes into it.
+attention (the sliding-window ring comes with a later slice).  The cache
+is a per-layer (B, S_max, Hkv, Dh) pair, or with a block table the
+per-layer page pool (P, page_size, Hkv, Dh), updated IN PLACE — where the
+JAX engine donated the buffer to its jitted step, the port writes into it.
 
 On a CUDA tensor the attention itself always runs the hand-written
 kernels (``kernels.decode_attention.ops``); on a CPU tensor their plain
@@ -25,7 +25,7 @@ from repro_torch.models import layers
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor          # (B, S_cache, Hkv, Dh)
+    k: torch.Tensor          # (B, S_cache, Hkv, Dh), or a pool (P, ps, Hkv, Dh)
     v: torch.Tensor
 
 
@@ -77,15 +77,19 @@ def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig,
 def attention_decode(
     p: Attention,
     x: torch.Tensor,            # (B, 1, d) — one new token per slot
-    cache: KVCache,             # (B, S, Hkv, Dh), written in place
+    cache: KVCache,             # (B, S, Hkv, Dh) or a pool, written in place
     cache_len: torch.Tensor,    # (B,) int32 per-slot lengths, on x's device
     cfg: ModelConfig,
+    *,
+    page_table: Optional[torch.Tensor] = None,   # (B, nb) int32 => paged pool
 ) -> torch.Tensor:
     """One decode step: write the new token's KV at ``cache_len[b]``
     (clamped to the last row, as ``dynamic_update_slice`` clamps), then
     attend to the first ``cache_len[b] + 1`` positions."""
     if cache_len.dim() != 1:
         raise ValueError("decode requires (B,) per-slot cache lengths")
+    if page_table is not None:
+        return _attention_decode_paged(p, x, cache, cache_len, cfg, page_table)
     B = x.shape[0]
     S = cache.k.shape[1]
     q, k_new, v_new = _project_qkv(p, x, cfg, cache_len[:, None])
@@ -94,6 +98,30 @@ def attention_decode(
     cache.k[rows, write_at] = k_new[:, 0].to(cache.k.dtype)
     cache.v[rows, write_at] = v_new[:, 0].to(cache.v.dtype)
     out = ops.decode_attention(q[:, 0], cache.k, cache.v, cache_len + 1)
+    return (out.reshape(B, cfg.q_dim) @ p.wo)[:, None, :]
+
+
+def _attention_decode_paged(
+    p: Attention,
+    x: torch.Tensor,            # (B, 1, d)
+    pool: KVCache,              # (P, ps, Hkv, Dh), written in place
+    cache_len: torch.Tensor,    # (B,) int32
+    cfg: ModelConfig,
+    page_table: torch.Tensor,   # (B, nb) int32, on x's device
+) -> torch.Tensor:
+    """Paged decode step: the new token's KV goes to row ``len % ps`` of
+    page ``table[b, len // ps]``, then attention reads through the table."""
+    B = x.shape[0]
+    ps = pool.k.shape[1]
+    q, k_new, v_new = _project_qkv(p, x, cfg, cache_len[:, None])
+    page = page_table.gather(1, (cache_len // ps)[:, None].long())[:, 0].long()
+    row = (cache_len % ps).long()
+    # Idle slots' tables are all TRASH_PAGE, so their writes all land on
+    # page 0 at once.  index_put_ with repeated indices is nondeterministic;
+    # that is harmless only because nothing real ever reads page 0.
+    pool.k[page, row] = k_new[:, 0].to(pool.k.dtype)
+    pool.v[page, row] = v_new[:, 0].to(pool.v.dtype)
+    out = ops.decode_attention(q[:, 0], pool.k, pool.v, cache_len + 1, page_table=page_table)
     return (out.reshape(B, cfg.q_dim) @ p.wo)[:, None, :]
 
 
@@ -113,33 +141,68 @@ def mixed_write_index(cache_lens: np.ndarray, new_lens: np.ndarray, Q: int,
     return b * Q + col, b * S + pos[b, col]
 
 
+def paged_write_index(cache_lens: np.ndarray, new_lens: np.ndarray, Q: int,
+                      tables: np.ndarray, ps: int) -> Tuple[np.ndarray, np.ndarray]:
+    """``mixed_write_index`` through block tables: chunk row ``i`` of slot
+    ``b`` writes position ``t = cache_lens[b] + i`` iff ``i < new_lens[b]``,
+    at flat pool row ``tables[b, t // ps]·ps + t % ps`` of the (P·ps) rows.
+    Padding rows are dropped, not sent to the trash page as in JAX: nothing
+    reads what they would write.  The destinations are unique — after
+    copy-on-write every page a slot writes is its own — so one
+    ``index_copy_`` stays deterministic."""
+    cache_lens = np.asarray(cache_lens, np.int64)
+    new_lens = np.asarray(new_lens, np.int64)
+    tables = np.asarray(tables, np.int64)
+    i = np.arange(Q)[None, :]
+    pos = cache_lens[:, None] + i
+    keep = (i < new_lens[:, None]) & (pos < tables.shape[1] * ps)
+    b, col = np.nonzero(keep)
+    t = pos[b, col]
+    return b * Q + col, tables[b, t // ps] * ps + t % ps
+
+
 def attention_mixed(
     p: Attention,
     x: torch.Tensor,               # (B, Q, d) — Q new tokens per slot
-    cache: KVCache,                # (B, S, Hkv, Dh), written in place
+    cache: KVCache,                # (B, S, Hkv, Dh) or a pool, written in place
     cache_lens: torch.Tensor,      # (B,) int32 tokens already cached, on x's device
     cfg: ModelConfig,
-    write_index: Tuple[torch.Tensor, torch.Tensor],   # mixed_write_index, on device
+    write_index: Tuple[torch.Tensor, torch.Tensor],   # mixed/paged_write_index, on device
     *,
     attn_window: Optional[int] = None,
+    page_table: Optional[torch.Tensor] = None,        # (B, nb) int32 => paged pool
 ) -> torch.Tensor:
     """One mixed-batch step: every slot advances by its own ragged suffix.
-    Only rows ``i < new_lens[b]`` write KV (``write_index``); query ``i``
-    attends to every position ``<= cache_lens[b] + i``.  ``attn_window``
-    bounds the cache span read: the kernel takes the ``[:, :W]`` view in
-    place through its batch stride (no copy)."""
+    Only rows ``i < new_lens[b]`` write KV (``write_index``, flat rows of
+    the cache or pool); query ``i`` attends to every position
+    ``<= cache_lens[b] + i``.  ``attn_window`` bounds the span read: the
+    kernel takes the ``[:, :W]`` view of a contiguous cache, or the
+    ``[:, :ceil(W / ps)]`` column slice of the tables, in place (no copy)."""
     B, Q, _ = x.shape
-    S = cache.k.shape[1]
     positions = cache_lens[:, None] + torch.arange(Q, device=x.device, dtype=cache_lens.dtype)
     q, k_new, v_new = _project_qkv(p, x, cfg, positions)
     src, dst = write_index
     for buf, new in ((cache.k, k_new), (cache.v, v_new)):
-        flat = buf.view(B * S, *buf.shape[2:])
+        flat = buf.view(-1, *buf.shape[2:])
         flat.index_copy_(0, dst, new.reshape(B * Q, *new.shape[2:]).index_select(0, src)
                          .to(buf.dtype))
-    k_r, v_r = cache.k, cache.v
-    if attn_window is not None:
-        k_r, v_r = k_r[:, :attn_window], v_r[:, :attn_window]
-    out = ops.mixed_attention(q, k_r, v_r, cache_lens)
+    if page_table is not None:
+        ps = cache.k.shape[1]
+        read_table = page_table if attn_window is None else page_table[:, :-(-attn_window // ps)]
+        out = ops.mixed_attention(q, cache.k, cache.v, cache_lens, page_table=read_table)
+    else:
+        k_r, v_r = cache.k, cache.v
+        if attn_window is not None:
+            k_r, v_r = k_r[:, :attn_window], v_r[:, :attn_window]
+        out = ops.mixed_attention(q, k_r, v_r, cache_lens)
     return out.reshape(B, Q, cfg.q_dim) @ p.wo
+
+
+def empty_page_pool(cfg: ModelConfig, n_layers: int, num_pages: int, page_size: int, *,
+                    device, dtype) -> KVCache:
+    """The shared paged-KV pool of ``n_layers`` layers, zeroed:
+    k and v (L, P, page_size, Hkv, Dh)."""
+    shape = (n_layers, num_pages, page_size, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return KVCache(k=torch.zeros(shape, device=device, dtype=dtype),
+                   v=torch.zeros(shape, device=device, dtype=dtype))
 

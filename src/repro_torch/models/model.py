@@ -4,11 +4,13 @@
     cache = model.empty_cache(batch, max_len)
     logits = model.decode(tokens, cache, cache_len)              # (B, V)
     logits = model.step_mixed(tokens, cache, cache_lens, new_lens)
+    pool = model.empty_page_pool(num_pages, page_size)           # paged KV
+    logits = model.decode(tokens, pool, cache_len, page_table=tables)
 
 Counterpart of the JAX package's ``models/model.py`` for the serving path.
-The KV cache keeps the JAX layout ``(L, B, S, Hkv, Dh)`` and is updated in
-place (the JAX engine donated it).  ``device`` defaults to the card; a
-missing card raises.
+The KV cache keeps the JAX layout ``(L, B, S, Hkv, Dh)``, the page pool
+``(L, P, page_size, Hkv, Dh)``; both are updated in place (the JAX engine
+donated them).  ``device`` defaults to the card; a missing card raises.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from repro_torch.models import attention, transformer
 
 
 class DecoderKVCache(NamedTuple):
-    k: torch.Tensor   # (L, B, Sc, Hkv, Dh)
+    k: torch.Tensor   # (L, B, Sc, Hkv, Dh), or a page pool (L, P, ps, Hkv, Dh)
     v: torch.Tensor
 
 
@@ -67,39 +69,52 @@ class Model(nn.Module):
     # -- serving ------------------------------------------------------------
     @torch.no_grad()
     def decode(self, tokens: torch.Tensor, cache: DecoderKVCache,
-               cache_len: torch.Tensor) -> torch.Tensor:
+               cache_len: torch.Tensor, *,
+               page_table: Optional[Union[np.ndarray, torch.Tensor]] = None) -> torch.Tensor:
         """tokens (B, 1); cache_len (B,) int32 per-slot lengths.  Writes the
-        new KV into ``cache`` and returns next-token logits (B, V)."""
+        new KV into ``cache`` and returns next-token logits (B, V).  With
+        ``page_table`` ((B, n_blocks) int32) ``cache`` is the page pool of
+        ``empty_page_pool``, read and written through the tables."""
+        if page_table is not None:
+            page_table = torch.as_tensor(page_table, dtype=torch.int32, device=self.device)
         x = self.embed[tokens]
         x = transformer.run_layers_decode(self.layers, x, cache.k, cache.v,
-                                          cache_len.to(self.device, torch.int32), self.cfg)
+                                          cache_len.to(self.device, torch.int32), self.cfg,
+                                          page_table)
         return transformer.logits_from_hidden(self.embed, self.final_norm, x, self.cfg)[:, 0]
 
     @torch.no_grad()
     def step_mixed(self, tokens: torch.Tensor, cache: DecoderKVCache,
                    cache_lens: Union[np.ndarray, torch.Tensor],
                    new_lens: Union[np.ndarray, torch.Tensor], *,
+                   page_table: Optional[Union[np.ndarray, torch.Tensor]] = None,
                    attn_window: Optional[int] = None,
                    all_logits: bool = False) -> torch.Tensor:
         """One mixed-batch step: slot b advances by ``tokens[b, :new_lens[b]]``
         from cache position ``cache_lens[b]``.  Returns the logits at column
         ``max(new_lens - 1, 0)`` (B, V), or with ``all_logits`` at every
-        column (B, Q, V).
+        column (B, Q, V).  With ``page_table`` ((B, n_blocks) int32)
+        ``cache`` is the page pool, read and written through the tables.
 
-        The lengths are read on the host (the engine keeps them there) to
-        place the chunk's KV rows; a device tensor is copied back first."""
+        The lengths (and tables) are read on the host (the engine keeps them
+        there) to place the chunk's KV rows; a device tensor is copied back
+        first.  The tables go to the device once per step."""
         if not self.supports_mixed_step:
             raise ValueError(f"{self.cfg.name}: mixed-batch step unsupported")
         B, Q = tokens.shape
         cl, nl = _host_ints(cache_lens), _host_ints(new_lens)
-        S = cache.k.shape[2]
-        src, dst = attention.mixed_write_index(cl, nl, Q, S)
+        if page_table is not None:
+            tables = _host_ints(page_table)
+            src, dst = attention.paged_write_index(cl, nl, Q, tables, cache.k.shape[2])
+            page_table = torch.as_tensor(tables, dtype=torch.int32, device=self.device)
+        else:
+            src, dst = attention.mixed_write_index(cl, nl, Q, cache.k.shape[2])
         write_index = (torch.as_tensor(src, device=self.device),
                        torch.as_tensor(dst, device=self.device))
         lens_dev = torch.as_tensor(cl, dtype=torch.int32, device=self.device)
         x = self.embed[tokens]
         x = transformer.run_layers_mixed(self.layers, x, cache.k, cache.v, lens_dev,
-                                         write_index, self.cfg, attn_window)
+                                         write_index, self.cfg, attn_window, page_table)
         if all_logits:
             return transformer.logits_from_hidden(self.embed, self.final_norm, x, self.cfg)
         last = torch.as_tensor(np.maximum(nl - 1, 0), device=self.device)
@@ -110,6 +125,22 @@ class Model(nn.Module):
     def supports_mixed_step(self) -> bool:
         """Every model the port builds (dense, full attention, tokens in)."""
         return self.cfg.supports_decode
+
+    @property
+    def supports_paged_kv(self) -> bool:
+        """Paged KV needs a decoding model with the (L, ..., S, Hkv, Dh)
+        cache and full attention; ``check_supported`` already admits only
+        full-attention dense models, so decoding is what is left to check."""
+        return self.cfg.supports_decode
+
+    def empty_page_pool(self, num_pages: int, page_size: int) -> DecoderKVCache:
+        """The shared paged-KV pool (L, num_pages, page_size, Hkv, Dh), zeroed."""
+        cfg = self.cfg
+        if not self.supports_paged_kv:
+            raise ValueError(f"{cfg.name}: a model that does not decode cannot use paged KV")
+        pool = attention.empty_page_pool(cfg, cfg.n_layers, num_pages, page_size,
+                                         device=self.device, dtype=cfg.torch_dtype)
+        return DecoderKVCache(k=pool.k, v=pool.v)
 
     def empty_cache(self, batch: int, max_len: int) -> DecoderKVCache:
         """The (L, B, max_len, Hkv, Dh) cache, zeroed."""

@@ -76,15 +76,17 @@ def _mlp(layer: DecoderLayer, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
 def run_layers_decode(
     layer_list: nn.ModuleList,
     x: torch.Tensor,               # (B, 1, d)
-    cache_k: torch.Tensor,         # (L, B, S, Hkv, Dh), written in place
+    cache_k: torch.Tensor,         # (L, B, S, Hkv, Dh) or a pool (L, P, ps, Hkv, Dh)
     cache_v: torch.Tensor,
     cache_len: torch.Tensor,       # (B,) int32
     cfg: ModelConfig,
+    page_table: Optional[torch.Tensor] = None,   # (B, nb) int32 => paged pool
 ) -> torch.Tensor:
     for li, layer in enumerate(layer_list):
         h = layers.rms_norm(x, layer.ln1, cfg.norm_eps)
         x = x + attention.attention_decode(
-            layer.attn, h, attention.KVCache(cache_k[li], cache_v[li]), cache_len, cfg)
+            layer.attn, h, attention.KVCache(cache_k[li], cache_v[li]), cache_len, cfg,
+            page_table=page_table)
         x = _mlp(layer, x, cfg)
     return x
 
@@ -92,19 +94,20 @@ def run_layers_decode(
 def run_layers_mixed(
     layer_list: nn.ModuleList,
     x: torch.Tensor,               # (B, Q, d) — ragged new-token suffixes
-    cache_k: torch.Tensor,         # (L, B, S, Hkv, Dh), written in place
+    cache_k: torch.Tensor,         # (L, B, S, Hkv, Dh) or a pool (L, P, ps, Hkv, Dh)
     cache_v: torch.Tensor,
     cache_lens: torch.Tensor,      # (B,) int32 tokens already cached
     write_index: Tuple[torch.Tensor, torch.Tensor],
     cfg: ModelConfig,
     attn_window: Optional[int] = None,
+    page_table: Optional[torch.Tensor] = None,   # (B, nb) int32 => paged pool
 ) -> torch.Tensor:
     """``run_layers_decode`` generalised to a ragged q-chunk per slot."""
     for li, layer in enumerate(layer_list):
         h = layers.rms_norm(x, layer.ln1, cfg.norm_eps)
         x = x + attention.attention_mixed(
             layer.attn, h, attention.KVCache(cache_k[li], cache_v[li]), cache_lens, cfg,
-            write_index, attn_window=attn_window)
+            write_index, attn_window=attn_window, page_table=page_table)
         x = _mlp(layer, x, cfg)
     return x
 

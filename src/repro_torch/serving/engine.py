@@ -1,11 +1,21 @@
-"""Serving engine of the port: the contiguous mixed-batch path.
+"""Serving engine of the port: the mixed-batch path, contiguous or paged.
 
-Counterpart of the JAX package's ``serving/engine.py`` for its default
-path (``EngineConfig`` defaults: contiguous KV, ``mixed_step=True``,
-``spec_k=0``).  ``QueueSession.pump`` admits requests into free slots,
-drives fused prefill+decode ("mixed") steps until this pump's prompts are
-ingested — decode slots advance one token in every one — and then runs
-one decode chunk of ``decode_chunk`` steps over the whole slot batch.
+Counterpart of the JAX package's ``serving/engine.py`` for its mixed path
+(``mixed_step=True``, ``spec_k=0``) on both cache layouts.
+``QueueSession.pump`` admits requests into free slots, drives fused
+prefill+decode ("mixed") steps until this pump's prompts are ingested —
+decode slots advance one token in every one — and then runs one decode
+chunk of ``decode_chunk`` steps over the whole slot batch.
+
+With ``EngineConfig.paged_kv`` the per-slot stripes become a shared page
+pool (L, P, page_size, Hkv, Dh) read and written through per-slot block
+tables, managed by ``paged_kv.BlockAllocator``: admission allocates
+``ceil((prompt + max_new) / page_size)`` pages; an identical prompt
+decodes straight off its cached logits (copy-on-write of a shared partial
+last page first); a block-aligned prefix hit queues only the suffix; a
+prompt whose pages another slot is still ingesting waits one pump and
+then hits.  The tables live on the host and go to the device once per
+step.
 
 Differences from the JAX engine, and why:
 
@@ -19,8 +29,12 @@ Differences from the JAX engine, and why:
 * Idle slots in the decode chunk still decode garbage and write its KV at
   their frozen length (clamped to ``max_len - 1``), exactly as the JAX
   chunk scan does; real writes overwrite it before any mask uncovers it.
+* Paged: a mixed step's padding rows write no KV (JAX sends them to the
+  trash page), and the rows that do write go in through one
+  ``index_copy_`` of destinations computed on the host from the tables.
+  A full-prompt hit's cached logits are kept as fp32 numpy.
 
-Not ported yet (raise ``NotImplementedError``): paged KV and the legacy
+Not ported yet (raise ``NotImplementedError``): the legacy
 ``mixed_step=False`` admission (ROADMAP §1 item 5), speculative decoding
 (item 7), durable-KV frontiers (item 8).
 """
@@ -36,6 +50,11 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
+from repro_torch.serving.paged_kv import TRASH_PAGE, BlockAllocator
+
+# the auto-sized page pool holds this many times the worst-case live set:
+# the slack lets finished prompts stay cached for prefix reuse
+PAGE_HEADROOM = 1.5
 
 
 @dataclass
@@ -47,13 +66,15 @@ class EngineConfig:
     decode_chunk: int = 8           # decode steps between admission points
     mixed_step: bool = True         # fuse prefill chunks into the decode step
     prefill_chunk: int = 64         # token budget per mixed step
-    paged_kv: bool = False          # not ported yet (ROADMAP §1 item 5)
+    paged_kv: bool = False          # block-based KV with prefix reuse
+    page_size: int = 16             # tokens per KV page
+    num_pages: int = 0              # 0 => auto-size from decode_batch/max_len
     spec_k: int = 0                 # not ported yet (ROADMAP §1 item 7)
 
 
 @dataclass
 class EngineTelemetry:
-    """Measured engine-side counters (the JAX engine's, minus the paged,
+    """Measured engine-side counters (the JAX engine's, minus the
     recovery and speculative ones this path never moves)."""
 
     prefills: int = 0                # prompts ingested to completion
@@ -64,6 +85,11 @@ class EngineTelemetry:
     useful_tokens: int = 0           # tokens delivered to some request
     wasted_tokens: int = 0           # idle/finished-slot tokens
     completed_requests: int = 0
+    # paged-KV prefix cache effectiveness (zero when paging is off)
+    prefix_hits: int = 0             # full-prompt + block-aligned hits
+    prefix_misses: int = 0
+    reused_tokens: int = 0           # prompt tokens served from cached pages
+    prefilled_tokens: int = 0        # prompt tokens run through the model
 
     @property
     def tokens_per_s(self) -> float:
@@ -74,6 +100,11 @@ class EngineTelemetry:
         total = self.useful_tokens + self.wasted_tokens
         return self.useful_tokens / total if total else 1.0
 
+    @property
+    def cache_hit_rate(self) -> float:
+        total = self.prefix_hits + self.prefix_misses
+        return self.prefix_hits / total if total else 0.0
+
 
 class ServingEngine:
     """One model-server replica over a ``Model``.  ``device`` defaults to
@@ -83,8 +114,9 @@ class ServingEngine:
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine asked for {self.device}")
-        if cfg.paged_kv:
-            raise NotImplementedError("paged_kv=True is not ported yet (ROADMAP §1 item 5)")
+        if cfg.paged_kv and not model.supports_paged_kv:
+            raise ValueError(
+                f"paged_kv=True but {model.cfg.name} has no pageable KV cache")
         if not cfg.mixed_step:
             raise NotImplementedError(
                 "mixed_step=False (legacy admission) is not ported yet (ROADMAP §1 item 5)")
@@ -96,6 +128,14 @@ class ServingEngine:
         self.model = model
         self.cfg = cfg
         self.telemetry = EngineTelemetry()
+        # paged-KV resolution (sessions read these): the auto pool holds a
+        # max_len request in every slot, times PAGE_HEADROOM so finished
+        # prompts can stay cached (page 0 is the reserved trash page)
+        self.paged = bool(cfg.paged_kv)
+        ps = max(1, cfg.page_size)
+        self.max_blocks = -(-cfg.max_len // ps)
+        self.num_pages = cfg.num_pages or (
+            1 + math.ceil(PAGE_HEADROOM * cfg.decode_batch * self.max_blocks))
 
     def new_session(self) -> "QueueSession":
         return QueueSession(self)
@@ -120,28 +160,39 @@ class ServingEngine:
 
     def _mixed_step(self, cache, chunks: torch.Tensor, tok: torch.Tensor,
                     lens: np.ndarray, new_lens: np.ndarray, is_decode: torch.Tensor,
-                    attn_window: int) -> torch.Tensor:
+                    attn_window: int, page_table: Optional[np.ndarray] = None) -> torch.Tensor:
         """ONE step advancing every slot by its ragged suffix (decode slots
         by their carried token, prefill slots by a prompt chunk); attention
-        reads only the first ``attn_window`` cache positions.  Returns the
+        reads only the first ``attn_window`` cache positions, through the
+        host block tables ``page_table`` when paged.  Returns the
         last-valid-position logits (B, V)."""
         tokens = self._mixed_tokens(chunks, tok, is_decode)
-        return self.model.step_mixed(tokens, cache, lens, new_lens, attn_window=attn_window)
+        return self.model.step_mixed(tokens, cache, lens, new_lens, page_table=page_table,
+                                     attn_window=attn_window)
 
     def _chunk_loop(self, cache, tok: torch.Tensor, lens: torch.Tensor,
                     active: torch.Tensor, generator: Optional[torch.Generator],
-                    steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                    steps: int, page_table: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Ragged decode chunk: every ``active`` slot advances ``steps``
         tokens with its own cache length; inactive slots decode discarded
-        garbage at a frozen length.  Returns (next tok, toks (steps, B))."""
+        garbage at a frozen length.  With ``page_table`` (device block
+        tables) every step reads and writes the pool through it.  Returns
+        (next tok, toks (steps, B))."""
         max_row = self.cfg.max_len - 1
         emitted = []
         for _ in range(steps):
-            logits = self.model.decode(tok[:, None], cache, lens)
+            logits = self.model.decode(tok[:, None], cache, lens, page_table=page_table)
             emitted.append(tok)
             tok = self._sample(logits, generator)
             lens = torch.where(active, torch.clamp(lens + 1, max=max_row), lens)
         return tok, torch.stack(emitted)
+
+    def _copy_page(self, pool, src: int, dst: int) -> None:
+        """Copy-on-write on the device: page ``src`` into ``dst`` in every
+        layer, before a slot writes into a page it shared."""
+        pool.k[:, dst] = pool.k[:, src]
+        pool.v[:, dst] = pool.v[:, src]
 
     def chunk_quantum(self, token_budget: int) -> int:
         """The fixed q-chunk width a budget implies: pow2(budget / slots)."""
@@ -168,19 +219,36 @@ class PumpReport:
     admit_s: float = 0.0
     dispatch_s: float = 0.0
     sync_s: float = 0.0
+    # paged-KV prefix cache activity this pump (zero when paging is off)
+    prefix_hits: int = 0              # admissions served from cached pages
+    prefix_misses: int = 0            # admissions that prefilled the whole prompt
+    reused_tokens: int = 0            # prompt tokens skipped via the cache
+    prefilled_tokens: int = 0         # prompt tokens run through the model
+    page_occupancy: float = 0.0       # live fraction of the page pool
+    cached_pages: int = 0             # reusable (refcount-0) pages held
 
 
 class QueueSession:
-    """Resumable continuous-batching session over one engine (contiguous
-    mixed path): ``submit`` any time, ``pump`` one admission + mixed
-    steps + decode chunk cycle."""
+    """Resumable continuous-batching session over one engine (mixed path,
+    contiguous or paged): ``submit`` any time, ``pump`` one admission +
+    mixed steps + decode chunk cycle."""
 
     def __init__(self, engine: ServingEngine):
         self.eng = engine
         n_slots = engine.cfg.decode_batch
         dev = engine.device
         self.slots = DecodeSlots(n_slots)
-        self.cache = engine.model.empty_cache(n_slots, engine.cfg.max_len)
+        self.paged = engine.paged
+        if self.paged:
+            self.cache = engine.model.empty_page_pool(engine.num_pages, engine.cfg.page_size)
+            self.allocator = BlockAllocator(engine.num_pages, engine.cfg.page_size)
+            # host block tables (the source of truth; uploaded once per step)
+            self.tables = np.full((n_slots, engine.max_blocks), TRASH_PAGE, dtype=np.int32)
+            self._slot_pages: List[List[int]] = [[] for _ in range(n_slots)]
+            self._slot_of: Dict[int, int] = {}        # rid -> slot holding its pages
+        else:
+            self.allocator = None
+            self.cache = engine.model.empty_cache(n_slots, engine.cfg.max_len)
         self.tok = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
         self.generator = None
         if engine.cfg.temperature > 0.0:
@@ -216,6 +284,11 @@ class QueueSession:
             raise ValueError(
                 f"request {rid}: prompt_len={inp.shape[1]} + "
                 f"max_new={max_new} exceeds max_len={self.eng.cfg.max_len}")
+        if self.paged:
+            need = self.allocator.blocks_for(inp.shape[1] + max_new)
+            if need > self.allocator.usable:
+                raise ValueError(f"request {rid}: needs {need} KV pages but the pool only "
+                                 f"has {self.allocator.usable}")
         from repro_torch.serving.api import slo_order_key
 
         deadline_at = (time.monotonic() + deadline_s if deadline_s is not None else math.inf)
@@ -232,8 +305,9 @@ class QueueSession:
         self._slo.pop(rid, None)
 
     def cancel(self, rid: int) -> bool:
-        """Abandon a request: drop it from the queue, or free its slot
-        mid-prefill or mid-decode.  Returns False if it already completed."""
+        """Abandon a request: drop it from the queue, or free its slot (and
+        pages) mid-prefill or mid-decode.  Returns False if it already
+        completed."""
         if rid in self.results:
             return False
         before = len(self.queue)
@@ -247,12 +321,66 @@ class QueueSession:
             if st["rid"] == rid:
                 del self._prefilling[s]
                 hit = True
+        if self.paged:
+            self._release_rid(rid)
         self._out.pop(rid, None)
         self._retire(rid)
         return hit
 
     def fits(self, prompt_len: int, max_new: int) -> bool:
-        return prompt_len + max_new <= self.eng.cfg.max_len
+        """Whether a request of this shape can ever be admitted here (the
+        bounds ``submit`` enforces with ValueError, as a predicate)."""
+        if prompt_len + max_new > self.eng.cfg.max_len:
+            return False
+        if self.paged:
+            return self.allocator.blocks_for(prompt_len + max_new) <= self.allocator.usable
+        return True
+
+    # -- paged-KV bookkeeping -------------------------------------------------
+    def prefix_match_len(self, prompt) -> int:
+        """Reusable-prefix length of ``prompt`` ((1, Sp) array or token
+        tuple) against this session's cache."""
+        if not self.paged:
+            return 0
+        toks = prompt if type(prompt) is tuple else np.asarray(prompt)[0]
+        return self.allocator.match_len(toks)
+
+    def _set_table(self, s: int, pages: List[int]) -> None:
+        self.tables[s, :] = TRASH_PAGE
+        self.tables[s, :len(pages)] = pages
+
+    def _release_rid(self, rid: int) -> None:
+        """Free a request's pages (completion, cancel): deref every page it
+        held — private pages free at once, published prompt pages park in
+        the LRU for later prefix hits — and trash the table row."""
+        s = self._slot_of.pop(rid, None)
+        if s is None:
+            return
+        for p in self._slot_pages[s]:
+            self.allocator.deref(p)
+        self._slot_pages[s] = []
+        self.tables[s, :] = TRASH_PAGE
+
+    def _extend_alloc(self, pages: List[int], total_blocks: int, reserve: int = 0) -> bool:
+        """Grow ``pages`` to ``total_blocks`` with fresh pages, all or
+        nothing.  The capacity check comes first: alloc() under pressure
+        evicts cached pages (their prefix entries are lost for good), so a
+        grab that cannot fully succeed must fail before evicting anything.
+        ``reserve`` holds back capacity the caller still needs (a COW page)."""
+        al = self.allocator
+        need = total_blocks - len(pages) + reserve
+        if need > al.free_pages + al.cached_pages:
+            return False
+        added: List[int] = []
+        while len(pages) + len(added) < total_blocks:
+            p = al.alloc()
+            if p is None:                 # unreachable after the check; stay all-or-nothing
+                for q in added:
+                    al.deref(q)
+                return False
+            added.append(p)
+        pages.extend(added)
+        return True
 
     @property
     def idle(self) -> bool:
@@ -279,7 +407,97 @@ class QueueSession:
         self._lens_host[s] = 0
         self._prefilling[s] = dict(
             rid=rid, rem=np.asarray(inp)[0].astype(np.int64),
-            plen=int(inp.shape[1]), max_new=int(max_new), akey=self._akey())
+            plen=int(inp.shape[1]), max_new=int(max_new), akey=self._akey(), tokens=None)
+
+    def _admit_paged_mixed(self, s: int, rid: int, inp: np.ndarray, max_new: int) -> bool:
+        """Paged mixed admission.  A full-prompt cache hit decodes at once
+        off the cached logits (no model work); anything else allocates the
+        request's whole block budget and queues the un-cached suffix as
+        pending chunks.  Returns False, with all page state rolled back,
+        under pool pressure or while a sibling prompt is mid-ingest."""
+        eng, al = self.eng, self.allocator
+        ps = al.page_size
+        tokens = [int(t) for t in np.asarray(inp)[0]]
+        plen = len(tokens)
+        total_blocks = al.blocks_for(plen + max_new)
+
+        entry = al.lookup_prompt(tokens)
+        if entry is not None:
+            # full-prompt hit: no prefill; the cached logits give the first token
+            pages = [int(p) for p in entry.pages]
+            for p in pages:
+                al.ref(p)
+            bi = plen // ps
+            cow_needed = bool(plen % ps) and al.refcount[pages[bi]] > 1
+            ok = self._extend_alloc(pages, total_blocks, reserve=1 if cow_needed else 0)
+            if ok and cow_needed:
+                fresh = al.cow(pages[bi])
+                if fresh is None:
+                    ok = False
+                else:
+                    eng._copy_page(self.cache, pages[bi], fresh)
+                    pages[bi] = fresh
+            if not ok:
+                for p in pages:
+                    al.deref(p)
+                return False
+            self._set_table(s, pages)
+            logits = torch.as_tensor(entry.logits, device=eng.device)[None]
+            tok0 = eng._sample(logits, self._akey())
+            # rebind, never write self.tok in place (see the module docstring)
+            self.tok = torch.where(torch.arange(self.slots.n_slots, device=eng.device) == s,
+                                   tok0, self.tok)
+            self._lens_host[s] = plen
+            al.stats.full_hits += 1
+            al.stats.reused_tokens += plen
+            self._slot_pages[s] = pages
+            self._slot_of[rid] = s
+            self.slots.admit(s, rid, max_new)     # decoding immediately
+            return True
+
+        if self._ingest_overlap(tokens):
+            # another slot is mid-ingest on this prompt (or one sharing whole
+            # blocks with it): wait for its publish, then hit the cache
+            return False
+
+        m, shared = al.match_prefix(tokens)
+        pages = [int(p) for p in shared]
+        for p in pages:
+            al.ref(p)
+        if not self._extend_alloc(pages, total_blocks):
+            for p in pages:
+                al.deref(p)
+            return False
+        self._set_table(s, pages)
+        self._slot_pages[s] = pages
+        self._slot_of[rid] = s
+        if m > 0:
+            # block-aligned prefix hit: only the suffix goes through the model
+            al.stats.prefix_hits += 1
+            al.stats.reused_tokens += m
+        else:
+            al.stats.misses += 1
+        self._lens_host[s] = m
+        self._prefilling[s] = dict(
+            rid=rid, rem=np.asarray(tokens[m:], np.int64), plen=plen,
+            max_new=int(max_new), akey=self._akey(), tokens=tokens)
+        return True
+
+    def _ingest_overlap(self, tokens: List[int]) -> bool:
+        """Whether a slot is ingesting a prompt this one would share cached
+        pages with once published: the same prompt, or one equal to it
+        over their common whole blocks."""
+        ps = self.allocator.page_size
+        for st in self._prefilling.values():
+            ft = st["tokens"]
+            if ft is None:
+                continue
+            if tokens == ft:
+                return True
+            nb = min(len(tokens), len(ft)) // ps
+            if nb > 0 and tokens[:nb * ps] == ft[:nb * ps]:
+                return True
+        return False
 
     def _schedule_chunks(self) -> List[Tuple[int, np.ndarray]]:
         """Token-budget packing for the next mixed step: decode slots take
@@ -310,6 +528,10 @@ class QueueSession:
         for rid in self._instant:
             report.completed[rid] = self.results[rid]
         self._instant = []
+        if self.paged:
+            st0 = self.allocator.stats
+            stats0 = (st0.full_hits + st0.prefix_hits, st0.misses, st0.reused_tokens,
+                      st0.prefilled_tokens)
 
         for s in slots.free:
             if not self.queue:
@@ -318,7 +540,14 @@ class QueueSession:
             if s in self._prefilling:
                 continue
             rid, inp, max_new = self._pop_next()
-            self._admit_mixed(s, rid, inp, max_new)
+            if self.paged:
+                if not self._admit_paged_mixed(s, rid, inp, max_new):
+                    # page pressure or a sibling mid-ingest: put it back and
+                    # retry next pump (completions release pages)
+                    self.queue.insert(0, (rid, inp, max_new))
+                    break
+            else:
+                self._admit_mixed(s, rid, inp, max_new)
             report.admitted.append(rid)
         report.admit_s = time.perf_counter() - t0
 
@@ -330,9 +559,25 @@ class QueueSession:
             self.results[rid] = tokens
             report.completed[rid] = tokens
             self._retire(rid)
+            if self.paged:
+                self._release_rid(rid)
+
+        def _paged_report_tail() -> None:
+            if not self.paged:
+                return
+            st1 = self.allocator.stats
+            report.prefix_hits = st1.full_hits + st1.prefix_hits - stats0[0]
+            report.prefix_misses = st1.misses - stats0[1]
+            report.reused_tokens = st1.reused_tokens - stats0[2]
+            report.prefilled_tokens = st1.prefilled_tokens - stats0[3]
+            # sampled after releases: a draining session reports decaying
+            # occupancy, not the admission-time peak
+            report.page_occupancy = self.allocator.occupancy
+            report.cached_pages = self.allocator.cached_pages
 
         sched = self._schedule_chunks()
         if not sched and not decode_active.any():
+            _paged_report_tail()
             report.wall_s = time.perf_counter() - t0
             return report
 
@@ -361,7 +606,8 @@ class QueueSession:
             aw = max(1 << (max(1, need) - 1).bit_length(), Q)
             aw = min(aw, eng.cfg.max_len)
             logits = eng._mixed_step(self.cache, torch.as_tensor(chunks_np, device=dev),
-                                     self.tok, self._lens_host, new_lens, is_decode, aw)
+                                     self.tok, self._lens_host, new_lens, is_decode, aw,
+                                     self.tables if self.paged else None)
             self._lens_host += new_lens
             report.mixed_steps += 1
             completing = [s for s, c in sched if len(self._prefilling[s]["rem"]) == len(c)]
@@ -377,6 +623,9 @@ class QueueSession:
                     first = eng._sample(logits[s][None], self._prefilling[s]["akey"])
                     tok = torch.where(torch.arange(n_slots, device=dev) == s, first, tok)
                 self.tok = tok
+            # a prompt completing this step publishes its last-position logits
+            published = (dict(zip(completing, logits[completing].float().cpu().numpy()))
+                         if self.paged and completing else None)
             report.useful_tokens += len(pairs)
             report.wasted_tokens += n_slots - len(pairs) - len(sched)
             deferred_done.extend(slots.step())
@@ -384,7 +633,13 @@ class QueueSession:
                 stt = self._prefilling[s]
                 stt["rem"] = stt["rem"][len(c):]
                 report.prefill_chunks += 1
+                if self.paged:
+                    self.allocator.stats.prefilled_tokens += len(c)
                 if len(stt["rem"]) == 0:
+                    if self.paged:
+                        al = self.allocator
+                        al.publish(stt["tokens"], self._slot_pages[s][:al.blocks_for(stt["plen"])],
+                                   published[s])
                     slots.admit(s, stt["rid"], stt["max_new"])
                     del self._prefilling[s]
                     eng.telemetry.prefills += 1
@@ -410,8 +665,9 @@ class QueueSession:
             t_disp = time.perf_counter()
             active = torch.as_tensor(decode_active, device=dev)
             lens_dev = torch.as_tensor(self._lens_host, dtype=torch.int32, device=dev)
+            tables = torch.as_tensor(self.tables, device=dev) if self.paged else None
             self.tok, toks = eng._chunk_loop(
-                self.cache, self.tok, lens_dev, active, self.generator, chunk)
+                self.cache, self.tok, lens_dev, active, self.generator, chunk, tables)
             self._lens_host[decode_active] = np.minimum(
                 self._lens_host[decode_active] + chunk, eng.cfg.max_len - 1)
             t_sync = time.perf_counter()
@@ -432,6 +688,7 @@ class QueueSession:
             report.chunk_steps = chunk
             report.sync_s += time.perf_counter() - t_sync
 
+        _paged_report_tail()
         report.wall_s = time.perf_counter() - t0
         tel = eng.telemetry
         tel.mixed_steps += report.mixed_steps
@@ -442,6 +699,10 @@ class QueueSession:
         tel.useful_tokens += report.useful_tokens
         tel.wasted_tokens += report.wasted_tokens
         tel.completed_requests += len(report.completed)
+        tel.prefix_hits += report.prefix_hits
+        tel.prefix_misses += report.prefix_misses
+        tel.reused_tokens += report.reused_tokens
+        tel.prefilled_tokens += report.prefilled_tokens
         return report
 
 

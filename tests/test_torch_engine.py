@@ -5,6 +5,8 @@ the JAX ``EngineClient`` on the same weights and requests, and the pump
 counters must agree.  At ``max_len=2048`` every decode step takes the
 split-K plain version (``auto_k_splits(2048) = 4``).
 """
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -105,9 +107,23 @@ def test_cancel_frees_the_slot(pair):
 
 def test_unported_options_raise(pair):
     *_, cfg, model = pair
-    for kw in (dict(paged_kv=True), dict(mixed_step=False), dict(spec_k=2)):
+    for kw in (dict(mixed_step=False), dict(spec_k=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServingEngine(model, EngineConfig(max_len=64, **kw), device="cpu")
+
+
+def test_paged_kv_needs_a_pageable_model(pair):
+    """paged_kv=True on a config without supports_paged_kv raises
+    ValueError, in the port as in JAX."""
+    jmodel, _, cfg, _ = pair
+    ncfg = dataclasses.replace(cfg, supports_decode=False)
+    model = Model(ncfg, device="cpu")
+    assert not model.supports_paged_kv
+    with pytest.raises(ValueError, match="paged_kv"):
+        ServingEngine(model, EngineConfig(max_len=64, paged_kv=True), device="cpu")
+    jm = JaxModel(dataclasses.replace(jmodel.cfg, supports_decode=False))
+    with pytest.raises(ValueError, match="paged_kv"):
+        JaxServingEngine(jm, None, JaxEngineConfig(max_len=64, paged_kv=True))
 
 
 def test_submit_bounds(pair):

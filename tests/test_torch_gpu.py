@@ -1,4 +1,5 @@
-"""Card-only tests of the port: every CUDA kernel against its plain version.
+"""Card-only tests of the port: every CUDA kernel against its plain version
+(the paged kernels at page sizes 4, 8, 16 and 64).
 
 Marked ``gpu``; each test asks the ``cuda`` fixture for the card, which
 skips when ``torch.cuda.is_available()`` is false.  This file imports no
@@ -101,6 +102,71 @@ def test_mixed_kernel_vs_plain_window_view(cuda, dtype, Q):
     _close(out, ref.mixed_attention(q, kw, vw, lens), dtype)
 
 
+def _paged(rng, B, nb, ps, Hkv, D, lens, dtype, dev):
+    """A pool of 1 + B·nb pages, shuffled tables whose rows 1.. share row
+    0's first two pages, TRASH_PAGE (0) past each length."""
+    P = 1 + B * nb
+    k, v = _kv(rng, P, ps, Hkv, D, dtype, dev)
+    tbl = rng.permutation(np.arange(1, P))[: B * nb].reshape(B, nb)
+    tbl[1:, :2] = tbl[0, :2]
+    used = -(-np.asarray(lens) // ps)
+    tbl[np.arange(nb)[None, :] >= used[:, None]] = 0
+    return k, v, torch.as_tensor(tbl, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ps", [4, 8, 16, 64])
+def test_paged_decode_kernel_vs_plain(cuda, dtype, ps):
+    rng = np.random.default_rng(4)
+    B, Hkv, G, D, S = 4, 8, 2, 128, 1024
+    nb = S // ps
+    lens_np = np.array([S, ps + 1, 1, ps])
+    k, v, tbl = _paged(rng, B, nb, ps, Hkv, D, lens_np, dtype, cuda)
+    q = torch.as_tensor(rng.standard_normal((B, Hkv * G, D)), dtype=torch.float32).to(cuda, dtype)
+    lens = torch.as_tensor(lens_np, dtype=torch.int32, device=cuda)
+    out = kernel.decode_attention_paged_cuda(q, k, v, tbl, lens)
+    _close(out, ref.decode_attention_paged(q, k, v, tbl, lens), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ps", [4, 8, 16, 64])
+def test_paged_splitk_kernels_vs_plain(cuda, dtype, ps):
+    rng = np.random.default_rng(5)
+    B, Hkv, G, D, S = 4, 8, 2, 128, 4096
+    nb = S // ps
+    K = ops.auto_paged_k_splits(nb, ps)
+    assert K == 8
+    lens_np = np.array([S, 2049, 17, 1])
+    k, v, tbl = _paged(rng, B, nb, ps, Hkv, D, lens_np, dtype, cuda)
+    q = torch.as_tensor(rng.standard_normal((B, Hkv * G, D)), dtype=torch.float32).to(cuda, dtype)
+    lens = torch.as_tensor(lens_np, dtype=torch.int32, device=cuda)
+    m, l, acc = kernel.paged_splitk_partial_cuda(q, k, v, tbl, lens, k_splits=K)
+    m_r, l_r, acc_r = ref.decode_attention_paged_splitk_partial(q, k, v, tbl, lens, k_splits=K)
+    torch.testing.assert_close(m, m_r, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(l, l_r, atol=1e-4, rtol=1e-3)
+    torch.testing.assert_close(acc, acc_r, atol=ACC_ATOL[dtype], rtol=1e-3)
+    empty = m_r <= -1e29
+    assert bool(empty.any()) and bool((l[empty] == 0).all()) and bool((acc[empty] == 0).all())
+    _close(kernel.decode_attention_paged_splitk_cuda(q, k, v, tbl, lens, k_splits=K),
+           ref.decode_attention_paged(q, k, v, tbl, lens), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ps", [4, 8, 16, 64])
+def test_paged_mixed_kernel_vs_plain_truncated_table(cuda, dtype, ps):
+    rng = np.random.default_rng(6)
+    B, Hkv, G, D, Q, S, W = 4, 8, 2, 128, 8, 4096, 2048
+    nb = S // ps
+    cl_np = np.array([0, 17, 511, W - Q])
+    k, v, tbl = _paged(rng, B, nb, ps, Hkv, D, cl_np + Q, dtype, cuda)
+    q = torch.as_tensor(rng.standard_normal((B, Q, Hkv * G, D)), dtype=torch.float32).to(cuda, dtype)
+    cl = torch.as_tensor(cl_np, dtype=torch.int32, device=cuda)
+    view = tbl[:, :W // ps]                        # a column slice, read in place
+    assert not view.is_contiguous()
+    out = kernel.mixed_attention_paged_cuda(q, k, v, view, cl)
+    _close(out, ref.mixed_attention_paged(q, k, v, view, cl), dtype)
+
+
 def test_ops_dispatch_counts_launches(cuda):
     rng = np.random.default_rng(3)
     B, Hkv, G, D = 2, 2, 2, 64
@@ -113,9 +179,18 @@ def test_ops_dispatch_counts_launches(cuda):
                torch.float32)
     q4 = torch.as_tensor(rng.standard_normal((B, 4, Hkv * G, D)), dtype=torch.float32).to(cuda)
     ops.mixed_attention(q4, k, v, lens)
+    for nb in (32, 128):                           # 512 and 2048 logical keys at ps=16
+        kp, vp, tbl = _paged(rng, B, nb, 16, Hkv, D, [nb * 16, 5], torch.float32, cuda)
+        plens = torch.tensor([nb * 16, 5], dtype=torch.int32, device=cuda)
+        _close(ops.decode_attention(q, kp, vp, plens, page_table=tbl),
+               ref.decode_attention_paged(q, kp, vp, tbl, plens), torch.float32)
+    ops.mixed_attention(q4, kp, vp, plens - 4, page_table=tbl)
     torch.cuda.synchronize()
     assert kernel.LAUNCHES == {"decode_attention": 1, "decode_attention_splitk_partial": 1,
-                               "decode_attention_splitk_combine": 1, "mixed_attention": 1}
+                               "decode_attention_splitk_combine": 2, "mixed_attention": 1,
+                               "decode_attention_paged": 1,
+                               "decode_attention_paged_splitk_partial": 1,
+                               "mixed_attention_paged": 1}
 
 
 def test_kernel_rejects_bad_layout(cuda):
@@ -126,3 +201,12 @@ def test_kernel_rejects_bad_layout(cuda):
         kernel.decode_attention_cuda(q, k.transpose(1, 2).contiguous().transpose(1, 2), k, lens)
     with pytest.raises(ValueError):
         kernel.decode_attention_cuda(q, k, k, lens.long())
+    pool = torch.zeros((4, 16, 2, 64), device=cuda)
+    tbl = torch.ones((1, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        kernel.decode_attention_paged_cuda(q, pool, pool, tbl.long(), lens)
+    with pytest.raises(ValueError):
+        kernel.decode_attention_paged_cuda(q, pool.transpose(1, 2).contiguous().transpose(1, 2),
+                                           pool, tbl, lens)
+    with pytest.raises(ValueError):
+        kernel.paged_splitk_partial_cuda(q, pool, pool, tbl, lens, k_splits=3)
