@@ -8,14 +8,20 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
 Phases (any failure exits non-zero; nothing is caught):
 
 1. card: name and power limit from nvidia-smi;
-2. build: nvcc builds every kernel source of the path (printing ptxas -v);
+2. build: nvcc builds every kernel source of the path, one process per
+   source, all at once (printing ptxas -v);
 3. kernels: each CUDA kernel against its plain PyTorch version at the
    serving shapes, in bf16 (atol 2e-2, and each output row's largest error
    within a tenth of that row's RMS) and fp32 (atol 2e-5, rtol 1e-3); the
    paged kernels over the auto-sized pool (3073 pages of 16) with shuffled,
    shared and trash table entries, in fp32 at page sizes 8 and 64, and the
    single-stage paged decode and paged mixed step at phase 5b's fp32
-   max_len 1024 (769 pages);
+   max_len 1024 (769 pages), and the paged mixed step at phase 4d's
+   prefill_paged call (B=1, suffixes of 21 and 500 after a 1024-token
+   prefix, one table row of batch stride 0) in bf16 and fp32; the
+   flash-attention forward at the prefill
+   shape (B=1, 16 q / 8 kv heads, D 128, causal) at S 16, 700 and 2000,
+   and non-causal, windowed and Sk > Sq;
 4. serve: EngineClient serves full-width qwen3-0.6b (28 layers, bf16,
    seeded random weights) at the default EngineConfig: 16 requests,
    prompts 16..2000 tokens, 32 new tokens each; launch counters are
@@ -25,12 +31,23 @@ Phases (any failure exits non-zero; nothing is caught):
    system prompt, 4 cold prompts, and 4 exact repeats each submitted right
    after its original (full hits with copy-on-write); every page must be
    released after the drain;
+4c. serve, legacy: phase 4's model and traffic at
+   EngineConfig(mixed_step=False): one Model.prefill (28 flash-attention
+   launches) per admission, then decode chunks;
+4d. serve, legacy paged: phase 4b's traffic at
+   EngineConfig(mixed_step=False, paged_kv=True): misses prefill, prefix
+   hits run Model.prefill_paged, repeats hit with copy-on-write; every page
+   released after the drain;
+4e. generate: ServingEngine.generate at B=8, prompt 512, 32 steps;
 5. card vs CPU: the same kind of traffic at fp32 (full width, 4 layers,
    max_len 1024, prompts up to 900) on the card and on the CPU (plain
    versions); greedy streams must agree token for token, or each first
    divergence must be a near-tie, printed with its logit margin;
 5b. card vs CPU, paged: the same check over paged_kv=True with
    shared-prefix traffic (single-stage paged decode: 64 pages of 16);
+5c. legacy vs mixed on the card: phases 5 and 5b's traffic at fp32 through
+   the legacy admission must give the card's mixed streams (or near-ties),
+   and generate must agree on the card and the CPU (B=4);
 6. timing: every kernel, its plain version and the one PyTorch call with
    the same result (scaled_dot_product_attention, used only as a
    yardstick; no one call reads a block table) timed with CUDA events;
@@ -83,6 +100,21 @@ class SmokeFailure(RuntimeError):
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SmokeFailure(what)
+
+
+def reset_launches() -> None:
+    from repro_torch.kernels.decode_attention import kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+    kernel.reset_launches()
+    flash_kernel.reset_launches()
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels.decode_attention import kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+    return {**kernel.LAUNCHES, **flash_kernel.LAUNCHES}
 
 
 def card_line() -> str:
@@ -243,7 +275,49 @@ def phase_kernels() -> dict:
         qm, kp, vp, view, cl), ref.mixed_attention_paged(qm, kp, vp, view, cl), dtype)
     errs["mixed_attention_paged"][str(dtype)] = max(
         errs["mixed_attention_paged"][str(dtype)], err)
+
+    # Model.prefill_paged's call in phase 4d: B=1, a suffix of Q queries
+    # after a 1024-token cached prefix, through one table row of batch
+    # stride 0 over the auto-sized pool of max_len S_MAX
+    start = 1024
+    cl = torch.tensor([start], dtype=torch.int32, device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        for Q in (21, 500):
+            kp, vp, tbl = paged_inputs(gen, np.full(B, start + Q), PAGE, dtype)
+            row = tbl[0].as_strided((1, tbl.shape[1]), (0, 1))
+            qm = _rand(gen, (1, Q, HKV * G, D), dtype)
+            err = _close(f"mixed_attention_paged prefill_paged Q={Q} start={start} "
+                         f"pool={kp.shape[0]}", kernel.mixed_attention_paged_cuda(
+                             qm, kp, vp, row, cl), ref.mixed_attention_paged(qm, kp, vp, row, cl),
+                         dtype)
+            errs["mixed_attention_paged"][str(dtype)] = max(
+                errs["mixed_attention_paged"][str(dtype)], err)
+            del kp, vp
+    errs["flash_attention"] = flash_kernel_checks(gen)
     torch.cuda.synchronize()
+    return errs
+
+
+def flash_kernel_checks(gen) -> dict:
+    """The flash-attention forward vs its plain version: the prefill shape
+    (B=1, Hq 16, Hkv 8, D 128, causal) at S 16, 700 and 2000, then
+    non-causal, windowed and right-aligned (Sk > Sq) cases."""
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+
+    errs = {}
+    cases = [(1, S, S, True, 0) for S in (16, 700, 2000)]
+    cases += [(2, 256, 256, False, 0), (2, 300, 300, True, 96), (2, 256, 256, False, 96),
+              (2, 100, 700, True, 0), (1, 37, 2000, True, 512)]
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, sq, sk, causal, window in cases:
+            q = _rand(gen, (b, sq, HKV * G, D), dtype)
+            k, v = _rand(gen, (b, sk, HKV, D), dtype), _rand(gen, (b, sk, HKV, D), dtype)
+            got = flash_kernel.flash_attention_cuda(q, k, v, causal=causal, window=window)
+            want = flash_ref.flash_attention(q, k, v, causal=causal, window=window)
+            err = _close(f"flash_attention B={b} Sq={sq} Sk={sk} causal={causal} "
+                         f"window={window}", got, want, dtype)
+            errs[str(dtype)] = max(errs.get(str(dtype), 0.0), err)
     return errs
 
 
@@ -342,15 +416,15 @@ def free_memory() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_serve(name_line: str, model, *, paged: bool) -> dict:
-    """Phase 4 (contiguous) or 4b (paged) over the full-width model."""
-    from repro_torch.kernels.decode_attention import kernel
+def phase_serve(name_line: str, model, *, paged: bool, legacy: bool = False) -> dict:
+    """Phase 4 (contiguous) or 4b (paged) over the full-width model, or
+    with ``legacy`` 4c / 4d through the legacy (mixed_step=False) admission."""
     from repro_torch.serving import EngineConfig
 
     cfg = model.cfg
     dev = model.device
-    ecfg = EngineConfig(paged_kv=paged)
-    label = "serve paged" if paged else "serve"
+    ecfg = EngineConfig(paged_kv=paged, mixed_step=not legacy)
+    label = ("serve legacy" if legacy else "serve") + (" paged" if paged else "")
     rng = np.random.default_rng(0)
     # warm-up (cuBLAS handles, allocator) outside the counted run
     serve(model, ecfg, prompts_for(rng, 2, 16, 64, cfg.vocab_size), 4, dev)
@@ -367,32 +441,57 @@ def phase_serve(name_line: str, model, *, paged: bool) -> dict:
         prompts = prompts_for(rng, 16, 16, 2000, cfg.vocab_size)
     max_new = 32
     torch.cuda.reset_peak_memory_stats()
-    kernel.reset_launches()
+    reset_launches()
     handles, wall, engine = serve(model, ecfg, prompts, max_new, dev)
-    launches = dict(kernel.LAUNCHES)
+    launches = read_launches()
     check_handles(handles, engine, max_new, cfg.vocab_size, label)
+    tel = engine.telemetry
     if paged:
         path = ("mixed_attention_paged", "decode_attention_paged_splitk_partial",
                 "decode_attention_splitk_combine")
         for k_ in ("decode_attention", "decode_attention_splitk_partial", "mixed_attention"):
             check(launches[k_] == 0, f"{label}: contiguous kernel {k_} launched")
     else:
-        path = ("mixed_attention", "decode_attention_splitk_partial",
-                "decode_attention_splitk_combine")
+        path = ("decode_attention_splitk_partial", "decode_attention_splitk_combine")
+        path += () if legacy else ("mixed_attention",)
+    if legacy:
+        # one Model.prefill (a flash launch per layer) per prefill dispatch;
+        # a paged prefix hit's prefill_paged runs the paged q-chunk kernel
+        path += ("flash_attention",)
+        st = handles[0]._client.session.allocator.stats if paged else None
+        full = tel.prefills - (st.prefix_hits if paged else 0)
+        check(launches["flash_attention"] == cfg.n_layers * full,
+              f"{label}: {launches['flash_attention']} flash launches for {full} full "
+              f"prefills of {cfg.n_layers} layers")
+        check(launches["mixed_attention"] == 0, f"{label}: mixed kernel launched")
+        if paged:
+            check(launches["mixed_attention_paged"] == cfg.n_layers * st.prefix_hits,
+                  f"{label}: {launches['mixed_attention_paged']} paged q-chunk launches for "
+                  f"{st.prefix_hits} prefix hits")
+    else:
+        check(launches["flash_attention"] == 0, f"{label}: flash kernel launched")
     for k_ in path:
         check(launches[k_] > 0, f"{label}: kernel {k_} never launched on the main path")
     ttft = np.array([h.record.ttft_s for h in handles])
-    tel = engine.telemetry
     out = dict(
         requests=len(handles), layers=cfg.n_layers, dtype=cfg.dtype, max_new=max_new,
         prompt_tokens=int(sum(len(p) for p in prompts)),
         generated_tokens=int(sum(len(h.result()) for h in handles)),
         wall_s=wall, tokens_per_s=sum(len(h.result()) for h in handles) / wall,
         ttft_p50_s=float(np.percentile(ttft, 50)), ttft_p99_s=float(np.percentile(ttft, 99)),
-        mixed_steps=tel.mixed_steps, decode_chunks=tel.chunks,
+        mixed_steps=tel.mixed_steps, decode_chunks=tel.chunks, prefills=tel.prefills,
         launches=launches, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         card=name_line,
     )
+    if legacy and not paged:
+        # the prefills alone, each timed to its end: their share of the wall
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p in prompts:
+            model.prefill(torch.as_tensor(p[None], device=dev))
+        torch.cuda.synchronize()
+        alone = time.perf_counter() - t0
+        out.update(prefill_alone_s=alone, prefill_share_of_wall=alone / wall)
     if paged:
         session = handles[0]._client.session
         al = session.allocator
@@ -411,6 +510,33 @@ def phase_serve(name_line: str, model, *, paged: bool) -> dict:
     return out
 
 
+def phase_generate(name_line: str, model) -> dict:
+    """Phase 4e: ServingEngine.generate at B=8, prompt 512, 32 steps."""
+    from repro_torch.serving import EngineConfig
+
+    cfg = model.cfg
+    B_, plen, steps = 8, 512, 32
+    engine = make_engine_class()(model, EngineConfig(), device=model.device)
+    rng = np.random.default_rng(4)
+    engine.generate({"inputs": rng.integers(0, cfg.vocab_size, (2, 16))}, 2, 16)   # warm-up
+    toks = rng.integers(0, cfg.vocab_size, (B_, plen))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = engine.generate({"inputs": toks}, steps, plen)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check(out.shape == (B_, steps), f"generate: shape {out.shape}")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "generate: out-of-vocab token")
+    check(int(engine.nonfinite) == 0, f"generate: {int(engine.nonfinite)} non-finite logits")
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"generate: {launches['flash_attention']} flash launches, not {cfg.n_layers}")
+    for k_ in ("decode_attention_splitk_partial", "decode_attention_splitk_combine"):
+        check(launches[k_] == cfg.n_layers * steps, f"generate: {k_} {launches[k_]} launches")
+    return dict(batch=B_, prompt_len=plen, steps=steps, layers=cfg.n_layers, dtype=cfg.dtype,
+                wall_s=wall, tokens_per_s=B_ * steps / wall, launches=launches, card=name_line)
+
+
 def _margin(model, tokens, a: int, b: int) -> float:
     """|logit(a) - logit(b)| after ``tokens`` (one B=1 mixed step)."""
     cache = model.empty_cache(1, len(tokens) + 1)
@@ -419,9 +545,9 @@ def _margin(model, tokens, a: int, b: int) -> float:
     return float((logits[a] - logits[b]).abs())
 
 
-def phase_card_vs_cpu(cpu_model, card_model, *, paged: bool) -> dict:
-    """Phase 5 (contiguous) or 5b (paged): fp32 card streams vs the CPU's."""
-    from repro_torch.kernels.decode_attention import kernel
+def phase_card_vs_cpu(cpu_model, card_model, *, paged: bool) -> tuple:
+    """Phase 5 (contiguous) or 5b (paged): fp32 card streams vs the CPU's.
+    Returns the summary, the prompts and the card's streams."""
     from repro_torch.serving import EngineConfig
 
     cfg = cpu_model.cfg
@@ -435,31 +561,18 @@ def phase_card_vs_cpu(cpu_model, card_model, *, paged: bool) -> dict:
     else:
         prompts = prompts_for(rng, 16, 16, 900, cfg.vocab_size)
     max_new = 32
-    kernel.reset_launches()
+    reset_launches()
     card_h, card_wall, card_eng = serve(card_model, ecfg, prompts, max_new, torch.device("cuda"))
-    launches = dict(kernel.LAUNCHES)
+    launches = read_launches()
     for k_ in (("decode_attention_paged", "mixed_attention_paged") if paged
                else ("decode_attention", "mixed_attention")):
         check(launches[k_] > 0, f"{label}: kernel {k_} never launched")
     cpu_h, cpu_wall, cpu_eng = serve(cpu_model, ecfg, prompts, max_new, torch.device("cpu"))
     check_handles(card_h, card_eng, max_new, cfg.vocab_size, f"{label} card fp32")
     check_handles(cpu_h, cpu_eng, max_new, cfg.vocab_size, f"{label} cpu fp32")
-    exact, ties = 0, []
-    for p, hc, hp in zip(prompts, card_h, cpu_h):
-        a, b = hc.result(), hp.result()
-        if np.array_equal(a, b):
-            exact += 1
-            continue
-        j = int(np.nonzero(a != b)[0][0])
-        ctx = list(p) + list(b[:j])
-        m_cpu = _margin(cpu_model, ctx, int(a[j]), int(b[j]))
-        m_card = _margin(card_model, ctx, int(a[j]), int(b[j]))
-        ties.append(dict(rid=hc.rid, position=j, card_token=int(a[j]), cpu_token=int(b[j]),
-                         margin_cpu=m_cpu, margin_card=m_card))
-        print(f"  stream {hc.rid} diverges at generated token {j}: card {a[j]} vs cpu {b[j]}, "
-              f"logit margin {m_cpu:.3e} (cpu) / {m_card:.3e} (card)")
-        check(m_cpu < NEAR_TIE, f"stream {hc.rid} diverges at a margin of {m_cpu:.3e} "
-                                f">= {NEAR_TIE}: not a near-tie")
+    exact, ties = compare_streams(prompts, [h.result() for h in card_h],
+                                  [h.result() for h in cpu_h], card_model, cpu_model,
+                                  ("card", "cpu"))
     out = dict(requests=len(prompts), exact_streams=exact, near_ties=ties, layers=cfg.n_layers,
                dtype=cfg.dtype, max_len=ecfg.max_len, launches=launches,
                card_wall_s=card_wall, cpu_wall_s=cpu_wall)
@@ -470,6 +583,63 @@ def phase_card_vs_cpu(cpu_model, card_model, *, paged: bool) -> dict:
               f"{label}: no full or prefix hit: {sts[0]}")
         out.update(full_hits=sts[0].full_hits, prefix_hits=sts[0].prefix_hits,
                    cow_copies=sts[0].cow_copies)
+    return out, prompts, [h.result() for h in card_h]
+
+
+def compare_streams(prompts, streams_a, streams_b, model_a, model_b, names) -> tuple:
+    """Count streams equal token for token; every first divergence must be
+    a near-tie under ``model_b`` (printed with both models' margins)."""
+    exact, ties = 0, []
+    for rid, (p, a, b) in enumerate(zip(prompts, streams_a, streams_b)):
+        if np.array_equal(a, b):
+            exact += 1
+            continue
+        j = int(np.nonzero(a != b)[0][0])
+        ctx = list(p) + list(b[:j])
+        m_a = _margin(model_a, ctx, int(a[j]), int(b[j]))
+        m_b = _margin(model_b, ctx, int(a[j]), int(b[j]))
+        ties.append({"rid": rid, "position": j, f"{names[0]}_token": int(a[j]),
+                     f"{names[1]}_token": int(b[j]), f"margin_{names[0]}": m_a,
+                     f"margin_{names[1]}": m_b})
+        print(f"  stream {rid} diverges at generated token {j}: {names[0]} {a[j]} vs "
+              f"{names[1]} {b[j]}, logit margin {m_a:.3e} ({names[0]}) / {m_b:.3e} ({names[1]})")
+        check(m_b < NEAR_TIE, f"stream {rid} diverges at a margin of {m_b:.3e} "
+                              f">= {NEAR_TIE}: not a near-tie")
+    return exact, ties
+
+
+def phase_legacy_vs_mixed(cpu_model, card_model, streams) -> dict:
+    """Phase 5c: phases 5 and 5b's traffic through the legacy admission on
+    the card must give the card's mixed streams (``streams[paged]`` is
+    (prompts, card streams) of phase 5 or 5b); generate (B=4) must agree
+    on the card and the CPU."""
+    from repro_torch.serving import EngineConfig
+
+    cfg = card_model.cfg
+    card = torch.device("cuda")
+    out = {}
+    for key, paged in (("contiguous", False), ("paged", True)):
+        prompts, mixed_streams = streams[paged]
+        ecfg = EngineConfig(max_len=1024, paged_kv=paged, mixed_step=False)
+        reset_launches()
+        handles, wall, engine = serve(card_model, ecfg, prompts, 32, card)
+        launches = read_launches()
+        check_handles(handles, engine, 32, cfg.vocab_size, f"legacy vs mixed {key}")
+        check(launches["flash_attention"] > 0, f"legacy vs mixed {key}: no flash launch")
+        exact, ties = compare_streams(prompts, [h.result() for h in handles], mixed_streams,
+                                      card_model, card_model, ("legacy", "mixed"))
+        out[key] = dict(requests=len(prompts), exact_streams=exact, near_ties=ties,
+                        wall_s=wall, prefills=engine.telemetry.prefills,
+                        flash_launches=launches["flash_attention"])
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (4, 64))
+    gens = []
+    for model in (card_model, cpu_model):
+        engine = make_engine_class()(model, EngineConfig(max_len=1024), device=model.device)
+        gens.append(engine.generate({"inputs": toks}, 16, 64))
+    exact, ties = compare_streams([list(t) for t in toks], gens[0], gens[1], card_model,
+                                  cpu_model, ("card", "cpu"))
+    out["generate"] = dict(batch=4, prompt_len=64, steps=16, exact_streams=exact,
+                           near_ties=ties)
     return out
 
 
@@ -619,6 +789,26 @@ def phase_timing() -> dict:
         4 * pairs * HKV * G * D, None,
         f"{shape} Q={Q} tables cut to {W // ps} columns, cache_lens={cl_np.tolist()}; "
         f"library: {no_call}")
+    del k, v, kp, vp
+
+    # flash attention at the prefill of phase 4c's longest prompt: bf16,
+    # B=1, S=2000, causal; ops count the S(S+1)/2 visible (query, key) pairs
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+
+    S = 2000
+    q = _rand(gen, (1, S, HKV * G, D), dt)
+    k, v = _rand(gen, (1, S, HKV, D), dt), _rand(gen, (1, S, HKV, D), dt)
+    F = torch.nn.functional
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    row("flash_attention", dt,
+        time_ms(lambda: flash_kernel.flash_attention_cuda(q, k, v, causal=True), 50),
+        time_ms(lambda: flash_ref.flash_attention(q, k, v, causal=True), 10),
+        (2 * S * HKV * G * D + 2 * S * HKV * D) * es,
+        4 * D * HKV * G * S * (S + 1) // 2,
+        time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                       enable_gqa=True), 50),
+        f"bf16 B=1 Sq=Sk={S} Hq={HKV * G} Hkv={HKV} D={D} causal")
     return out
 
 
@@ -626,6 +816,7 @@ def phase_timing() -> dict:
 
 
 REPLACES = {
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:96",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:103",
     "decode_attention_splitk_partial": "src/repro/kernels/decode_attention/kernel.py:218",
     "decode_attention_splitk_combine": "src/repro/kernels/decode_attention/kernel.py:272",
@@ -636,13 +827,14 @@ REPLACES = {
 }
 # the main-path runs whose launches each kernel reports (the combine serves both layouts)
 LAUNCH_PHASES = {
+    "flash_attention": ("serve_legacy", "serve_legacy_paged", "generate"),
     "decode_attention": ("card_vs_cpu",),
     "decode_attention_splitk_partial": ("serve",),
     "decode_attention_splitk_combine": ("serve", "serve_paged"),
     "mixed_attention": ("serve",),
     "decode_attention_paged": ("card_vs_cpu_paged",),
     "decode_attention_paged_splitk_partial": ("serve_paged",),
-    "mixed_attention_paged": ("serve_paged",),
+    "mixed_attention_paged": ("serve_paged", "serve_legacy_paged"),
 }
 
 
@@ -658,6 +850,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.models import Model
 
     t_start = time.perf_counter()
@@ -665,7 +858,7 @@ def main() -> int:
     print(f"[1/6] card: {name_line}", flush=True)
 
     t0 = time.perf_counter()
-    logs = _build.build([kernel.SOURCE])
+    logs = _build.build([kernel.SOURCE, flash_kernel.SOURCE])
     print(f"[2/6] built {len(logs)} source(s) in {time.perf_counter() - t0:.1f} s", flush=True)
     for src, log in logs.items():
         print(f"  {src.relative_to(ROOT)}:")
@@ -682,13 +875,22 @@ def main() -> int:
     cfg = get_config("qwen3-0.6b")
     model = Model(cfg, device="cuda").init_(torch.Generator("cuda").manual_seed(0))
     runs = {}
-    for key, tag, paged in (("serve", "4", False), ("serve_paged", "4b", True)):
+    for key, tag, paged, legacy in (("serve", "4", False, False),
+                                    ("serve_paged", "4b", True, False),
+                                    ("serve_legacy", "4c", False, True),
+                                    ("serve_legacy_paged", "4d", True, True)):
         t0 = time.perf_counter()
-        runs[key] = phase_serve(name_line, model, paged=paged)
+        runs[key] = phase_serve(name_line, model, paged=paged, legacy=legacy)
         free_memory()
-        print(f"[{tag}/6] served full-width qwen3-0.6b{' (paged)' if paged else ''} in "
+        what = ("legacy " if legacy else "") + ("paged " if paged else "")
+        print(f"[{tag}/6] served full-width qwen3-0.6b ({what or 'mixed '}admission) in "
               f"{time.perf_counter() - t0:.1f} s on {name_line}: " + json.dumps(runs[key]),
               flush=True)
+    t0 = time.perf_counter()
+    runs["generate"] = phase_generate(name_line, model)
+    free_memory()
+    print(f"[4e/6] generate at full width in {time.perf_counter() - t0:.1f} s: "
+          + json.dumps(runs["generate"]), flush=True)
     del model
     free_memory()
 
@@ -696,12 +898,19 @@ def main() -> int:
     cpu_model = Model(small, device="cpu").init_(torch.Generator().manual_seed(1))
     card_model = Model(small, device="cuda")
     card_model.load_state_dict(cpu_model.state_dict())
+    streams = {}
     for key, tag, paged in (("card_vs_cpu", "5", False), ("card_vs_cpu_paged", "5b", True)):
         t0 = time.perf_counter()
-        runs[key] = phase_card_vs_cpu(cpu_model, card_model, paged=paged)
+        runs[key], prompts, card_streams = phase_card_vs_cpu(cpu_model, card_model, paged=paged)
+        streams[paged] = (prompts, card_streams)
         free_memory()
         print(f"[{tag}/6] card vs cpu{' (paged)' if paged else ''} in "
               f"{time.perf_counter() - t0:.1f} s: " + json.dumps(runs[key]), flush=True)
+    t0 = time.perf_counter()
+    runs["legacy_vs_mixed"] = phase_legacy_vs_mixed(cpu_model, card_model, streams)
+    free_memory()
+    print(f"[5c/6] legacy vs mixed on the card, generate card vs cpu in "
+          f"{time.perf_counter() - t0:.1f} s: " + json.dumps(runs["legacy_vs_mixed"]), flush=True)
     del cpu_model, card_model
     free_memory()
 
@@ -714,8 +923,9 @@ def main() -> int:
     for name, t in tim.items():
         by_phase = {ph: runs[ph]["launches"][name] for ph in LAUNCH_PHASES[name]}
         e = errs[name]
+        src = flash_kernel.SOURCE if name in flash_kernel.LAUNCHES else kernel.SOURCE
         rows.append(dict(
-            name=name, route="cuda", source=str(kernel.SOURCE.relative_to(ROOT)),
+            name=name, route="cuda", source=str(src.relative_to(ROOT)),
             replaces=REPLACES[name], launches=sum(by_phase.values()),
             launches_by_phase=by_phase,
             max_abs_err=e[str(torch.bfloat16)], max_abs_err_fp32=e[str(torch.float32)],

@@ -128,8 +128,10 @@ def _check_paged(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
             raise ValueError(f"{name} pool must be contiguous: strides {t.stride()}")
         if t.data_ptr() % 16:               # rows are read as 16-byte vectors
             raise ValueError(f"{name} pool must be 16-byte aligned")
+    # a one-row table's row stride is never used (the kernel reads row b = 0)
     if (tables.dtype != torch.int32 or tables.dim() != 2 or tables.shape[0] != q.shape[0]
-            or tables.stride(1) != 1 or tables.stride(0) < tables.shape[1]):
+            or tables.stride(1) != 1
+            or (tables.shape[0] > 1 and tables.stride(0) < tables.shape[1])):
         raise ValueError(f"block tables must be (B, n_blocks) int32 with unit column stride: "
                          f"{tables.dtype} {tuple(tables.shape)} strides {tables.stride()}")
     if lens.dtype != torch.int32 or lens.shape != (q.shape[0],) or not lens.is_contiguous():

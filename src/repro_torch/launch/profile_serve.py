@@ -1,14 +1,16 @@
 """Profile the port's serving path on the card with ``torch.profiler``.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--paged] [--out build/profile]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--paged] [--legacy] [--out build/profile]
 
 Serves full-width qwen3-0.6b (all 28 layers, seeded random weights, bf16)
 through ``EngineClient`` at the default ``EngineConfig`` (with ``--paged``,
-``EngineConfig(paged_kv=True)``) -- 8 requests with distinct prompts of 16
-to 1024 tokens, 16 new tokens each -- once to warm up and once under the
-profiler, and prints one JSON line: wall time, device busy time
-(the union of kernel and memcpy intervals in the trace) and idle share,
-time per mixed step and per decode step, the top device kernels, and the
+``paged_kv=True``; with ``--legacy``, ``mixed_step=False``: one prefill
+per admission) -- 8 requests with distinct prompts of 16 to 1024 tokens,
+16 new tokens each -- once to warm up and once under the profiler, and
+prints one JSON line: wall time, device busy time (the union of kernel
+and memcpy intervals in the trace) and idle share, time per engine step
+(a mixed step, a decode step or a prefill), the top device kernels, the
+flash-attention kernel's share of the device busy time, and the
 host-side calls that synchronise (``cudaStreamSynchronize``, pageable
 ``cudaMemcpyAsync``).  The Chrome trace goes to ``<out>/trace.json``.
 Needs a CUDA card.
@@ -58,12 +60,14 @@ def _union_us(intervals):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--paged", action="store_true", help="serve from the paged KV pool")
+    ap.add_argument("--legacy", action="store_true",
+                    help="legacy admission (mixed_step=False): one prefill per request")
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args(argv)
 
     cfg = get_config("qwen3-0.6b")
     model = Model(cfg).init_(torch.Generator("cuda").manual_seed(0))
-    ecfg = EngineConfig(paged_kv=args.paged)
+    ecfg = EngineConfig(paged_kv=args.paged, mixed_step=not args.legacy)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, int(n))
                for n in np.linspace(16, PROMPT_MAX, REQUESTS).round()]
@@ -85,15 +89,18 @@ def main(argv=None) -> int:
         if e.get("cat") == "kernel":
             kern[e["name"][:80]] += e["dur"]
     rt = Counter(e["name"] for e in events if e.get("cat") == "cuda_runtime")
-    steps = tel.mixed_steps + tel.chunks * ecfg.decode_chunk
+    legacy_prefills = 0 if ecfg.mixed_step else tel.prefills
+    steps = tel.mixed_steps + tel.chunks * ecfg.decode_chunk + legacy_prefills
+    flash_us = sum(v for k, v in kern.items() if "flash_fwd_kernel" in k)
     print(json.dumps(dict(
-        card=torch.cuda.get_device_name(0), paged_kv=args.paged, layers=cfg.n_layers,
-        requests=len(handles),
+        card=torch.cuda.get_device_name(0), paged_kv=args.paged, legacy=args.legacy,
+        layers=cfg.n_layers, requests=len(handles),
         prompt_tokens=int(sum(len(p) for p in prompts)), max_new=MAX_NEW,
         wall_s=wall, mixed_steps=tel.mixed_steps, decode_steps=tel.chunks * ecfg.decode_chunk,
-        ms_per_step=wall * 1e3 / max(1, steps),
+        prefills=legacy_prefills, ms_per_step=wall * 1e3 / max(1, steps),
         device_busy_s=busy_us / 1e6, device_span_s=span_us / 1e6,
         device_idle_share=1.0 - busy_us / max(span_us, 1.0),
+        flash_attention_ms=flash_us / 1e3, flash_share_of_busy=flash_us / max(busy_us, 1.0),
         top_kernels_ms={k: v / 1e3 for k, v in kern.most_common(12)},
         syncs=dict(stream_sync=rt.get("cudaStreamSynchronize", 0),
                    memcpy_async=rt.get("cudaMemcpyAsync", 0),

@@ -1,5 +1,6 @@
 """Full attention block of the serving path: fused qkv, qk-norm, RoPE, GQA
-against a contiguous KV cache or a shared page pool.
+over a whole prompt (prefill), against a contiguous KV cache or a shared
+page pool.
 
 Counterpart of the JAX package's ``models/attention.py`` for full
 attention (the sliding-window ring comes with a later slice).  The cache
@@ -8,8 +9,11 @@ per-layer page pool (P, page_size, Hkv, Dh), updated IN PLACE — where the
 JAX engine donated the buffer to its jitted step, the port writes into it.
 
 On a CUDA tensor the attention itself always runs the hand-written
-kernels (``kernels.decode_attention.ops``); on a CPU tensor their plain
-versions.  There is no ``use_pallas``-style switch.
+kernels (``kernels.flash_attention.ops`` for a prefill,
+``kernels.decode_attention.ops`` for the rest); on a CPU tensor their
+plain versions.  There is no ``use_pallas``-style switch: where the JAX
+qwen3 config computes its prefill with ``layers.chunked_attention``, the
+port runs the flash kernel, which computes the same function.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers
 
 
@@ -72,6 +77,19 @@ def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig,
         qk = layers.rms_norm(qk, p.qk_norm, cfg.norm_eps)
     qk = layers.apply_rope(qk, positions, cfg.rope_theta)
     return qk[:, :, :Hq], qk[:, :, Hq:], v.reshape(B, S, Hkv, hd)
+
+
+def attention_block(p: Attention, x: torch.Tensor,
+                    cfg: ModelConfig) -> Tuple[torch.Tensor, KVCache]:
+    """Prefill attention over a whole (B, S, d) prompt at positions
+    ``arange(S)``: causal GQA at Hkv width (KV is never repeated to Hq).
+    Returns the output (B, S, d) and the prompt's ``KVCache`` (B, S, Hkv,
+    Dh) — views into the projection's buffers."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    out = flash_ops.flash_attention(q, k, v, causal=cfg.causal)
+    return out.reshape(B, S, cfg.q_dim) @ p.wo, KVCache(k, v)
 
 
 def attention_decode(

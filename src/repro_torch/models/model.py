@@ -1,11 +1,13 @@
-"""Model facade of the port (dense family): decode and mixed steps.
+"""Model facade of the port (dense family): prefill, decode and mixed steps.
 
     model = Model(cfg, device="cuda").init_(torch.Generator("cuda").manual_seed(0))
+    logits, pcache = model.prefill(tokens)                       # (B, V), (L, B, S, ...)
     cache = model.empty_cache(batch, max_len)
     logits = model.decode(tokens, cache, cache_len)              # (B, V)
     logits = model.step_mixed(tokens, cache, cache_lens, new_lens)
     pool = model.empty_page_pool(num_pages, page_size)           # paged KV
     logits = model.decode(tokens, pool, cache_len, page_table=tables)
+    logits = model.prefill_paged(suffix, pool, page_row, start)  # (1, V)
 
 Counterpart of the JAX package's ``models/model.py`` for the serving path.
 The KV cache keeps the JAX layout ``(L, B, S, Hkv, Dh)``, the page pool
@@ -14,7 +16,7 @@ donated them).  ``device`` defaults to the card; a missing card raises.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -67,6 +69,36 @@ class Model(nn.Module):
         return self
 
     # -- serving ------------------------------------------------------------
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, DecoderKVCache]:
+        """tokens (B, S).  Returns the LAST position's logits (B, V) — the
+        all-position logits of a 2000-token prompt at full width would be
+        1.2 GB of fp32 — and the prompt cache (L, B, S, Hkv, Dh)."""
+        x = self.embed[torch.as_tensor(tokens, device=self.device)]
+        x, (k, v) = transformer.run_layers_seq(self.layers, x, self.cfg)
+        logits = transformer.logits_from_hidden(self.embed, self.final_norm, x[:, -1:], self.cfg)
+        return logits[:, 0], DecoderKVCache(k=k, v=v)
+
+    @torch.no_grad()
+    def prefill_paged(self, tokens: torch.Tensor, pool: DecoderKVCache,
+                      page_row: Union[np.ndarray, torch.Tensor], start: int) -> torch.Tensor:
+        """Continuation prefill of one slot: the (1, T) suffix ``tokens``
+        extends a paged cache whose positions [0, ``start``) are already in
+        the pages of ``page_row`` ((nb,) int32), writing its KV at
+        [start, start + T) in place.  Returns the last position's logits
+        (1, V).
+
+        This is ``step_mixed`` at B=1, Q=T, ``cache_lens=[start]`` through
+        the table ``page_row[None]``, and runs as that call (the JAX
+        ``run_layers_prefill_paged`` gathers the slot's whole cache per
+        layer instead; the result is the same function)."""
+        if not self.supports_paged_kv:
+            raise ValueError(f"{self.cfg.name}: paged prefill unsupported")
+        T = tokens.shape[1]
+        return self.step_mixed(torch.as_tensor(tokens, device=self.device), pool,
+                               np.array([start]), np.array([T]),
+                               page_table=_host_ints(page_row).reshape(1, -1))
+
     @torch.no_grad()
     def decode(self, tokens: torch.Tensor, cache: DecoderKVCache,
                cache_len: torch.Tensor, *,

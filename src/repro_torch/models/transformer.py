@@ -1,12 +1,13 @@
 """Decoder transformer of the serving path: layer modules, seeded init,
-the decode and mixed layer loops, and the tied-embedding logits.
+the prefill, decode and mixed layer loops, and the tied-embedding logits.
 
 Counterpart of the JAX package's ``models/transformer.py`` for the dense
 family.  The JAX stack scans over stacked (L, ...) leaves and builds the
 fused ``wqkv``/``w_gu`` once per jitted dispatch; the port keeps one
 ``DecoderLayer`` module per layer, holding those fused matrices from the
 moment weights load, so no step ever rebuilds them.  The layer loops are
-Python loops; each layer writes its KV slice in place.
+Python loops (no scan grouping or remat: the port serves, it does not
+train yet); each layer writes its KV slice in place.
 """
 from __future__ import annotations
 
@@ -71,6 +72,28 @@ def init_layer_(layer: DecoderLayer, cfg: ModelConfig, generator: torch.Generato
 def _mlp(layer: DecoderLayer, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = layers.rms_norm(x, layer.ln2, cfg.norm_eps)
     return x + layers.swiglu_fused(h, layer.w_gu, layer.w_down)
+
+
+def run_layers_seq(
+    layer_list: nn.ModuleList,
+    x: torch.Tensor,               # (B, S, d) — whole prompts
+    cfg: ModelConfig,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """The prefill layer loop.  Returns x and the stacked prompt caches
+    k, v (L, B, S, Hkv, Dh), each layer's copied into one preallocated
+    buffer so no layer's projection outlives it.  A dense model has no MoE
+    auxiliary loss to return."""
+    B, S, _ = x.shape
+    shape = (len(layer_list), B, S, cfg.n_kv_heads, cfg.resolved_head_dim)
+    ks = torch.empty(shape, dtype=x.dtype, device=x.device)
+    vs = torch.empty(shape, dtype=x.dtype, device=x.device)
+    for li, layer in enumerate(layer_list):
+        h = layers.rms_norm(x, layer.ln1, cfg.norm_eps)
+        a, cache = attention.attention_block(layer.attn, h, cfg)
+        ks[li].copy_(cache.k)
+        vs[li].copy_(cache.v)
+        x = _mlp(layer, x + a, cfg)
+    return x, (ks, vs)
 
 
 def run_layers_decode(

@@ -1,11 +1,15 @@
-"""Serving engine of the port: the mixed-batch path, contiguous or paged.
+"""Serving engine of the port: mixed-batch and legacy admission, contiguous
+or paged, and fixed-batch ``generate``.
 
-Counterpart of the JAX package's ``serving/engine.py`` for its mixed path
-(``mixed_step=True``, ``spec_k=0``) on both cache layouts.
+Counterpart of the JAX package's ``serving/engine.py`` (``spec_k=0``) on
+both cache layouts.  With ``mixed_step=True`` (the default)
 ``QueueSession.pump`` admits requests into free slots, drives fused
 prefill+decode ("mixed") steps until this pump's prompts are ingested —
 decode slots advance one token in every one — and then runs one decode
-chunk of ``decode_chunk`` steps over the whole slot batch.
+chunk of ``decode_chunk`` steps over the whole slot batch.  With
+``mixed_step=False`` (legacy admission) every admission is one B=1
+``Model.prefill`` placed into its slot (or a ``prefill_paged`` of the
+suffix on a prefix hit), then the same decode chunk.
 
 With ``EngineConfig.paged_kv`` the per-slot stripes become a shared page
 pool (L, P, page_size, Hkv, Dh) read and written through per-slot block
@@ -34,9 +38,9 @@ Differences from the JAX engine, and why:
   ``index_copy_`` of destinations computed on the host from the tables.
   A full-prompt hit's cached logits are kept as fp32 numpy.
 
-Not ported yet (raise ``NotImplementedError``): the legacy
-``mixed_step=False`` admission (ROADMAP §1 item 5), speculative decoding
-(item 7), durable-KV frontiers (item 8).
+Not ported yet: speculative decoding (``spec_k > 0`` raises
+``NotImplementedError``; ROADMAP §1 item 7), durable-KV frontiers (item 8)
+and the scan-state families (item 11).
 """
 from __future__ import annotations
 
@@ -117,9 +121,6 @@ class ServingEngine:
         if cfg.paged_kv and not model.supports_paged_kv:
             raise ValueError(
                 f"paged_kv=True but {model.cfg.name} has no pageable KV cache")
-        if not cfg.mixed_step:
-            raise NotImplementedError(
-                "mixed_step=False (legacy admission) is not ported yet (ROADMAP §1 item 5)")
         if cfg.spec_k > 0:
             raise NotImplementedError("spec_k > 0 (speculative decoding) is not ported yet "
                                       "(ROADMAP §1 item 7)")
@@ -128,6 +129,7 @@ class ServingEngine:
         self.model = model
         self.cfg = cfg
         self.telemetry = EngineTelemetry()
+        self.mixed = bool(cfg.mixed_step)
         # paged-KV resolution (sessions read these): the auto pool holds a
         # max_len request in every slot, times PAGE_HEADROOM so finished
         # prompts can stay cached (page 0 is the reserved trash page)
@@ -139,6 +141,61 @@ class ServingEngine:
 
     def new_session(self) -> "QueueSession":
         return QueueSession(self)
+
+    # -- single-shot steps and fixed-batch generation ---------------------------
+    def prefill(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Any]:
+        """``batch['inputs']`` (B, S) -> last-position logits (B, V) and the
+        prompt cache (L, B, S, Hkv, Dh)."""
+        return self.model.prefill(torch.as_tensor(np.asarray(batch["inputs"]),
+                                                  device=self.device))
+
+    def generate(self, prompt: Dict[str, Any], steps: int, prompt_len: int) -> np.ndarray:
+        """Greedy/temperature generation for a fixed batch of prompts.
+        ``prompt['inputs']`` is (B, S_prompt); returns (B, steps) tokens:
+        one prefill, the cache padded into a ``max_len`` buffer, then
+        ``steps`` decode steps at one shared length.  A temperature above 0
+        draws from a ``torch.Generator`` seeded with ``cfg.seed``."""
+        if prompt_len + steps > self.cfg.max_len:
+            raise ValueError(f"prompt_len={prompt_len} + steps={steps} exceeds "
+                             f"max_len={self.cfg.max_len}")
+        logits, pcache = self.prefill(prompt)
+        B = logits.shape[0]
+        cache = self._expand_cache(pcache, B)
+        generator = None
+        if self.cfg.temperature > 0.0:
+            generator = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
+        tok0 = self._sample(logits, generator)
+        lens = torch.full((B,), prompt_len, dtype=torch.int32, device=self.device)
+        active = torch.ones((B,), dtype=torch.bool, device=self.device)
+        _, toks = self._chunk_loop(cache, tok0, lens, active, generator, steps)
+        return toks.T.cpu().numpy()
+
+    def _expand_cache(self, pcache, batch: int):
+        """The prefill cache at the head of a fresh (L, B, max_len, ...) buffer."""
+        buf = self.model.empty_cache(batch, self.cfg.max_len)
+        S = pcache.k.shape[2]
+        buf.k[:, :, :S] = pcache.k
+        buf.v[:, :, :S] = pcache.v
+        return buf
+
+    def _place_slot(self, cache, pcache, slot: int) -> None:
+        """Write a B=1 prefill cache into slot ``slot`` of the decode buffer,
+        in place, at positions [0, S)."""
+        S = pcache.k.shape[2]
+        cache.k[:, slot, :S] = pcache.k[:, 0]
+        cache.v[:, slot, :S] = pcache.v[:, 0]
+
+    def _place_pages(self, pool, pcache, pages: List[int]) -> None:
+        """Scatter a B=1 prefill cache (L, 1, Sp, Hkv, Dh) into ``pages`` of
+        the pool: padded to whole pages with zeros (as the JAX ``jnp.pad``,
+        so pools compare page for page), one scatter per leaf."""
+        ps = self.cfg.page_size
+        idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
+        for buf, c in ((pool.k, pcache.k), (pool.v, pcache.v)):
+            L, _, Sp = c.shape[:3]
+            pad = len(pages) * ps - Sp
+            c = torch.nn.functional.pad(c[:, 0], (0, 0, 0, 0, 0, pad))
+            buf[:, idx] = c.reshape(L, len(pages), ps, *c.shape[2:]).to(buf.dtype)
 
     # -- device steps ----------------------------------------------------------
     def _sample(self, logits: torch.Tensor,
@@ -229,9 +286,9 @@ class PumpReport:
 
 
 class QueueSession:
-    """Resumable continuous-batching session over one engine (mixed path,
-    contiguous or paged): ``submit`` any time, ``pump`` one admission +
-    mixed steps + decode chunk cycle."""
+    """Resumable continuous-batching session over one engine (mixed or
+    legacy admission, contiguous or paged): ``submit`` any time, ``pump``
+    one admission (+ mixed steps) + decode chunk cycle."""
 
     def __init__(self, engine: ServingEngine):
         self.eng = engine
@@ -345,9 +402,31 @@ class QueueSession:
         toks = prompt if type(prompt) is tuple else np.asarray(prompt)[0]
         return self.allocator.match_len(toks)
 
-    def _set_table(self, s: int, pages: List[int]) -> None:
+    def _bind_pages(self, s: int, rid: int, pages: List[int]) -> None:
+        """Slot ``s`` now holds request ``rid``'s ``pages``: its table row and
+        the bookkeeping ``_release_rid`` undoes."""
         self.tables[s, :] = TRASH_PAGE
         self.tables[s, :len(pages)] = pages
+        self._slot_pages[s] = pages
+        self._slot_of[rid] = s
+
+    def _claim_pages(self, s: int, rid: int, tokens: List[int],
+                     total_blocks: int) -> Optional[int]:
+        """Reuse the longest cached block-aligned prefix of ``tokens`` and
+        allocate the rest of the request's ``total_blocks`` into slot ``s``.
+        Returns the reused token count, or None, with every reference rolled
+        back, under pool pressure."""
+        al = self.allocator
+        m, shared = al.match_prefix(tokens)
+        pages = [int(p) for p in shared]
+        for p in pages:
+            al.ref(p)
+        if not self._extend_alloc(pages, total_blocks):
+            for p in pages:
+                al.deref(p)
+            return None
+        self._bind_pages(s, rid, pages)
+        return m
 
     def _release_rid(self, rid: int) -> None:
         """Free a request's pages (completion, cancel): deref every page it
@@ -415,43 +494,15 @@ class QueueSession:
         request's whole block budget and queues the un-cached suffix as
         pending chunks.  Returns False, with all page state rolled back,
         under pool pressure or while a sibling prompt is mid-ingest."""
-        eng, al = self.eng, self.allocator
-        ps = al.page_size
+        al = self.allocator
         tokens = [int(t) for t in np.asarray(inp)[0]]
         plen = len(tokens)
         total_blocks = al.blocks_for(plen + max_new)
 
         entry = al.lookup_prompt(tokens)
         if entry is not None:
-            # full-prompt hit: no prefill; the cached logits give the first token
-            pages = [int(p) for p in entry.pages]
-            for p in pages:
-                al.ref(p)
-            bi = plen // ps
-            cow_needed = bool(plen % ps) and al.refcount[pages[bi]] > 1
-            ok = self._extend_alloc(pages, total_blocks, reserve=1 if cow_needed else 0)
-            if ok and cow_needed:
-                fresh = al.cow(pages[bi])
-                if fresh is None:
-                    ok = False
-                else:
-                    eng._copy_page(self.cache, pages[bi], fresh)
-                    pages[bi] = fresh
-            if not ok:
-                for p in pages:
-                    al.deref(p)
+            if not self._admit_full_hit(s, rid, entry, plen, total_blocks):
                 return False
-            self._set_table(s, pages)
-            logits = torch.as_tensor(entry.logits, device=eng.device)[None]
-            tok0 = eng._sample(logits, self._akey())
-            # rebind, never write self.tok in place (see the module docstring)
-            self.tok = torch.where(torch.arange(self.slots.n_slots, device=eng.device) == s,
-                                   tok0, self.tok)
-            self._lens_host[s] = plen
-            al.stats.full_hits += 1
-            al.stats.reused_tokens += plen
-            self._slot_pages[s] = pages
-            self._slot_of[rid] = s
             self.slots.admit(s, rid, max_new)     # decoding immediately
             return True
 
@@ -460,17 +511,9 @@ class QueueSession:
             # blocks with it): wait for its publish, then hit the cache
             return False
 
-        m, shared = al.match_prefix(tokens)
-        pages = [int(p) for p in shared]
-        for p in pages:
-            al.ref(p)
-        if not self._extend_alloc(pages, total_blocks):
-            for p in pages:
-                al.deref(p)
+        m = self._claim_pages(s, rid, tokens, total_blocks)
+        if m is None:
             return False
-        self._set_table(s, pages)
-        self._slot_pages[s] = pages
-        self._slot_of[rid] = s
         if m > 0:
             # block-aligned prefix hit: only the suffix goes through the model
             al.stats.prefix_hits += 1
@@ -481,6 +524,92 @@ class QueueSession:
         self._prefilling[s] = dict(
             rid=rid, rem=np.asarray(tokens[m:], np.int64), plen=plen,
             max_new=int(max_new), akey=self._akey(), tokens=tokens)
+        return True
+
+    def _admit_full_hit(self, s: int, rid: int, entry, plen: int, total_blocks: int) -> bool:
+        """Full-prompt cache hit (both admissions): no model work; the cached
+        logits give the first token.  The partial boundary page takes this
+        request's first decode write, so if another reader holds it, it is
+        copied first (the copy's page reserved before anything is evicted).
+        Returns False, with every reference rolled back, under pressure."""
+        eng, al = self.eng, self.allocator
+        pages = [int(p) for p in entry.pages]
+        for p in pages:
+            al.ref(p)
+        bi = plen // al.page_size
+        cow_needed = bool(plen % al.page_size) and al.refcount[pages[bi]] > 1
+        ok = self._extend_alloc(pages, total_blocks, reserve=1 if cow_needed else 0)
+        if ok and cow_needed:
+            fresh = al.cow(pages[bi])
+            if fresh is None:
+                ok = False
+            else:
+                eng._copy_page(self.cache, pages[bi], fresh)
+                pages[bi] = fresh
+        if not ok:
+            for p in pages:
+                al.deref(p)
+            return False
+        self._bind_pages(s, rid, pages)
+        logits = torch.as_tensor(entry.logits, device=eng.device)[None]
+        self._set_tok(s, eng._sample(logits, self._akey()))
+        self._lens_host[s] = plen
+        al.stats.full_hits += 1
+        al.stats.reused_tokens += plen
+        return True
+
+    def _set_tok(self, s: int, tok0: torch.Tensor) -> None:
+        """Slot ``s``'s carried token; rebinds ``self.tok``, never writes it
+        in place (see the module docstring)."""
+        self.tok = torch.where(torch.arange(self.slots.n_slots, device=self.eng.device) == s,
+                               tok0, self.tok)
+
+    # -- legacy admission (mixed_step=False) ------------------------------------
+    def _admit_prefill(self, s: int, inp: np.ndarray) -> None:
+        """Contiguous legacy admission: one B=1 prefill dispatch, its cache
+        placed into slot ``s``, the first token sampled from its logits."""
+        eng = self.eng
+        logits, pcache = eng.prefill({"inputs": inp})
+        eng._place_slot(self.cache, pcache, s)
+        self._lens_host[s] = inp.shape[1]
+        self._set_tok(s, eng._sample(logits, self._akey()))
+        eng.telemetry.prefills += 1
+
+    def _admit_paged(self, s: int, rid: int, inp: np.ndarray, max_new: int) -> bool:
+        """Paged legacy admission: a full-prompt hit decodes off the cached
+        logits; a block-aligned prefix hit runs only the suffix, through
+        ``Model.prefill_paged`` into the reused pages; a miss prefills the
+        whole prompt and scatters it into fresh pages.  Both prefills
+        publish the prompt so a repeat takes the full-hit path.  Returns
+        False, with all page state rolled back, under pool pressure."""
+        eng, al = self.eng, self.allocator
+        tokens = [int(t) for t in np.asarray(inp)[0]]
+        plen = len(tokens)
+        total_blocks = al.blocks_for(plen + max_new)
+        entry = al.lookup_prompt(tokens)
+        if entry is not None:
+            return self._admit_full_hit(s, rid, entry, plen, total_blocks)
+
+        m = self._claim_pages(s, rid, tokens, total_blocks)
+        if m is None:
+            return False
+        nb_p = al.blocks_for(plen)
+        pages = self._slot_pages[s]
+        if m > 0:
+            # block-aligned prefix hit: the first m tokens never touch the model
+            suffix = torch.as_tensor(np.asarray([tokens[m:]]), device=eng.device)
+            logits = eng.model.prefill_paged(suffix, self.cache, self.tables[s], m)
+            al.stats.prefix_hits += 1
+            al.stats.reused_tokens += m
+        else:
+            logits, pcache = eng.prefill({"inputs": inp})
+            eng._place_pages(self.cache, pcache, pages[:nb_p])
+            al.stats.misses += 1
+        al.publish(tokens, pages[:nb_p], logits[0].float().cpu().numpy())
+        al.stats.prefilled_tokens += plen - m
+        eng.telemetry.prefills += 1
+        self._set_tok(s, eng._sample(logits, self._akey()))
+        self._lens_host[s] = plen
         return True
 
     def _ingest_overlap(self, tokens: List[int]) -> bool:
@@ -516,22 +645,88 @@ class QueueSession:
 
     # -- the loop body --------------------------------------------------------
     def pump(self) -> PumpReport:
-        """One cycle: admission -> budget-bounded mixed steps until this
-        pump's admissions are ingested -> one decode chunk."""
+        """One engine cycle; safe to call when idle.  Mixed admission (the
+        default): admission -> budget-bounded mixed steps until this pump's
+        admissions are ingested -> one decode chunk.  Legacy admission
+        (``mixed_step=False``): one prefill dispatch per admission -> one
+        decode chunk."""
+        return self._pump_mixed() if self.eng.mixed else self._pump_legacy()
+
+    def _pump_start(self, report: PumpReport) -> Optional[Tuple[int, int, int, int]]:
+        """Report last pump's instant completions; snapshot the prefix-cache
+        totals the report's deltas are taken from (None when not paged)."""
+        for rid in self._instant:
+            report.completed[rid] = self.results[rid]
+        self._instant = []
+        if not self.paged:
+            return None
+        st = self.allocator.stats
+        return st.full_hits + st.prefix_hits, st.misses, st.reused_tokens, st.prefilled_tokens
+
+    def _paged_report_tail(self, report: PumpReport,
+                           stats0: Optional[Tuple[int, int, int, int]]) -> None:
+        if stats0 is None:
+            return
+        st = self.allocator.stats
+        report.prefix_hits = st.full_hits + st.prefix_hits - stats0[0]
+        report.prefix_misses = st.misses - stats0[1]
+        report.reused_tokens = st.reused_tokens - stats0[2]
+        report.prefilled_tokens = st.prefilled_tokens - stats0[3]
+        # sampled after releases: a draining session reports decaying
+        # occupancy, not the admission-time peak
+        report.page_occupancy = self.allocator.occupancy
+        report.cached_pages = self.allocator.cached_pages
+
+    def _complete(self, rid: int, report: PumpReport) -> None:
+        tokens = np.asarray(self._out.pop(rid), np.int64)
+        self.results[rid] = tokens
+        report.completed[rid] = tokens
+        self._retire(rid)
+        if self.paged:
+            self._release_rid(rid)
+
+    def _pump_legacy(self) -> PumpReport:
+        """One admission pass (a prefill dispatch per admitted request) and
+        one decode chunk."""
+        slots = self.slots
+        report = PumpReport()
+        t0 = time.perf_counter()
+        stats0 = self._pump_start(report)
+        for s in slots.free:
+            if not self.queue:
+                break
+            s = int(s)
+            rid, inp, max_new = self._pop_next()
+            if self.paged:
+                if not self._admit_paged(s, rid, inp, max_new):
+                    # page pressure: put it back and retry after decodes
+                    # release pages (completions free at chunk boundaries)
+                    self.queue.insert(0, (rid, inp, max_new))
+                    break
+            else:
+                self._admit_prefill(s, inp)
+            slots.admit(s, rid, max_new)
+            report.admitted.append(rid)
+        report.admit_s = time.perf_counter() - t0
+        report.occupancy = slots.occupancy
+        if report.occupancy > 0.0:
+            self._decode_chunk(report)
+        self._paged_report_tail(report, stats0)
+        report.wall_s = time.perf_counter() - t0
+        if report.chunk_steps:                        # an idle pump records nothing
+            self._add_telemetry(report)
+        return report
+
+    def _pump_mixed(self) -> PumpReport:
+        """Admission -> mixed steps until this pump's prompts are ingested ->
+        one decode chunk."""
         eng, slots = self.eng, self.slots
         dev = eng.device
-        chunk = max(1, eng.cfg.decode_chunk)
         n_slots = slots.n_slots
         greedy = eng.cfg.temperature <= 0.0
         report = PumpReport()
         t0 = time.perf_counter()
-        for rid in self._instant:
-            report.completed[rid] = self.results[rid]
-        self._instant = []
-        if self.paged:
-            st0 = self.allocator.stats
-            stats0 = (st0.full_hits + st0.prefix_hits, st0.misses, st0.reused_tokens,
-                      st0.prefilled_tokens)
+        stats0 = self._pump_start(report)
 
         for s in slots.free:
             if not self.queue:
@@ -554,30 +749,9 @@ class QueueSession:
         decode_active = slots.request_id >= 0
         report.occupancy = (int(np.sum(decode_active)) + len(self._prefilling)) / n_slots
 
-        def _complete(rid: int) -> None:
-            tokens = np.asarray(self._out.pop(rid), np.int64)
-            self.results[rid] = tokens
-            report.completed[rid] = tokens
-            self._retire(rid)
-            if self.paged:
-                self._release_rid(rid)
-
-        def _paged_report_tail() -> None:
-            if not self.paged:
-                return
-            st1 = self.allocator.stats
-            report.prefix_hits = st1.full_hits + st1.prefix_hits - stats0[0]
-            report.prefix_misses = st1.misses - stats0[1]
-            report.reused_tokens = st1.reused_tokens - stats0[2]
-            report.prefilled_tokens = st1.prefilled_tokens - stats0[3]
-            # sampled after releases: a draining session reports decaying
-            # occupancy, not the admission-time peak
-            report.page_occupancy = self.allocator.occupancy
-            report.cached_pages = self.allocator.cached_pages
-
         sched = self._schedule_chunks()
         if not sched and not decode_active.any():
-            _paged_report_tail()
+            self._paged_report_tail(report, stats0)
             report.wall_s = time.perf_counter() - t0
             return report
 
@@ -656,41 +830,53 @@ class QueueSession:
                     report.emitted[rid] = report.emitted.get(rid, 0) + 1
                     report.tokens.setdefault(rid, []).append(val)
         for rid in deferred_done:
-            _complete(rid)
+            self._complete(rid, report)
         report.sync_s += time.perf_counter() - t_sync
 
-        # ---- the decode chunk ----------------------------------------------
-        decode_active = slots.request_id >= 0
-        if decode_active.any():
-            t_disp = time.perf_counter()
-            active = torch.as_tensor(decode_active, device=dev)
-            lens_dev = torch.as_tensor(self._lens_host, dtype=torch.int32, device=dev)
-            tables = torch.as_tensor(self.tables, device=dev) if self.paged else None
-            self.tok, toks = eng._chunk_loop(
-                self.cache, self.tok, lens_dev, active, self.generator, chunk, tables)
-            self._lens_host[decode_active] = np.minimum(
-                self._lens_host[decode_active] + chunk, eng.cfg.max_len - 1)
-            t_sync = time.perf_counter()
-            report.dispatch_s += t_sync - t_disp
-            toks_np = toks.cpu().numpy()              # ONE transfer per chunk
-            for t in range(chunk):
-                live = np.nonzero(slots.request_id >= 0)[0]
-                for s in live:
-                    rid = int(slots.request_id[s])
-                    val = int(toks_np[t, s])
-                    self._out[rid].append(val)
-                    report.emitted[rid] = report.emitted.get(rid, 0) + 1
-                    report.tokens.setdefault(rid, []).append(val)
-                report.useful_tokens += len(live)
-                report.wasted_tokens += n_slots - len(live)
-                for rid in slots.step():
-                    _complete(rid)
-            report.chunk_steps = chunk
-            report.sync_s += time.perf_counter() - t_sync
-
-        _paged_report_tail()
+        if (slots.request_id >= 0).any():
+            self._decode_chunk(report)
+        self._paged_report_tail(report, stats0)
         report.wall_s = time.perf_counter() - t0
-        tel = eng.telemetry
+        self._add_telemetry(report)
+        return report
+
+    def _decode_chunk(self, report: PumpReport) -> None:
+        """One decode chunk over the whole slot batch (both admissions):
+        ``decode_chunk`` steps, ONE transfer of the emitted tokens, then
+        the completions."""
+        eng, slots = self.eng, self.slots
+        dev = eng.device
+        chunk = max(1, eng.cfg.decode_chunk)
+        n_slots = slots.n_slots
+        decode_active = slots.request_id >= 0
+        t_disp = time.perf_counter()
+        active = torch.as_tensor(decode_active, device=dev)
+        lens_dev = torch.as_tensor(self._lens_host, dtype=torch.int32, device=dev)
+        tables = torch.as_tensor(self.tables, device=dev) if self.paged else None
+        self.tok, toks = eng._chunk_loop(
+            self.cache, self.tok, lens_dev, active, self.generator, chunk, tables)
+        self._lens_host[decode_active] = np.minimum(
+            self._lens_host[decode_active] + chunk, eng.cfg.max_len - 1)
+        t_sync = time.perf_counter()
+        report.dispatch_s += t_sync - t_disp
+        toks_np = toks.cpu().numpy()              # ONE transfer per chunk
+        for t in range(chunk):
+            live = np.nonzero(slots.request_id >= 0)[0]
+            for s in live:
+                rid = int(slots.request_id[s])
+                val = int(toks_np[t, s])
+                self._out[rid].append(val)
+                report.emitted[rid] = report.emitted.get(rid, 0) + 1
+                report.tokens.setdefault(rid, []).append(val)
+            report.useful_tokens += len(live)
+            report.wasted_tokens += n_slots - len(live)
+            for rid in slots.step():
+                self._complete(rid, report)
+        report.chunk_steps = chunk
+        report.sync_s += time.perf_counter() - t_sync
+
+    def _add_telemetry(self, report: PumpReport) -> None:
+        tel = self.eng.telemetry
         tel.mixed_steps += report.mixed_steps
         tel.prefill_chunks += report.prefill_chunks
         if report.chunk_steps:
@@ -703,7 +889,6 @@ class QueueSession:
         tel.prefix_misses += report.prefix_misses
         tel.reused_tokens += report.reused_tokens
         tel.prefilled_tokens += report.prefilled_tokens
-        return report
 
 
 class DecodeSlots:

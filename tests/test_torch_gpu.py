@@ -1,5 +1,7 @@
 """Card-only tests of the port: every CUDA kernel against its plain version
-(the paged kernels at page sizes 4, 8, 16 and 64).
+(the paged kernels at page sizes 4, 8, 16 and 64; the flash-attention
+forward causal and not, windowed, with Sk > Sq, at ragged lengths 1 to
+2000, G 1, 2 and 4, head_dim 64 and 128, and on strided views).
 
 Marked ``gpu``; each test asks the ``cuda`` fixture for the card, which
 skips when ``torch.cuda.is_available()`` is false.  This file imports no
@@ -19,6 +21,9 @@ import pytest
 import torch
 
 from repro_torch.kernels.decode_attention import kernel, ops, ref
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention import ref as flash_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -167,6 +172,22 @@ def test_paged_mixed_kernel_vs_plain_truncated_table(cuda, dtype, ps):
     _close(out, ref.mixed_attention_paged(q, k, v, view, cl), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_mixed_kernel_prefill_paged_shape(cuda, dtype):
+    """``Model.prefill_paged``'s call: B=1, a suffix of Q=1000 queries after
+    a 1024-token cached prefix, through one table row whose batch stride is
+    0 (as numpy's new leading axis gives)."""
+    rng = np.random.default_rng(7)
+    Hkv, G, D, ps, nb, start, Q = 8, 2, 128, 16, 256, 1024, 1000
+    k, v, tbl = _paged(rng, 1, nb, ps, Hkv, D, [start + Q], dtype, cuda)
+    row = tbl[0].as_strided((1, nb), (0, 1))
+    assert row.stride(0) == 0
+    q = torch.as_tensor(rng.standard_normal((1, Q, Hkv * G, D)), dtype=torch.float32).to(cuda, dtype)
+    cl = torch.tensor([start], dtype=torch.int32, device=cuda)
+    out = kernel.mixed_attention_paged_cuda(q, k, v, row, cl)
+    _close(out, ref.mixed_attention_paged(q, k, v, row, cl), dtype)
+
+
 def test_ops_dispatch_counts_launches(cuda):
     rng = np.random.default_rng(3)
     B, Hkv, G, D = 2, 2, 2, 64
@@ -210,3 +231,74 @@ def test_kernel_rejects_bad_layout(cuda):
                                            pool, tbl, lens)
     with pytest.raises(ValueError):
         kernel.paged_splitk_partial_cuda(q, pool, pool, tbl, lens, k_splits=3)
+
+
+def _flash_inputs(rng, B, Sq, Sk, Hkv, G, D, dtype, dev):
+    q = torch.as_tensor(rng.standard_normal((B, Sq, Hkv * G, D)), dtype=torch.float32)
+    k, v = _kv(rng, B, Sk, Hkv, D, dtype, dev)
+    return q.to(dev, dtype), k, v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 17, 100, 700, 2000])
+def test_flash_kernel_vs_plain_causal_ragged(cuda, dtype, S):
+    """The main-path shape (Hkv 8, G 2, D 128, causal) at lengths no tile divides."""
+    rng = np.random.default_rng(S)
+    q, k, v = _flash_inputs(rng, 1, S, S, 8, 2, 128, dtype, cuda)
+    out = flash_kernel.flash_attention_cuda(q, k, v, causal=True)
+    _close(out, flash_ref.flash_attention(q, k, v, causal=True), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Sk,Hkv,G,D,causal,window", [
+    (256, 256, 4, 1, 64, False, 0),
+    (256, 256, 2, 4, 128, False, 96),
+    (300, 300, 8, 2, 128, True, 96),
+    (100, 700, 4, 2, 64, True, 0),
+    (100, 700, 2, 4, 128, True, 96),
+    (64, 333, 8, 1, 128, False, 0),
+])
+def test_flash_kernel_vs_plain_masks(cuda, dtype, Sq, Sk, Hkv, G, D, causal, window):
+    """Non-causal, sliding windows, queries right-aligned to longer keys."""
+    rng = np.random.default_rng(Sq + Sk + G)
+    q, k, v = _flash_inputs(rng, 2, Sq, Sk, Hkv, G, D, dtype, cuda)
+    out = flash_kernel.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    _close(out, flash_ref.flash_attention(q, k, v, causal=causal, window=window), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_strided_views(cuda, dtype):
+    """q, k and v as the prefill passes them: slices of one fused projection."""
+    rng = np.random.default_rng(9)
+    B, S, Hq, Hkv, D = 2, 333, 16, 8, 128
+    fused = torch.as_tensor(rng.standard_normal((B, S, Hq + 2 * Hkv, D)),
+                            dtype=torch.float32).to(cuda, dtype)
+    q, k, v = fused[:, :, :Hq], fused[:, :, Hq:Hq + Hkv], fused[:, :, Hq + Hkv:]
+    assert not q.is_contiguous()
+    out = flash_kernel.flash_attention_cuda(q, k, v, causal=True)
+    want = flash_ref.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    _close(out, want, dtype)
+
+
+def test_flash_dispatch_counts_launches(cuda):
+    rng = np.random.default_rng(10)
+    q, k, v = _flash_inputs(rng, 1, 50, 50, 2, 2, 64, torch.float32, cuda)
+    flash_kernel.reset_launches()
+    out = flash_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_kernel.LAUNCHES == {"flash_attention": 1}
+    _close(out, flash_ref.attention_ref(q, k, v), torch.float32)
+
+
+def test_flash_kernel_rejects_bad_layout(cuda):
+    q = torch.zeros((1, 8, 4, 32), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_kernel.flash_attention_cuda(q, q[:, :, :2], q[:, :, :2])
+    q = torch.zeros((1, 8, 4, 64), device=cuda)
+    k = torch.zeros((1, 8, 3, 64), device=cuda)
+    with pytest.raises(ValueError):
+        flash_kernel.flash_attention_cuda(q, k, k)
+    with pytest.raises(ValueError):                 # D not innermost
+        flash_kernel.flash_attention_cuda(q, q.transpose(2, 3).contiguous().transpose(2, 3), q)
+    with pytest.raises(TypeError):
+        flash_kernel.flash_attention_cuda(q, q.double(), q)
