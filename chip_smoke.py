@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch port: serve qwen3-0.6b on one NVIDIA GPU.
+"""Chip smoke test of the PyTorch port: serve qwen3-0.6b and rwkv6-7b on one
+NVIDIA GPU.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
@@ -21,7 +22,12 @@ Phases (any failure exits non-zero; nothing is caught):
    prefix, one table row of batch stride 0) in bf16 and fp32; the
    flash-attention forward at the prefill
    shape (B=1, 16 q / 8 kv heads, D 128, causal) at S 16, 700 and 2000,
-   and non-causal, windowed and Sk > Sq;
+   and non-causal, windowed and Sk > Sq; the WKV6 recurrence against both
+   plain versions (the per-token recurrence and the chunk form) at atol
+   5e-4, rtol 1e-3, at rwkv6-7b's prefill shape (B=1, S=2000, 64 heads of
+   64, from a zero state), phase 4g's (B=8, S=512), lengths 1-700 at head
+   sizes 16, 32 and 64 from a random state, a slow decay over 2000 tokens
+   and strided views;
 4. serve: EngineClient serves full-width qwen3-0.6b (28 layers, bf16,
    seeded random weights) at the default EngineConfig: 16 requests,
    prompts 16..2000 tokens, 32 new tokens each; launch counters are
@@ -39,6 +45,13 @@ Phases (any failure exits non-zero; nothing is caught):
    hits run Model.prefill_paged, repeats hit with copy-on-write; every page
    released after the drain;
 4e. generate: ServingEngine.generate at B=8, prompt 512, 32 steps;
+4f. serve rwkv6-7b: EngineClient serves full-width rwkv6-7b (32 layers,
+   d 4096, 64 heads of 64, d_ff 14336, vocab 65536, bf16, seeded random
+   weights, 15.2 GB) at the default EngineConfig, which falls to legacy
+   admission (no mixed step for the family): phase 4's traffic, one
+   Model.prefill (32 WKV6 launches) per admission, then decode chunks; no
+   attention kernel may launch;
+4g. generate on rwkv6-7b: B=8, prompt 512, 32 steps (32 WKV6 launches);
 5. card vs CPU: the same kind of traffic at fp32 (full width, 4 layers,
    max_len 1024, prompts up to 900) on the card and on the CPU (plain
    versions); greedy streams must agree token for token, or each first
@@ -48,10 +61,15 @@ Phases (any failure exits non-zero; nothing is caught):
 5c. legacy vs mixed on the card: phases 5 and 5b's traffic at fp32 through
    the legacy admission must give the card's mixed streams (or near-ties),
    and generate must agree on the card and the CPU (B=4);
+5d. card vs CPU on rwkv6-7b: full width cut to 2 layers at fp32, 6
+   requests (prompts 16..300, 8 new tokens) through a 2-slot session, so
+   slots are reused; streams must agree (or near-ties), and on the card
+   decode after prefill(300) must equal prefill(301) within 2e-4;
 6. timing: every kernel, its plain version and the one PyTorch call with
    the same result (scaled_dot_product_attention, used only as a
-   yardstick; no one call reads a block table) timed with CUDA events;
-   bounds from the bytes and operations of the inputs timed.
+   yardstick; no one call reads a block table or computes the WKV6
+   recurrence) timed with CUDA events; bounds from the bytes and
+   operations of the inputs timed.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout
@@ -102,19 +120,28 @@ def check(ok: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def reset_launches() -> None:
+def _kernel_modules() -> tuple:
     from repro_torch.kernels.decode_attention import kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
 
-    kernel.reset_launches()
-    flash_kernel.reset_launches()
+    return kernel, flash_kernel, wkv_kernel
+
+
+def reset_launches() -> None:
+    for mod in _kernel_modules():
+        mod.reset_launches()
 
 
 def read_launches() -> dict:
-    from repro_torch.kernels.decode_attention import kernel
-    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    out = {}
+    for mod in _kernel_modules():
+        out.update(mod.LAUNCHES)
+    return out
 
-    return {**kernel.LAUNCHES, **flash_kernel.LAUNCHES}
+
+def attention_launches(launches: dict) -> int:
+    return sum(n for name, n in launches.items() if name != "wkv6")
 
 
 def card_line() -> str:
@@ -294,6 +321,7 @@ def phase_kernels() -> dict:
                 errs["mixed_attention_paged"][str(dtype)], err)
             del kp, vp
     errs["flash_attention"] = flash_kernel_checks(gen)
+    errs["wkv6"] = wkv6_kernel_checks(gen)
     torch.cuda.synchronize()
     return errs
 
@@ -318,6 +346,57 @@ def flash_kernel_checks(gen) -> dict:
             err = _close(f"flash_attention B={b} Sq={sq} Sk={sk} causal={causal} "
                          f"window={window}", got, want, dtype)
             errs[str(dtype)] = max(errs.get(str(dtype), 0.0), err)
+    return errs
+
+
+SCAN_TOL = dict(atol=5e-4, rtol=1e-3)
+
+
+def wkv_inputs(gen, B_, S, H, N, dtype, *, state=True, slow=False):
+    """r, k, v in ``dtype``; logw fp32 as the model makes it (-exp of a
+    log-decay near w0 = -2), or with ``slow`` near -5 (a state that keeps
+    thousands of tokens); u in ``dtype``; state0 fp32 or None."""
+    r, k, v = (_rand(gen, (B_, S, H, N), dtype) for _ in range(3))
+    mu = -5.0 if slow else -2.0
+    logw = -torch.exp(mu + 0.5 * _rand(gen, (B_, S, H, N), torch.float32))
+    u = (0.5 * _rand(gen, (H, N), torch.float32)).to(dtype)
+    s0 = _rand(gen, (B_, H, N, N), torch.float32) if state else None
+    return r, k, v, logw, u, s0
+
+
+def wkv6_kernel_checks(gen) -> dict:
+    """The WKV6 kernel vs both plain versions (y and the final state):
+    phase 4f's prefill call (B=1, S=2000, 64 heads of 64, zero state),
+    phase 4g's (B=8, S=512), lengths 1-700 at N 16/32/64 from a random
+    state, a slow decay over 2000 tokens, and strided views."""
+    from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+    from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
+
+    errs = {}
+    cases = [(1, 2000, 64, 64, False, False), (8, 512, 64, 64, False, False)]
+    cases += [(2, S, 4, N, True, False) for S in (1, 17, 100, 700) for N in (16, 32, 64)]
+    cases += [(2, 2000, 4, 64, True, True)]
+    for dtype in (torch.bfloat16, torch.float32):
+        def run(name, r, k, v, logw, u, s0):
+            y, st = wkv_kernel.wkv6_cuda(r, k, v, logw, u, s0)
+            zeros = torch.zeros((r.shape[0], *st.shape[1:]), device="cuda")
+            for plain in (wkv_ref.wkv6_ref, wkv_ref.wkv6_chunked):
+                y_p, st_p = plain(r, k, v, logw, u, zeros if s0 is None else s0)
+                for what, got, want in (("y", y, y_p), ("state", st, st_p)):
+                    err = _err(got, want)
+                    bad = (got - want).abs() > SCAN_TOL["atol"] + SCAN_TOL["rtol"] * want.abs()
+                    check(not bool(bad.any()) and bool(torch.isfinite(got).all()),
+                          f"wkv6 {name} {dtype} {what} vs {plain.__name__}: max abs err "
+                          f"{err:.3e} outside atol 5e-4 rtol 1e-3")
+                    errs[str(dtype)] = max(errs.get(str(dtype), 0.0), err)
+
+        for B_, S, H, N, state, slow in cases:
+            run(f"B={B_} S={S} H={H} N={N} state={state} slow={slow}",
+                *wkv_inputs(gen, B_, S, H, N, dtype, state=state, slow=slow))
+        # slices of a wider buffer, read in place
+        fused = _rand(gen, (2, 333, 3, 4, 64), dtype)
+        *_, logw, u, s0 = wkv_inputs(gen, 2, 666, 4, 64, dtype)
+        run("strided views", fused[:, :, 0], fused[:, :, 1], fused[:, :, 2], logw[:, ::2], u, s0)
     return errs
 
 
@@ -538,10 +617,14 @@ def phase_generate(name_line: str, model) -> dict:
 
 
 def _margin(model, tokens, a: int, b: int) -> float:
-    """|logit(a) - logit(b)| after ``tokens`` (one B=1 mixed step)."""
-    cache = model.empty_cache(1, len(tokens) + 1)
+    """|logit(a) - logit(b)| after ``tokens`` (one B=1 mixed step, or a B=1
+    prefill for a model without a mixed step)."""
     t = torch.as_tensor(np.asarray(tokens)[None], device=model.device)
-    logits = model.step_mixed(t, cache, np.array([0]), np.array([len(tokens)]))[0]
+    if model.supports_mixed_step:
+        cache = model.empty_cache(1, len(tokens) + 1)
+        logits = model.step_mixed(t, cache, np.array([0]), np.array([len(tokens)]))[0]
+    else:
+        logits = model.prefill(t)[0][0]
     return float((logits[a] - logits[b]).abs())
 
 
@@ -641,6 +724,141 @@ def phase_legacy_vs_mixed(cpu_model, card_model, streams) -> dict:
     out["generate"] = dict(batch=4, prompt_len=64, steps=16, exact_streams=exact,
                            near_ties=ties)
     return out
+
+
+def phase_serve_rwkv(name_line: str, model) -> dict:
+    """Phase 4f: full-width rwkv6-7b through EngineClient at the default
+    EngineConfig, which takes legacy admission for the family: phase 4's
+    traffic, one Model.prefill (a WKV6 launch per layer) per admission."""
+    from repro_torch.serving import EngineConfig
+
+    cfg = model.cfg
+    dev = model.device
+    ecfg = EngineConfig()
+    rng = np.random.default_rng(0)
+    serve(model, ecfg, prompts_for(rng, 2, 16, 64, cfg.vocab_size), 4, dev)     # warm-up
+    free_memory()
+    prompts = prompts_for(rng, 16, 16, 2000, cfg.vocab_size)
+    max_new = 32
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    handles, wall, engine = serve(model, ecfg, prompts, max_new, dev)
+    launches = read_launches()
+    check_handles(handles, engine, max_new, cfg.vocab_size, "serve rwkv6")
+    tel = engine.telemetry
+    check(not engine.mixed and tel.mixed_steps == 0,
+          f"serve rwkv6: mixed admission ran ({tel.mixed_steps} mixed steps)")
+    check(launches["wkv6"] == cfg.n_layers * len(prompts) == cfg.n_layers * tel.prefills,
+          f"serve rwkv6: {launches['wkv6']} wkv6 launches for {tel.prefills} prefills of "
+          f"{cfg.n_layers} layers")
+    check(attention_launches(launches) == 0, f"serve rwkv6: an attention kernel launched: "
+                                              f"{launches}")
+    ttft = np.array([h.record.ttft_s for h in handles])
+    out = dict(
+        requests=len(handles), layers=cfg.n_layers, dtype=cfg.dtype, max_new=max_new,
+        params_gb=sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9,
+        prompt_tokens=int(sum(len(p) for p in prompts)),
+        generated_tokens=int(sum(len(h.result()) for h in handles)),
+        wall_s=wall, tokens_per_s=sum(len(h.result()) for h in handles) / wall,
+        ttft_p50_s=float(np.percentile(ttft, 50)), ttft_p99_s=float(np.percentile(ttft, 99)),
+        decode_chunks=tel.chunks, prefills=tel.prefills, launches=launches,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=name_line)
+    # the prefills alone, each timed to its end: their share of the wall
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in prompts:
+        model.prefill(torch.as_tensor(p[None], device=dev))
+    torch.cuda.synchronize()
+    alone = time.perf_counter() - t0
+    # the WKV6 kernel alone at each prompt's length, once per layer (CUDA
+    # events): its share of those prefills
+    from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+
+    gen = torch.Generator("cuda").manual_seed(5)
+    H = cfg.d_model // cfg.rwkv_head_dim
+    wkv_s = 0.0
+    for p in prompts:
+        r, k, v, logw, u, _ = wkv_inputs(gen, 1, len(p), H, cfg.rwkv_head_dim, cfg.torch_dtype,
+                                         state=False)
+        wkv_s += time_ms(lambda: wkv_kernel.wkv6_cuda(r, k, v, logw, u), cfg.n_layers, 1) / 1e3
+    reset_launches()
+    out.update(prefill_alone_s=alone, prefill_share_of_wall=alone / wall,
+               wkv6_in_prefills_s=cfg.n_layers * wkv_s,
+               wkv6_share_of_prefills=cfg.n_layers * wkv_s / alone)
+    return out
+
+
+def phase_generate_rwkv(name_line: str, model) -> dict:
+    """Phase 4g: ServingEngine.generate on rwkv6-7b at B=8, prompt 512, 32 steps."""
+    from repro_torch.serving import EngineConfig
+
+    cfg = model.cfg
+    B_, plen, steps = 8, 512, 32
+    engine = make_engine_class()(model, EngineConfig(), device=model.device)
+    rng = np.random.default_rng(4)
+    engine.generate({"inputs": rng.integers(0, cfg.vocab_size, (2, 16))}, 2, 16)   # warm-up
+    toks = rng.integers(0, cfg.vocab_size, (B_, plen))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = engine.generate({"inputs": toks}, steps, plen)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check(out.shape == (B_, steps), f"generate rwkv6: shape {out.shape}")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "generate rwkv6: out-of-vocab token")
+    check(int(engine.nonfinite) == 0,
+          f"generate rwkv6: {int(engine.nonfinite)} non-finite logits")
+    check(launches["wkv6"] == cfg.n_layers,
+          f"generate rwkv6: {launches['wkv6']} wkv6 launches, not {cfg.n_layers}")
+    check(attention_launches(launches) == 0, f"generate rwkv6: attention launched: {launches}")
+    return dict(batch=B_, prompt_len=plen, steps=steps, layers=cfg.n_layers, dtype=cfg.dtype,
+                wall_s=wall, tokens_per_s=B_ * steps / wall, launches=launches, card=name_line)
+
+
+def phase_rwkv_card_vs_cpu(cfg) -> dict:
+    """Phase 5d: rwkv6-7b at full width cut to 2 layers, fp32, on the card
+    and on the CPU: 6 requests through a 2-slot session (slots reused);
+    then decode after prefill(300) against prefill(301) on the card."""
+    import dataclasses
+
+    from repro_torch.models import Model
+    from repro_torch.serving import EngineConfig
+
+    small = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    cpu_model = Model(small, device="cpu").init_(torch.Generator().manual_seed(3))
+    card_model = Model(small, device="cuda")
+    card_model.load_state_dict(cpu_model.state_dict())
+    ecfg = EngineConfig(max_len=512, decode_batch=2)
+    rng = np.random.default_rng(6)
+    prompts = prompts_for(rng, 6, 16, 300, small.vocab_size)
+    max_new = 8
+    reset_launches()
+    card_h, card_wall, card_eng = serve(card_model, ecfg, prompts, max_new, torch.device("cuda"))
+    launches = read_launches()
+    check(launches["wkv6"] == small.n_layers * len(prompts),
+          f"rwkv card-vs-cpu: {launches['wkv6']} wkv6 launches")
+    check(attention_launches(launches) == 0, "rwkv card-vs-cpu: attention launched")
+    cpu_h, cpu_wall, cpu_eng = serve(cpu_model, ecfg, prompts, max_new, torch.device("cpu"))
+    check_handles(card_h, card_eng, max_new, small.vocab_size, "rwkv card-vs-cpu card fp32")
+    check_handles(cpu_h, cpu_eng, max_new, small.vocab_size, "rwkv card-vs-cpu cpu fp32")
+    exact, ties = compare_streams(prompts, [h.result() for h in card_h],
+                                  [h.result() for h in cpu_h], card_model, cpu_model,
+                                  ("card", "cpu"))
+    # decode after prefill(S) is prefill(S + 1): the kernel's final state as
+    # the decode path reads it
+    S = 300
+    toks = torch.as_tensor(rng.integers(0, small.vocab_size, (1, S + 1)), device="cuda")
+    _, cache = card_model.prefill(toks[:, :S])
+    step = card_model.decode(toks[:, S:], cache, torch.full((1,), S, device="cuda"))
+    full, _ = card_model.prefill(toks)
+    err = _err(step, full)
+    check(bool(torch.allclose(step, full, atol=2e-4, rtol=1e-4)),
+          f"rwkv decode after prefill({S}) vs prefill({S + 1}): max abs err {err:.3e}")
+    return dict(requests=len(prompts), exact_streams=exact, near_ties=ties,
+                layers=small.n_layers, dtype=small.dtype, slots=ecfg.decode_batch,
+                prefills=card_eng.telemetry.prefills, launches=launches,
+                card_wall_s=card_wall, cpu_wall_s=cpu_wall,
+                decode_vs_prefill_max_abs_err=err)
 
 
 # --------------------------------------------------------------------------
@@ -809,6 +1027,24 @@ def phase_timing() -> dict:
         time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                        enable_gqa=True), 50),
         f"bf16 B=1 Sq=Sk={S} Hq={HKV * G} Hkv={HKV} D={D} causal")
+
+    # WKV6 at phase 4f's longest prefill: B=1, S=2000, 64 heads of 64, bf16
+    # r/k/v and u, fp32 logw, from a zero state (state0 None, as
+    # Model.prefill calls it).  Bytes: r, k, v, logw, u read once, y and
+    # the final state written once; ops: 5 N^2 per token and head, fp32.
+    from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+    from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
+
+    H, N = 64, 64
+    r, k, v, logw, u, _ = wkv_inputs(gen, 1, S, H, N, dt, state=False)
+    zeros = torch.zeros((1, H, N, N), device="cuda")
+    row("wkv6", torch.float32,
+        time_ms(lambda: wkv_kernel.wkv6_cuda(r, k, v, logw, u), 50),
+        time_ms(lambda: wkv_ref.wkv6_chunked(r, k, v, logw, u, zeros), 5),
+        3 * S * H * N * es + S * H * N * 4 + H * N * es + S * H * N * 4 + H * N * N * 4,
+        5 * N * N * S * H, None,
+        f"bf16 r/k/v/u, fp32 logw, B=1 S={S} H={H} N={N}, zero state; "
+        "library: none (no one call computes the WKV6 recurrence)")
     return out
 
 
@@ -824,6 +1060,7 @@ REPLACES = {
     "decode_attention_paged": "src/repro/kernels/decode_attention/kernel.py:342",
     "decode_attention_paged_splitk_partial": "src/repro/kernels/decode_attention/kernel.py:444",
     "mixed_attention_paged": "src/repro/kernels/decode_attention/kernel.py:692",
+    "wkv6": "src/repro/kernels/rwkv6_scan/kernel.py:75",
 }
 # the main-path runs whose launches each kernel reports (the combine serves both layouts)
 LAUNCH_PHASES = {
@@ -835,6 +1072,7 @@ LAUNCH_PHASES = {
     "decode_attention_paged": ("card_vs_cpu_paged",),
     "decode_attention_paged_splitk_partial": ("serve_paged",),
     "mixed_attention_paged": ("serve_paged", "serve_legacy_paged"),
+    "wkv6": ("serve_rwkv", "generate_rwkv"),
 }
 
 
@@ -851,6 +1089,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
     from repro_torch.models import Model
 
     t_start = time.perf_counter()
@@ -858,7 +1097,7 @@ def main() -> int:
     print(f"[1/6] card: {name_line}", flush=True)
 
     t0 = time.perf_counter()
-    logs = _build.build([kernel.SOURCE, flash_kernel.SOURCE])
+    logs = _build.build([kernel.SOURCE, flash_kernel.SOURCE, wkv_kernel.SOURCE])
     print(f"[2/6] built {len(logs)} source(s) in {time.perf_counter() - t0:.1f} s", flush=True)
     for src, log in logs.items():
         print(f"  {src.relative_to(ROOT)}:")
@@ -894,6 +1133,24 @@ def main() -> int:
     del model
     free_memory()
 
+    rcfg = get_config("rwkv6-7b")
+    t0 = time.perf_counter()
+    model = Model(rcfg, device="cuda").init_(torch.Generator("cuda").manual_seed(0))
+    print(f"[4f/6] rwkv6-7b: {sum(p.numel() for p in model.parameters()) / 1e9:.3f} G "
+          f"parameters initialised in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    runs["serve_rwkv"] = phase_serve_rwkv(name_line, model)
+    free_memory()
+    print(f"[4f/6] served full-width rwkv6-7b (legacy admission) in "
+          f"{time.perf_counter() - t0:.1f} s on {name_line}: " + json.dumps(runs["serve_rwkv"]),
+          flush=True)
+    t0 = time.perf_counter()
+    runs["generate_rwkv"] = phase_generate_rwkv(name_line, model)
+    print(f"[4g/6] generate on rwkv6-7b in {time.perf_counter() - t0:.1f} s: "
+          + json.dumps(runs["generate_rwkv"]), flush=True)
+    del model
+    free_memory()
+
     small = dataclasses.replace(cfg, n_layers=4, dtype="float32")
     cpu_model = Model(small, device="cpu").init_(torch.Generator().manual_seed(1))
     card_model = Model(small, device="cuda")
@@ -913,6 +1170,11 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s: " + json.dumps(runs["legacy_vs_mixed"]), flush=True)
     del cpu_model, card_model
     free_memory()
+    t0 = time.perf_counter()
+    runs["rwkv_card_vs_cpu"] = phase_rwkv_card_vs_cpu(rcfg)
+    free_memory()
+    print(f"[5d/6] rwkv6-7b card vs cpu (2 layers, fp32, 2 slots) in "
+          f"{time.perf_counter() - t0:.1f} s: " + json.dumps(runs["rwkv_card_vs_cpu"]), flush=True)
 
     t0 = time.perf_counter()
     tim = phase_timing()
@@ -923,7 +1185,7 @@ def main() -> int:
     for name, t in tim.items():
         by_phase = {ph: runs[ph]["launches"][name] for ph in LAUNCH_PHASES[name]}
         e = errs[name]
-        src = flash_kernel.SOURCE if name in flash_kernel.LAUNCHES else kernel.SOURCE
+        src = next(m.SOURCE for m in (kernel, flash_kernel, wkv_kernel) if name in m.LAUNCHES)
         rows.append(dict(
             name=name, route="cuda", source=str(src.relative_to(ROOT)),
             replaces=REPLACES[name], launches=sum(by_phase.values()),

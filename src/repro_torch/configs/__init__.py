@@ -12,6 +12,7 @@ from repro_torch.configs.base import ModelConfig
 
 _ARCH_MODULES = {
     "qwen3-0.6b": "repro_torch.configs.qwen3_0_6b",
+    "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
 }
 
 ARCH_IDS: Tuple[str, ...] = tuple(_ARCH_MODULES)

@@ -6,7 +6,10 @@ with every leaf already converted to numpy (the caller does
 returns a state dict for ``repro_torch.models.Model.load_state_dict``.
 It splits the stacked ``(L, ...)`` layer leaves per layer and fuses what
 the port keeps fused: ``wqkv = [wq|wk|wv]``, ``w_gu = [w_gate|w_up]`` and
-the per-head ``qk_norm`` weight.
+the per-head ``qk_norm`` weight.  An rwkv layer's leaves keep their JAX
+names and dtypes (``ln_x_w``/``ln_x_b`` stay fp32) with no fusion: each of
+r, k, v, w and g projects its own mixed input.  An untied ``lm_head`` is
+kept.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, rwkv6
 
 
 def _t(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
@@ -34,7 +37,16 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
         "embed": _t(tree["embed"], dtype),
         "final_norm": _t(tree["final_norm"], dtype),
     }
+    if not cfg.tie_embeddings:
+        state["lm_head"] = _t(tree["lm_head"], dtype)
     lay = tree["layers"]
+    if cfg.family == "rwkv":
+        fp32 = {"ln_x_w", "ln_x_b"}
+        for name in rwkv6.RWKVLayer(cfg, device="meta", dtype=dtype).state_dict():
+            for li in range(cfg.n_layers):
+                state[f"layers.{li}.{name}"] = _t(lay[name][li],
+                                                  torch.float32 if name in fp32 else dtype)
+        return state
     at, mlp = lay["attn"], lay["mlp"]
     for li in range(cfg.n_layers):
         pre = f"layers.{li}."

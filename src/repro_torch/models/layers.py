@@ -1,10 +1,10 @@
 """Core layers of the serving path, plain PyTorch.
 
 Counterparts of the JAX package's ``models/layers.py``: ``rms_norm``,
-``rope_frequencies``/``apply_rope``, ``fuse_gate_up_weights`` and
-``swiglu_fused``.  The casts follow the JAX code: norm, rope and silu run
-in fp32 and cast back to the working dtype; ``silu(g)`` is cast before
-the product with ``u``.
+``group_norm`` (rwkv's per-head ``ln_x``), ``rope_frequencies``/
+``apply_rope``, ``fuse_gate_up_weights`` and ``swiglu_fused``.  The casts
+follow the JAX code: norms, rope and silu run in fp32 and cast back to the
+working dtype; ``silu(g)`` is cast before the product with ``u``.
 """
 from __future__ import annotations
 
@@ -18,6 +18,19 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     var = (xf * xf).mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * weight.float()).to(x.dtype)
+
+
+def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               num_groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over the last axis in ``num_groups`` groups (rwkv's per-head
+    ``ln_x``): fp32 statistics with the biased variance, as ``jnp.var``,
+    then the affine in fp32, cast back to the input dtype."""
+    c = x.shape[-1]
+    xf = x.float().reshape(*x.shape[:-1], num_groups, c // num_groups)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    xf = ((xf - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    return (xf * weight + bias).to(x.dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:

@@ -1,7 +1,8 @@
-"""Model facade of the port (dense family): prefill, decode and mixed steps.
+"""Model facade of the port (dense and rwkv families): prefill, decode and
+mixed steps.
 
     model = Model(cfg, device="cuda").init_(torch.Generator("cuda").manual_seed(0))
-    logits, pcache = model.prefill(tokens)                       # (B, V), (L, B, S, ...)
+    logits, pcache = model.prefill(tokens)                       # (B, V), (L, B, ...)
     cache = model.empty_cache(batch, max_len)
     logits = model.decode(tokens, cache, cache_len)              # (B, V)
     logits = model.step_mixed(tokens, cache, cache_lens, new_lens)
@@ -10,12 +11,18 @@
     logits = model.prefill_paged(suffix, pool, page_row, start)  # (1, V)
 
 Counterpart of the JAX package's ``models/model.py`` for the serving path.
-The KV cache keeps the JAX layout ``(L, B, S, Hkv, Dh)``, the page pool
-``(L, P, page_size, Hkv, Dh)``; both are updated in place (the JAX engine
-donated them).  ``device`` defaults to the card; a missing card raises.
+The dense KV cache keeps the JAX layout ``(L, B, S, Hkv, Dh)``, the page
+pool ``(L, P, page_size, Hkv, Dh)``; the rwkv cache is an
+``RWKVLayerCache`` of (L, B, H, N, N) fp32 states and (L, B, d) shift
+rows, whatever ``max_len``.  All are updated in place (the JAX engine
+donated them).  The rwkv family has no mixed step and no paged KV
+(``step_mixed``, ``prefill_paged`` and ``empty_page_pool`` raise
+``ValueError``, as in JAX).  ``device`` defaults to the card; a missing
+card raises.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -24,12 +31,16 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, transformer
+from repro_torch.models import attention, rwkv6, transformer
 
 
 class DecoderKVCache(NamedTuple):
     k: torch.Tensor   # (L, B, Sc, Hkv, Dh), or a page pool (L, P, ps, Hkv, Dh)
     v: torch.Tensor
+
+
+# the cache of either family
+Cache = Union[DecoderKVCache, rwkv6.RWKVLayerCache]
 
 
 def _host_ints(a) -> np.ndarray:
@@ -39,9 +50,10 @@ def _host_ints(a) -> np.ndarray:
 
 
 class Model(nn.Module):
-    """Embedding, an ``nn.ModuleList`` of ``DecoderLayer``s and the final
-    norm; the head is the tied embedding.  Parameters are allocated empty
-    on ``device``: call ``init_`` (seeded) or ``load_state_dict``
+    """Embedding, an ``nn.ModuleList`` of ``DecoderLayer``s (dense) or
+    ``RWKVLayer``s (rwkv) and the final norm; the head is the tied
+    embedding, or ``lm_head`` (d, V) when untied.  Parameters are allocated
+    empty on ``device``: call ``init_`` (seeded) or ``load_state_dict``
     (``convert.params_from_jax``) before use."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
@@ -54,30 +66,55 @@ class Model(nn.Module):
         self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model, **kw),
                                   requires_grad=False)
         self.final_norm = nn.Parameter(torch.ones(cfg.d_model, **kw), requires_grad=False)
+        layer_cls = rwkv6.RWKVLayer if self.is_rwkv else transformer.DecoderLayer
         self.layers = nn.ModuleList(
-            transformer.DecoderLayer(cfg, device=self.device, dtype=dtype)
-            for _ in range(cfg.n_layers))
+            layer_cls(cfg, device=self.device, dtype=dtype) for _ in range(cfg.n_layers))
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(torch.empty(cfg.d_model, cfg.vocab_size, **kw),
+                                        requires_grad=False)
+
+    @property
+    def is_rwkv(self) -> bool:
+        return self.cfg.family == "rwkv"
+
+    @property
+    def head(self) -> torch.Tensor:
+        """The (d, V) output matrix: ``embed.T`` when tied, else ``lm_head``."""
+        return self.embed.T if self.cfg.tie_embeddings else self.lm_head
 
     @torch.no_grad()
     def init_(self, generator: torch.Generator) -> "Model":
         """Seeded random weights (the JAX init's distributions): embedding
-        N(0, 0.02²), matrices N(0, 1/fan_in), norms at one."""
+        N(0, 0.02²), matrices N(0, 1/fan_in) (``lm_head`` too), norms at
+        one; the rwkv layers as ``rwkv6.init_rwkv_layer_``."""
         transformer._normal_(self.embed, 0.02, generator)
         self.final_norm.fill_(1.0)
         for layer in self.layers:
-            transformer.init_layer_(layer, self.cfg, generator)
+            if self.is_rwkv:
+                rwkv6.init_rwkv_layer_(layer, generator)
+            else:
+                transformer.init_layer_(layer, self.cfg, generator)
+        if not self.cfg.tie_embeddings:
+            transformer._normal_(self.lm_head, 1.0 / math.sqrt(self.cfg.d_model), generator)
         return self
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        return transformer.logits_from_hidden(self.head, self.final_norm, x, self.cfg)
 
     # -- serving ------------------------------------------------------------
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, DecoderKVCache]:
+    def prefill(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
         """tokens (B, S).  Returns the LAST position's logits (B, V) — the
         all-position logits of a 2000-token prompt at full width would be
-        1.2 GB of fp32 — and the prompt cache (L, B, S, Hkv, Dh)."""
+        1.2 GB of fp32 — and the prompt cache: KV (L, B, S, Hkv, Dh), or for
+        rwkv the states and shift rows after the last token."""
         x = self.embed[torch.as_tensor(tokens, device=self.device)]
-        x, (k, v) = transformer.run_layers_seq(self.layers, x, self.cfg)
-        logits = transformer.logits_from_hidden(self.embed, self.final_norm, x[:, -1:], self.cfg)
-        return logits[:, 0], DecoderKVCache(k=k, v=v)
+        if self.is_rwkv:
+            x, cache = rwkv6.run_rwkv_seq(self.layers, x, self.cfg)
+        else:
+            x, (k, v) = transformer.run_layers_seq(self.layers, x, self.cfg)
+            cache = DecoderKVCache(k=k, v=v)
+        return self._logits(x[:, -1:])[:, 0], cache
 
     @torch.no_grad()
     def prefill_paged(self, tokens: torch.Tensor, pool: DecoderKVCache,
@@ -100,20 +137,26 @@ class Model(nn.Module):
                                page_table=_host_ints(page_row).reshape(1, -1))
 
     @torch.no_grad()
-    def decode(self, tokens: torch.Tensor, cache: DecoderKVCache,
+    def decode(self, tokens: torch.Tensor, cache: Cache,
                cache_len: torch.Tensor, *,
                page_table: Optional[Union[np.ndarray, torch.Tensor]] = None) -> torch.Tensor:
         """tokens (B, 1); cache_len (B,) int32 per-slot lengths.  Writes the
-        new KV into ``cache`` and returns next-token logits (B, V).  With
-        ``page_table`` ((B, n_blocks) int32) ``cache`` is the page pool of
-        ``empty_page_pool``, read and written through the tables."""
+        new KV (rwkv: states and shift rows) into ``cache`` and returns
+        next-token logits (B, V).  With ``page_table`` ((B, n_blocks) int32)
+        ``cache`` is the page pool of ``empty_page_pool``, read and written
+        through the tables.  An rwkv cache holds no positions, so
+        ``cache_len`` is not read, as in JAX."""
+        x = self.embed[tokens]
+        if self.is_rwkv:
+            if page_table is not None:
+                raise ValueError("paged KV is not supported for rwkv caches")
+            return self._logits(rwkv6.run_rwkv_decode(self.layers, x, cache, self.cfg))[:, 0]
         if page_table is not None:
             page_table = torch.as_tensor(page_table, dtype=torch.int32, device=self.device)
-        x = self.embed[tokens]
         x = transformer.run_layers_decode(self.layers, x, cache.k, cache.v,
                                           cache_len.to(self.device, torch.int32), self.cfg,
                                           page_table)
-        return transformer.logits_from_hidden(self.embed, self.final_norm, x, self.cfg)[:, 0]
+        return self._logits(x)[:, 0]
 
     @torch.no_grad()
     def step_mixed(self, tokens: torch.Tensor, cache: DecoderKVCache,
@@ -132,7 +175,8 @@ class Model(nn.Module):
         there) to place the chunk's KV rows; a device tensor is copied back
         first.  The tables go to the device once per step."""
         if not self.supports_mixed_step:
-            raise ValueError(f"{self.cfg.name}: mixed-batch step unsupported")
+            raise ValueError(f"{self.cfg.name}: mixed-batch step unsupported "
+                             f"(family {self.cfg.family!r})")
         B, Q = tokens.shape
         cl, nl = _host_ints(cache_lens), _host_ints(new_lens)
         if page_table is not None:
@@ -148,35 +192,45 @@ class Model(nn.Module):
         x = transformer.run_layers_mixed(self.layers, x, cache.k, cache.v, lens_dev,
                                          write_index, self.cfg, attn_window, page_table)
         if all_logits:
-            return transformer.logits_from_hidden(self.embed, self.final_norm, x, self.cfg)
+            return self._logits(x)
         last = torch.as_tensor(np.maximum(nl - 1, 0), device=self.device)
         x_last = x[torch.arange(B, device=self.device), last][:, None]
-        return transformer.logits_from_hidden(self.embed, self.final_norm, x_last, self.cfg)[:, 0]
+        return self._logits(x_last)[:, 0]
 
     @property
     def supports_mixed_step(self) -> bool:
-        """Every model the port builds (dense, full attention, tokens in)."""
-        return self.cfg.supports_decode
+        """The mixed step shares the paged-KV contract: a decoding model with
+        the (L, ..., S, Hkv, Dh) cache, full attention and token input (the
+        JAX rule).  An rwkv state cannot replay a multi-token suffix per slot
+        in one step."""
+        cfg = self.cfg
+        return (cfg.supports_decode and cfg.family not in ("rwkv", "hybrid")
+                and cfg.sliding_window == 0 and cfg.input_mode == "tokens")
 
     @property
     def supports_paged_kv(self) -> bool:
         """Paged KV needs a decoding model with the (L, ..., S, Hkv, Dh)
-        cache and full attention; ``check_supported`` already admits only
-        full-attention dense models, so decoding is what is left to check."""
-        return self.cfg.supports_decode
+        cache and full attention; scan-state caches have no pages to share."""
+        cfg = self.cfg
+        return (cfg.supports_decode and cfg.family not in ("rwkv", "hybrid")
+                and cfg.sliding_window == 0)
 
     def empty_page_pool(self, num_pages: int, page_size: int) -> DecoderKVCache:
         """The shared paged-KV pool (L, num_pages, page_size, Hkv, Dh), zeroed."""
         cfg = self.cfg
         if not self.supports_paged_kv:
-            raise ValueError(f"{cfg.name}: a model that does not decode cannot use paged KV")
+            raise ValueError(f"{cfg.name}: family {cfg.family!r} (decoding "
+                             f"{cfg.supports_decode}) cannot use paged KV")
         pool = attention.empty_page_pool(cfg, cfg.n_layers, num_pages, page_size,
                                          device=self.device, dtype=cfg.torch_dtype)
         return DecoderKVCache(k=pool.k, v=pool.v)
 
-    def empty_cache(self, batch: int, max_len: int) -> DecoderKVCache:
-        """The (L, B, max_len, Hkv, Dh) cache, zeroed."""
+    def empty_cache(self, batch: int, max_len: int) -> Cache:
+        """The (L, B, max_len, Hkv, Dh) cache, zeroed; for rwkv the zeroed
+        (L, B, H, N, N) fp32 states and (L, B, d) shift rows."""
         cfg = self.cfg
+        if self.is_rwkv:
+            return rwkv6.empty_cache(cfg, cfg.n_layers, batch, cfg.torch_dtype, self.device)
         shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
         kw = dict(dtype=cfg.torch_dtype, device=self.device)
         return DecoderKVCache(k=torch.zeros(shape, **kw), v=torch.zeros(shape, **kw))

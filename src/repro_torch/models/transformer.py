@@ -1,5 +1,6 @@
 """Decoder transformer of the serving path: layer modules, seeded init,
-the prefill, decode and mixed layer loops, and the tied-embedding logits.
+the prefill, decode and mixed layer loops, the logits head, and the check
+of which configs the port serves.
 
 Counterpart of the JAX package's ``models/transformer.py`` for the dense
 family.  The JAX stack scans over stacked (L, ...) leaves and builds the
@@ -35,12 +36,18 @@ class DecoderLayer(nn.Module):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves the dense token-LM family with SwiGLU for now."""
+    """The port serves the dense token-LM family with SwiGLU and tied
+    embeddings, and the rwkv family (token input, decoding), for now."""
+    if cfg.family == "rwkv":
+        if cfg.input_mode != "tokens" or not cfg.supports_decode:
+            raise NotImplementedError(
+                f"{cfg.name}: the rwkv family is ported for token input and decoding only")
+        return
     if (cfg.family != "dense" or cfg.is_moe or cfg.mlp_type != "swiglu"
             or cfg.input_mode != "tokens" or not cfg.tie_embeddings):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense SwiGLU token-LM family with tied embeddings is ported "
-            f"(family {cfg.family!r}, mlp {cfg.mlp_type!r})")
+            f"{cfg.name}: only the dense SwiGLU token-LM family with tied embeddings and the "
+            f"rwkv family are ported (family {cfg.family!r}, mlp {cfg.mlp_type!r})")
     if cfg.sliding_window > 0:
         raise NotImplementedError(
             f"{cfg.name}: sliding-window attention is not ported yet (it comes with mixtral)")
@@ -135,8 +142,9 @@ def run_layers_mixed(
     return x
 
 
-def logits_from_hidden(embed: torch.Tensor, final_norm: torch.Tensor, x: torch.Tensor,
+def logits_from_hidden(head: torch.Tensor, final_norm: torch.Tensor, x: torch.Tensor,
                        cfg: ModelConfig) -> torch.Tensor:
-    """Final norm, then the tied-embedding head: (B, S, d) -> (B, S, V)."""
+    """Final norm, then the (d, V) head -- ``embed.T`` when tied, ``lm_head``
+    otherwise: (B, S, d) -> (B, S, V)."""
     x = layers.rms_norm(x, final_norm, cfg.norm_eps)
-    return x @ embed.T
+    return x @ head

@@ -1,5 +1,6 @@
 """Serving engine of the port: mixed-batch and legacy admission, contiguous
-or paged, and fixed-batch ``generate``.
+or paged, and fixed-batch ``generate``, over the dense family's KV cache or
+the rwkv family's constant-size state.
 
 Counterpart of the JAX package's ``serving/engine.py`` (``spec_k=0``) on
 both cache layouts.  With ``mixed_step=True`` (the default)
@@ -9,7 +10,11 @@ decode slots advance one token in every one — and then runs one decode
 chunk of ``decode_chunk`` steps over the whole slot batch.  With
 ``mixed_step=False`` (legacy admission) every admission is one B=1
 ``Model.prefill`` placed into its slot (or a ``prefill_paged`` of the
-suffix on a prefix hit), then the same decode chunk.
+suffix on a prefix hit), then the same decode chunk.  A model without
+a mixed step (the rwkv family, ``Model.supports_mixed_step`` False) takes
+legacy admission whatever ``mixed_step`` says, as in JAX: its per-slot
+cache is a recurrent state (L, B, H, N, N) and two shift rows (L, B, d),
+which admission replaces whole for the slot.
 
 With ``EngineConfig.paged_kv`` the per-slot stripes become a shared page
 pool (L, P, page_size, Hkv, Dh) read and written through per-slot block
@@ -39,8 +44,9 @@ Differences from the JAX engine, and why:
   A full-prompt hit's cached logits are kept as fp32 numpy.
 
 Not ported yet: speculative decoding (``spec_k > 0`` raises
-``NotImplementedError``; ROADMAP §1 item 7), durable-KV frontiers (item 8)
-and the scan-state families (item 11).
+``NotImplementedError``; ROADMAP §1 item 7), durable-KV frontiers, the
+scan-state ``StateFrontier`` included (item 8), and the mamba2/zamba2
+scan-state families (item 11).
 """
 from __future__ import annotations
 
@@ -124,12 +130,11 @@ class ServingEngine:
         if cfg.spec_k > 0:
             raise NotImplementedError("spec_k > 0 (speculative decoding) is not ported yet "
                                       "(ROADMAP §1 item 7)")
-        if not model.supports_mixed_step:
-            raise NotImplementedError(f"{model.cfg.name}: the port serves mixed-step models only")
         self.model = model
         self.cfg = cfg
         self.telemetry = EngineTelemetry()
-        self.mixed = bool(cfg.mixed_step)
+        # a model without a mixed step (rwkv) takes legacy admission, as in JAX
+        self.mixed = bool(cfg.mixed_step) and model.supports_mixed_step
         # paged-KV resolution (sessions read these): the auto pool holds a
         # max_len request in every slot, times PAGE_HEADROOM so finished
         # prompts can stay cached (page 0 is the reserved trash page)
@@ -145,7 +150,8 @@ class ServingEngine:
     # -- single-shot steps and fixed-batch generation ---------------------------
     def prefill(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Any]:
         """``batch['inputs']`` (B, S) -> last-position logits (B, V) and the
-        prompt cache (L, B, S, Hkv, Dh)."""
+        prompt cache: KV (L, B, S, Hkv, Dh), or the rwkv states and shift
+        rows after the prompt."""
         return self.model.prefill(torch.as_tensor(np.asarray(batch["inputs"]),
                                                   device=self.device))
 
@@ -171,19 +177,27 @@ class ServingEngine:
         return toks.T.cpu().numpy()
 
     def _expand_cache(self, pcache, batch: int):
-        """The prefill cache at the head of a fresh (L, B, max_len, ...) buffer."""
+        """The prefill cache in the fixed decode buffer, leaf by leaf: a KV
+        leaf at the head of a fresh (L, B, max_len, ...) buffer; a leaf
+        whose shape the buffer already has (rwkv states, shift rows) passes
+        through."""
         buf = self.model.empty_cache(batch, self.cfg.max_len)
-        S = pcache.k.shape[2]
-        buf.k[:, :, :S] = pcache.k
-        buf.v[:, :, :S] = pcache.v
-        return buf
+
+        def place(b, c):
+            if b.shape == c.shape:
+                return c
+            b[tuple(slice(0, n) for n in c.shape)] = c
+            return b
+
+        return type(buf)(*(place(b, c) for b, c in zip(buf, pcache)))
 
     def _place_slot(self, cache, pcache, slot: int) -> None:
         """Write a B=1 prefill cache into slot ``slot`` of the decode buffer,
-        in place, at positions [0, S)."""
-        S = pcache.k.shape[2]
-        cache.k[:, slot, :S] = pcache.k[:, 0]
-        cache.v[:, slot, :S] = pcache.v[:, 0]
+        in place, over every leaf at a zero offset in every axis but the
+        batch: KV at positions [0, S); rwkv states and shift rows replaced
+        whole, so nothing an idle slot decoded survives admission."""
+        for buf, c in zip(cache, pcache):
+            buf[(slice(None), slot) + tuple(slice(0, n) for n in c.shape[2:])] = c[:, 0]
 
     def _place_pages(self, pool, pcache, pages: List[int]) -> None:
         """Scatter a B=1 prefill cache (L, 1, Sp, Hkv, Dh) into ``pages`` of
@@ -306,6 +320,10 @@ class QueueSession:
         else:
             self.allocator = None
             self.cache = engine.model.empty_cache(n_slots, engine.cfg.max_len)
+        # scan-state backend: the rwkv decode state is a constant-size
+        # per-slot cache (no pages); its frontiers are not ported yet
+        self.scan_state = (not self.paged
+                           and engine.model.cfg.family in ("rwkv", "hybrid"))
         self.tok = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
         self.generator = None
         if engine.cfg.temperature > 0.0:

@@ -1,7 +1,9 @@
 """Card-only tests of the port: every CUDA kernel against its plain version
 (the paged kernels at page sizes 4, 8, 16 and 64; the flash-attention
 forward causal and not, windowed, with Sk > Sq, at ragged lengths 1 to
-2000, G 1, 2 and 4, head_dim 64 and 128, and on strided views).
+2000, G 1, 2 and 4, head_dim 64 and 128, and on strided views; the WKV6
+recurrence at lengths 1 to 2000, 1 to 64 heads of 16, 32 and 64, with a
+zero or random initial state, a slow decay and strided views).
 
 Marked ``gpu``; each test asks the ``cuda`` fixture for the card, which
 skips when ``torch.cuda.is_available()`` is false.  This file imports no
@@ -14,7 +16,10 @@ row's largest error within a tenth of that row's RMS -- the sums run in
 another order than the plain version's einsum, p rounds to bf16 before
 the PV product and outputs round at one ulp (2^-8 relative).  The row
 check is there because an output element at length L is only about
-sqrt(e / L) in size (0.026 at L=4096), below the flat bf16 atol.
+sqrt(e / L) in size (0.026 at L=4096), below the flat bf16 atol.  The
+WKV6 kernel computes in fp32 from the same inputs as its plain versions in
+both dtypes, so it is held at the scan tolerance of ``tests/test_kernels.py``
+(atol 5e-4, rtol 1e-3) on y and the final state.
 """
 import numpy as np
 import pytest
@@ -24,6 +29,9 @@ from repro_torch.kernels.decode_attention import kernel, ops, ref
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
+from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -302,3 +310,106 @@ def test_flash_kernel_rejects_bad_layout(cuda):
         flash_kernel.flash_attention_cuda(q, q.transpose(2, 3).contiguous().transpose(2, 3), q)
     with pytest.raises(TypeError):
         flash_kernel.flash_attention_cuda(q, q.double(), q)
+
+
+def _wkv_inputs(rng, B, S, H, N, dtype, dev, *, slow=False, state=True):
+    """r, k, v in ``dtype``; logw fp32 as the model makes it (-exp of a
+    log-decay near w0 = -2), or with ``slow`` near -5, where the state
+    keeps thousands of tokens; u in ``dtype``; state0 fp32 or None."""
+    r, k, v = (torch.as_tensor(rng.standard_normal((B, S, H, N)), dtype=torch.float32)
+               .to(dev, dtype) for _ in range(3))
+    mu = -5.0 if slow else -2.0
+    logw = -torch.exp(torch.as_tensor(mu + 0.5 * rng.standard_normal((B, S, H, N)),
+                                      dtype=torch.float32)).to(dev)
+    u = torch.as_tensor(rng.standard_normal((H, N)) * 0.5, dtype=torch.float32).to(dev, dtype)
+    s0 = (torch.as_tensor(rng.standard_normal((B, H, N, N)), dtype=torch.float32).to(dev)
+          if state else None)
+    return r, k, v, logw, u, s0
+
+
+def _wkv_close(r, k, v, logw, u, s0):
+    """The kernel against both plain versions, on y and the final state."""
+    y, st = wkv_kernel.wkv6_cuda(r, k, v, logw, u, s0)
+    B, _, H, N = r.shape
+    zeros = torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
+    for f in (wkv_ref.wkv6_ref, wkv_ref.wkv6_chunked):
+        y_p, st_p = f(r, k, v, logw, u, zeros if s0 is None else s0)
+        torch.testing.assert_close(y, y_p, atol=5e-4, rtol=1e-3)
+        torch.testing.assert_close(st, st_p, atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [16, 32, 64])
+@pytest.mark.parametrize("S", [1, 17, 64, 100, 700, 2000])
+def test_wkv6_kernel_vs_plain(cuda, dtype, N, S):
+    """Lengths no 32-token block divides, B=2, 4 heads, a random state0."""
+    rng = np.random.default_rng(S + N)
+    _wkv_close(*_wkv_inputs(rng, 2, S, 4, N, dtype, cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [1, 64])
+def test_wkv6_kernel_main_path_shape(cuda, dtype, H):
+    """Model.prefill's call at rwkv6-7b (B=1, S=2000, N=64) from a zero state
+    (state0 None), at 64 heads and at one."""
+    rng = np.random.default_rng(H)
+    _wkv_close(*_wkv_inputs(rng, 1, 2000, H, 64, dtype, cuda, state=False))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [100, 2000])
+def test_wkv6_kernel_slow_decay(cuda, dtype, S):
+    """logw = -exp(-5 + 0.5 N(0,1)): a fault at a token-block boundary
+    cannot hide behind a short memory here."""
+    rng = np.random.default_rng(S + 1)
+    _wkv_close(*_wkv_inputs(rng, 2, S, 4, 64, dtype, cuda, slow=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel_reads_strided_views(cuda, dtype):
+    """r, k, v, logw as slices of wider buffers (batch and sequence strides
+    that are not the dense ones), read in place."""
+    rng = np.random.default_rng(11)
+    B, S, H, N = 2, 333, 4, 64
+    fused = torch.as_tensor(rng.standard_normal((B, S, 3, H, N)),
+                            dtype=torch.float32).to(cuda, dtype)
+    r, k, v = fused[:, :, 0], fused[:, :, 1], fused[:, :, 2]
+    assert not r.is_contiguous()
+    *_, logw, u, s0 = _wkv_inputs(rng, B, 2 * S, H, N, dtype, cuda)
+    logw = logw[:, ::2]
+    _wkv_close(r, k, v, logw, u, s0)
+    y, st = wkv_kernel.wkv6_cuda(r, k, v, logw, u, s0)
+    y_c, st_c = wkv_kernel.wkv6_cuda(r.contiguous(), k.contiguous(), v.contiguous(),
+                                     logw.contiguous(), u, s0)
+    assert torch.equal(y, y_c) and torch.equal(st, st_c)
+
+
+def test_wkv6_dispatch_counts_launches(cuda):
+    rng = np.random.default_rng(12)
+    r, k, v, logw, u, _ = _wkv_inputs(rng, 1, 50, 2, 32, torch.float32, cuda)
+    wkv_kernel.reset_launches()
+    y, st = wkv_ops.wkv6(r, k, v, logw, u)
+    torch.cuda.synchronize()
+    assert wkv_kernel.LAUNCHES == {"wkv6": 1}
+    zeros = torch.zeros((1, 2, 32, 32), device=cuda)
+    y_p, st_p = wkv_ref.wkv6_ref(r, k, v, logw, u, zeros)
+    torch.testing.assert_close(y, y_p, atol=5e-4, rtol=1e-3)
+    torch.testing.assert_close(st, st_p, atol=5e-4, rtol=1e-3)
+
+
+def test_wkv6_kernel_rejects_bad_layout(cuda):
+    x = torch.zeros((1, 8, 2, 128), device=cuda)
+    u = torch.zeros((2, 128), device=cuda)
+    with pytest.raises(ValueError, match="head size"):
+        wkv_kernel.wkv6_cuda(x, x, x, x, u)
+    x = torch.zeros((1, 8, 2, 64), device=cuda)
+    u = torch.zeros((2, 64), device=cuda)
+    with pytest.raises(TypeError):                  # logw must be fp32
+        wkv_kernel.wkv6_cuda(x.bfloat16(), x.bfloat16(), x.bfloat16(), x.bfloat16(),
+                             u.bfloat16())
+    with pytest.raises(TypeError):                  # u in r's dtype
+        wkv_kernel.wkv6_cuda(x, x, x, x, u.bfloat16())
+    with pytest.raises(ValueError):                 # (H, N) not dense
+        wkv_kernel.wkv6_cuda(x.transpose(2, 3).contiguous().transpose(2, 3), x, x, x, u)
+    with pytest.raises(ValueError):                 # state0 of the wrong shape
+        wkv_kernel.wkv6_cuda(x, x, x, x, u, torch.zeros((1, 2, 64, 32), device=cuda))
