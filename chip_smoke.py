@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch port: serve qwen3-0.6b and rwkv6-7b on one
-NVIDIA GPU.
+"""Chip smoke test of the PyTorch port: serve qwen3-0.6b, rwkv6-7b and
+zamba2-2.7b on one NVIDIA GPU.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
@@ -27,7 +27,14 @@ Phases (any failure exits non-zero; nothing is caught):
    5e-4, rtol 1e-3, at rwkv6-7b's prefill shape (B=1, S=2000, 64 heads of
    64, from a zero state), phase 4g's (B=8, S=512), lengths 1-700 at head
    sizes 16, 32 and 64 from a random state, a slow decay over 2000 tokens
-   and strided views;
+   and strided views; the SSD scan against both plain versions (the
+   per-step recurrence and the chunk form) at atol 5e-4, rtol 1e-3, at
+   zamba2-2.7b's prefill shape (B=1, S=2000, 80 heads of P=64, N=64, zero
+   state), phase 4i's (B=8, S=512), lengths 1-700 from a random state, a
+   slow decay (A about -1e-3) over 2000 tokens and strided views; the
+   RMSNorm in both forms at the hybrid widths (2560, 5120) over 1, 8 and
+   2000 rows (bf16 within one bf16 ulp, fp32 atol 2e-5); the decode,
+   split-K and flash kernels at zamba2's head_dim 80 and G=1;
 4. serve: EngineClient serves full-width qwen3-0.6b (28 layers, bf16,
    seeded random weights) at the default EngineConfig: 16 requests,
    prompts 16..2000 tokens, 32 new tokens each; launch counters are
@@ -52,6 +59,16 @@ Phases (any failure exits non-zero; nothing is caught):
    Model.prefill (32 WKV6 launches) per admission, then decode chunks; no
    attention kernel may launch;
 4g. generate on rwkv6-7b: B=8, prompt 512, 32 steps (32 WKV6 launches);
+4h. serve zamba2-2.7b: EngineClient serves full-width zamba2-2.7b (54
+   Mamba-2 layers, d 2560, 80 SSM heads of 64, state 64, a shared
+   attention block of 32 heads of 80 every 6 layers, d_ff 10240, vocab
+   32000, bf16, seeded random weights, 4.84 GB) at the default
+   EngineConfig (legacy admission, as rwkv6): phase 4's traffic; each
+   admission is one Model.prefill (54 SSD and 9 flash launches), each
+   decode step 9 split-K pairs at head_dim 80; every norm of the hybrid
+   path through the RMSNorm kernel; no mixed, paged or WKV6 kernel may
+   launch. The rwkv6 model is freed first;
+4i. generate on zamba2-2.7b: B=8, prompt 512, 32 steps;
 5. card vs CPU: the same kind of traffic at fp32 (full width, 4 layers,
    max_len 1024, prompts up to 900) on the card and on the CPU (plain
    versions); greedy streams must agree token for token, or each first
@@ -65,11 +82,15 @@ Phases (any failure exits non-zero; nothing is caught):
    requests (prompts 16..300, 8 new tokens) through a 2-slot session, so
    slots are reused; streams must agree (or near-ties), and on the card
    decode after prefill(300) must equal prefill(301) within 2e-4;
+5e. card vs CPU on zamba2-2.7b: full width cut to 12 layers (two shared
+   applications) at fp32, the same 6 requests through 2 slots and the same
+   decode-after-prefill check;
 6. timing: every kernel, its plain version and the one PyTorch call with
    the same result (scaled_dot_product_attention, used only as a
-   yardstick; no one call reads a block table or computes the WKV6
-   recurrence) timed with CUDA events; bounds from the bytes and
-   operations of the inputs timed.
+   yardstick; no one call reads a block table or computes the WKV6 or SSD
+   recurrence; ``F.rms_norm`` for the plain RMSNorm) timed with CUDA
+   events, the attention kernels also at head_dim 80; bounds from the
+   bytes and operations of the inputs timed.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout
@@ -123,9 +144,11 @@ def check(ok: bool, what: str) -> None:
 def _kernel_modules() -> tuple:
     from repro_torch.kernels.decode_attention import kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.rmsnorm import kernel as norm_kernel
     from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 
-    return kernel, flash_kernel, wkv_kernel
+    return kernel, flash_kernel, wkv_kernel, ssd_kernel, norm_kernel
 
 
 def reset_launches() -> None:
@@ -138,10 +161,6 @@ def read_launches() -> dict:
     for mod in _kernel_modules():
         out.update(mod.LAUNCHES)
     return out
-
-
-def attention_launches(launches: dict) -> int:
-    return sum(n for name, n in launches.items() if name != "wkv6")
 
 
 def card_line() -> str:
@@ -322,6 +341,11 @@ def phase_kernels() -> dict:
             del kp, vp
     errs["flash_attention"] = flash_kernel_checks(gen)
     errs["wkv6"] = wkv6_kernel_checks(gen)
+    for name, e in head_dim_80_checks(gen).items():
+        for dt, err in e.items():
+            errs[name][dt] = max(errs[name].get(dt, 0.0), err)
+    errs["ssd"] = ssd_kernel_checks(gen)
+    errs.update(rmsnorm_kernel_checks(gen))
     torch.cuda.synchronize()
     return errs
 
@@ -397,6 +421,144 @@ def wkv6_kernel_checks(gen) -> dict:
         fused = _rand(gen, (2, 333, 3, 4, 64), dtype)
         *_, logw, u, s0 = wkv_inputs(gen, 2, 666, 4, 64, dtype)
         run("strided views", fused[:, :, 0], fused[:, :, 1], fused[:, :, 2], logw[:, ::2], u, s0)
+    return errs
+
+
+# zamba2-2.7b's shared attention: 32 q and 32 kv heads of 80 (G=1)
+Z_H, Z_D = 32, 80
+
+
+def head_dim_80_checks(gen) -> dict:
+    """The attention kernels at zamba2's head_dim 80, G=1: the single-stage
+    decode at phase 5e's max_len 512, the split-K pair at the default
+    max_len 4096 (K=8) over 8 slots, and the flash forward at the prefill
+    shape (B=1, causal, q/k/v slices of one fused projection) at S 16, 700
+    and 2000."""
+    from repro_torch.kernels.decode_attention import kernel, ops, ref
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+
+    errs = {name: {} for name in ("decode_attention", "decode_attention_splitk_partial",
+                                  "decode_attention_splitk_combine", "flash_attention")}
+
+    def note(name, dtype, err):
+        errs[name][str(dtype)] = max(errs[name].get(str(dtype), 0.0), err)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        k, v = _rand(gen, (2, 512, Z_H, Z_D), dtype), _rand(gen, (2, 512, Z_H, Z_D), dtype)
+        q = _rand(gen, (2, Z_H, Z_D), dtype)
+        lens = torch.tensor([300, 512], dtype=torch.int32, device="cuda")
+        note("decode_attention", dtype, _close("decode_attention D=80", kernel.decode_attention_cuda(
+            q, k, v, lens), ref.decode_attention(q, k, v, lens), dtype))
+        K = ops.auto_k_splits(S_MAX)
+        k, v = _rand(gen, (B, S_MAX, Z_H, Z_D), dtype), _rand(gen, (B, S_MAX, Z_H, Z_D), dtype)
+        q = _rand(gen, (B, Z_H, Z_D), dtype)
+        lens = torch.tensor([1, 17, 511, 512, 2049, 4096, 1000, 3000], dtype=torch.int32,
+                            device="cuda")
+        m, l, acc = kernel.splitk_partial_cuda(q, k, v, lens, k_splits=K)
+        m_r, l_r, acc_r = ref.decode_attention_splitk_partial(q, k, v, lens, k_splits=K)
+        empty = m_r <= -1e29
+        check(bool((m[empty] <= -1e29).all() and (l[empty] == 0).all()
+                   and (acc[empty] == 0).all()), "D=80: empty split chunk is not the identity")
+        check(_err(m[~empty], m_r[~empty]) < 1e-4, "D=80 split-K partial m differs")
+        check(bool(torch.allclose(l, l_r, rtol=1e-3, atol=1e-4)), "D=80 split-K partial l differs")
+        norm = lambda a, ll: a / ll.clamp(min=1e-30)[..., None]  # noqa: E731
+        note("decode_attention_splitk_partial", dtype, _close(
+            "splitk_partial D=80 (acc/l)", norm(acc, l), norm(acc_r, l_r), dtype))
+        note("decode_attention_splitk_combine", dtype, _close(
+            "splitk_combine D=80", kernel.splitk_combine_cuda(m_r, l_r, acc_r, dtype),
+            ref.splitk_combine(m_r, l_r, acc_r, dtype), dtype))
+        _close("splitk pair D=80", kernel.decode_attention_splitk_cuda(q, k, v, lens, k_splits=K),
+               ref.decode_attention(q, k, v, lens), dtype)
+        del k, v
+        for S in (16, 700, 2000):
+            fused = _rand(gen, (1, S, 3 * Z_H, Z_D), dtype)
+            q, k, v = fused[:, :, :Z_H], fused[:, :, Z_H:2 * Z_H], fused[:, :, 2 * Z_H:]
+            note("flash_attention", dtype, _close(
+                f"flash_attention D=80 S={S}", flash_kernel.flash_attention_cuda(q, k, v),
+                flash_ref.flash_attention(q.contiguous(), k.contiguous(), v.contiguous()), dtype))
+    return errs
+
+
+def ssd_inputs(gen, B_, S, H, P, N, dtype, *, state=True, slow=False):
+    """x, B, C in ``dtype``; dt = softplus(N(0, 1)) fp32, as the model makes
+    it from its projection; A = -exp(0.3 N(0, 1)), or with ``slow`` -1e-3
+    times that (a state that keeps thousands of tokens) and x scaled by
+    1/16, so y keeps the scale the scan tolerance is set for (at unit x the
+    two plain versions alone differ by up to 2.9e-3 over 2000 steps);
+    state0 fp32 or None."""
+    x = (_rand(gen, (B_, S, H, P), torch.float32) / (16.0 if slow else 1.0)).to(dtype)
+    dt = torch.nn.functional.softplus(_rand(gen, (B_, S, H), torch.float32))
+    A = -(1e-3 if slow else 1.0) * torch.exp(0.3 * _rand(gen, (H,), torch.float32))
+    Bm, Cm = _rand(gen, (B_, S, N), dtype), _rand(gen, (B_, S, N), dtype)
+    s0 = _rand(gen, (B_, H, P, N), torch.float32) if state else None
+    return x, dt, A, Bm, Cm, s0
+
+
+def ssd_kernel_checks(gen) -> dict:
+    """The SSD kernel vs both plain versions (y and the final state):
+    phase 4h's prefill call (B=1, S=2000, 80 heads of 64, N=64, zero
+    state), phase 4i's (B=8, S=512), lengths 1-700 at N 16 and 64 from a
+    random state, a slow decay over 2000 tokens, and strided views (x, B, C
+    slices of one conv output, as mamba2_layer passes them)."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+
+    errs = {}
+    cases = [(1, 2000, 80, 64, 64, False, False), (8, 512, 80, 64, 64, False, False)]
+    cases += [(2, S, 4, 64, N, True, False) for S in (1, 17, 100, 700) for N in (16, 64)]
+    cases += [(2, 2000, 4, 64, 64, True, True)]
+    for dtype in (torch.bfloat16, torch.float32):
+        def run(name, x, dt, A, Bm, Cm, s0):
+            y, st = ssd_kernel.ssd_cuda(x, dt, A, Bm, Cm, s0)
+            zeros = torch.zeros_like(st)
+            for plain in (ssd_ref.ssd_ref, ssd_ref.ssd_chunked):
+                y_p, st_p = plain(x, dt, A, Bm, Cm, zeros if s0 is None else s0)
+                for what, got, want in (("y", y, y_p), ("state", st, st_p)):
+                    err = _err(got, want)
+                    bad = (got - want).abs() > SCAN_TOL["atol"] + SCAN_TOL["rtol"] * want.abs()
+                    check(not bool(bad.any()) and bool(torch.isfinite(got).all()),
+                          f"ssd {name} {dtype} {what} vs {plain.__name__}: max abs err "
+                          f"{err:.3e} outside atol 5e-4 rtol 1e-3")
+                    errs[str(dtype)] = max(errs.get(str(dtype), 0.0), err)
+
+        for B_, S, H, P, N, state, slow in cases:
+            run(f"B={B_} S={S} H={H} P={P} N={N} state={state} slow={slow}",
+                *ssd_inputs(gen, B_, S, H, P, N, dtype, state=state, slow=slow))
+        H, P, N = 4, 64, 64
+        conv = _rand(gen, (2, 333, H * P + 2 * N), dtype)
+        _, dt, A, _, _, s0 = ssd_inputs(gen, 2, 666, H, P, N, dtype)
+        run("strided views", conv[..., :H * P].reshape(2, 333, H, P), dt[:, ::2], A,
+            conv[..., H * P:H * P + N], conv[..., H * P + N:], s0)
+    return errs
+
+
+def rmsnorm_kernel_checks(gen) -> dict:
+    """The RMSNorm kernel in both forms vs its plain version at the hybrid
+    widths (d_model 2560, d_inner 5120) over 1, 8 and 2000 rows: bf16
+    outputs within one bf16 ulp (rtol 2^-7; the two round the same fp32
+    value), fp32 at atol 2e-5 / rtol 1e-3, the fused form's sum bit for bit."""
+    from repro_torch.kernels.rmsnorm import kernel as norm_kernel
+    from repro_torch.kernels.rmsnorm import ref as norm_ref
+
+    errs = {"rmsnorm": {}, "rmsnorm_fused": {}}
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = dict(atol=1e-5, rtol=2 ** -7) if dtype == torch.bfloat16 else TOL[dtype]
+        for d in (2560, 5120):
+            w = _rand(gen, (d,), dtype)
+            for M in (1, 8, 2000):
+                x = (3.0 * _rand(gen, (M, d), torch.float32)).to(dtype)
+                for name, r in (("rmsnorm", None), ("rmsnorm_fused", _rand(gen, (M, d), dtype))):
+                    out, summed = norm_kernel.rmsnorm_cuda(x, w, r)
+                    want, want_sum = norm_ref.rmsnorm_ref(x, w, r)
+                    err = _err(out, want)
+                    bad = (out.float() - want.float()).abs() > (
+                        tol["atol"] + tol["rtol"] * want.float().abs())
+                    check(not bool(bad.any()) and bool(torch.isfinite(out).all()),
+                          f"{name} M={M} d={d} {dtype}: max abs err {err:.3e} outside "
+                          f"atol {tol['atol']} rtol {tol['rtol']}")
+                    check(bool(torch.equal(summed, want_sum)), f"{name} M={M} d={d}: sum differs")
+                    errs[name][str(dtype)] = max(errs[name].get(str(dtype), 0.0), err)
     return errs
 
 
@@ -726,15 +888,73 @@ def phase_legacy_vs_mixed(cpu_model, card_model, streams) -> dict:
     return out
 
 
-def phase_serve_rwkv(name_line: str, model) -> dict:
-    """Phase 4f: full-width rwkv6-7b through EngineClient at the default
-    EngineConfig, which takes legacy admission for the family: phase 4's
-    traffic, one Model.prefill (a WKV6 launch per layer) per admission."""
+def expected_scan_launches(cfg, prefills: int, steps: int, max_len: int) -> dict:
+    """Every kernel launch a scan-state model must make for ``prefills``
+    B-row prefills and ``steps`` decode steps, by name (any kernel not
+    named must not launch): rwkv6 one WKV6 launch per layer per prefill;
+    the hybrid one SSD launch per Mamba-2 layer and one flash launch per
+    shared application per prefill, one decode launch (a split-K pair at a
+    max_len that splits) per application per step, and per forward pass
+    two plain RMSNorms per Mamba-2 layer, the shared ln1 per application
+    and one fused residual add + ln2 per application."""
+    from repro_torch.kernels.decode_attention import ops
+
+    L = cfg.n_layers
+    if cfg.family == "rwkv":
+        return {"wkv6": L * prefills}
+    G = L // cfg.attention_every
+    passes = prefills + steps
+    out = {"ssd": L * prefills, "flash_attention": G * prefills,
+           "rmsnorm": (2 * L + G) * passes, "rmsnorm_fused": G * passes}
+    if ops.auto_k_splits(max_len) > 1:
+        out["decode_attention_splitk_partial"] = G * steps
+        out["decode_attention_splitk_combine"] = G * steps
+    else:
+        out["decode_attention"] = G * steps
+    return out
+
+
+def check_launches(launches: dict, expected: dict, label: str) -> None:
+    for name, n in launches.items():
+        check(n == expected.get(name, 0),
+              f"{label}: kernel {name} launched {n} times, expected {expected.get(name, 0)}")
+
+
+def scan_prefill_kernel_s(cfg, lengths) -> tuple:
+    """The scan kernel of the family (WKV6 or SSD) alone at each prompt's
+    length, once per layer, timed with CUDA events: (name, seconds)."""
+    from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+
+    gen = torch.Generator("cuda").manual_seed(5)
+    total = 0.0
+    for S in lengths:
+        if cfg.family == "rwkv":
+            H = cfg.d_model // cfg.rwkv_head_dim
+            r, k, v, logw, u, _ = wkv_inputs(gen, 1, S, H, cfg.rwkv_head_dim, cfg.torch_dtype,
+                                             state=False)
+            ms = time_ms(lambda: wkv_kernel.wkv6_cuda(r, k, v, logw, u), cfg.n_layers, 1)
+        else:
+            H = 2 * cfg.d_model // cfg.ssm_head_dim
+            x, dt, A, Bm, Cm, _ = ssd_inputs(gen, 1, S, H, cfg.ssm_head_dim, cfg.ssm_state,
+                                             cfg.torch_dtype, state=False)
+            ms = time_ms(lambda: ssd_kernel.ssd_cuda(x, dt, A, Bm, Cm), cfg.n_layers, 1)
+        total += cfg.n_layers * ms / 1e3          # one launch per layer at this length
+    return ("wkv6" if cfg.family == "rwkv" else "ssd"), total
+
+
+def phase_serve_scan(name_line: str, model) -> dict:
+    """Phases 4f (rwkv6-7b) and 4h (zamba2-2.7b): the full-width model
+    through EngineClient at the default EngineConfig, which takes legacy
+    admission for a scan-state family: phase 4's traffic, one
+    Model.prefill per admission, then decode chunks; every kernel launch
+    counted against ``expected_scan_launches``."""
     from repro_torch.serving import EngineConfig
 
     cfg = model.cfg
     dev = model.device
     ecfg = EngineConfig()
+    label = f"serve {cfg.name}"
     rng = np.random.default_rng(0)
     serve(model, ecfg, prompts_for(rng, 2, 16, 64, cfg.vocab_size), 4, dev)     # warm-up
     free_memory()
@@ -744,15 +964,14 @@ def phase_serve_rwkv(name_line: str, model) -> dict:
     reset_launches()
     handles, wall, engine = serve(model, ecfg, prompts, max_new, dev)
     launches = read_launches()
-    check_handles(handles, engine, max_new, cfg.vocab_size, "serve rwkv6")
+    check_handles(handles, engine, max_new, cfg.vocab_size, label)
     tel = engine.telemetry
     check(not engine.mixed and tel.mixed_steps == 0,
-          f"serve rwkv6: mixed admission ran ({tel.mixed_steps} mixed steps)")
-    check(launches["wkv6"] == cfg.n_layers * len(prompts) == cfg.n_layers * tel.prefills,
-          f"serve rwkv6: {launches['wkv6']} wkv6 launches for {tel.prefills} prefills of "
-          f"{cfg.n_layers} layers")
-    check(attention_launches(launches) == 0, f"serve rwkv6: an attention kernel launched: "
-                                              f"{launches}")
+          f"{label}: mixed admission ran ({tel.mixed_steps} mixed steps)")
+    check(tel.prefills == len(prompts), f"{label}: {tel.prefills} prefills")
+    steps = tel.chunks * ecfg.decode_chunk
+    check_launches(launches, expected_scan_launches(cfg, tel.prefills, steps, ecfg.max_len),
+                   label)
     ttft = np.array([h.record.ttft_s for h in handles])
     out = dict(
         requests=len(handles), layers=cfg.n_layers, dtype=cfg.dtype, max_new=max_new,
@@ -761,8 +980,9 @@ def phase_serve_rwkv(name_line: str, model) -> dict:
         generated_tokens=int(sum(len(h.result()) for h in handles)),
         wall_s=wall, tokens_per_s=sum(len(h.result()) for h in handles) / wall,
         ttft_p50_s=float(np.percentile(ttft, 50)), ttft_p99_s=float(np.percentile(ttft, 99)),
-        decode_chunks=tel.chunks, prefills=tel.prefills, launches=launches,
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=name_line)
+        decode_chunks=tel.chunks, decode_steps=steps, prefills=tel.prefills,
+        launches=launches, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        card=name_line)
     # the prefills alone, each timed to its end: their share of the wall
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -770,31 +990,25 @@ def phase_serve_rwkv(name_line: str, model) -> dict:
         model.prefill(torch.as_tensor(p[None], device=dev))
     torch.cuda.synchronize()
     alone = time.perf_counter() - t0
-    # the WKV6 kernel alone at each prompt's length, once per layer (CUDA
-    # events): its share of those prefills
-    from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
-
-    gen = torch.Generator("cuda").manual_seed(5)
-    H = cfg.d_model // cfg.rwkv_head_dim
-    wkv_s = 0.0
-    for p in prompts:
-        r, k, v, logw, u, _ = wkv_inputs(gen, 1, len(p), H, cfg.rwkv_head_dim, cfg.torch_dtype,
-                                         state=False)
-        wkv_s += time_ms(lambda: wkv_kernel.wkv6_cuda(r, k, v, logw, u), cfg.n_layers, 1) / 1e3
+    # the scan kernel alone at each prompt's length, once per layer: its share of those prefills
+    kname, kernel_s = scan_prefill_kernel_s(cfg, [len(p) for p in prompts])
     reset_launches()
-    out.update(prefill_alone_s=alone, prefill_share_of_wall=alone / wall,
-               wkv6_in_prefills_s=cfg.n_layers * wkv_s,
-               wkv6_share_of_prefills=cfg.n_layers * wkv_s / alone)
+    out.update({"prefill_alone_s": alone, "prefill_share_of_wall": alone / wall,
+                f"{kname}_in_prefills_s": kernel_s,
+                f"{kname}_share_of_prefills": kernel_s / alone})
     return out
 
 
-def phase_generate_rwkv(name_line: str, model) -> dict:
-    """Phase 4g: ServingEngine.generate on rwkv6-7b at B=8, prompt 512, 32 steps."""
+def phase_generate_scan(name_line: str, model) -> dict:
+    """Phases 4g (rwkv6-7b) and 4i (zamba2-2.7b): ServingEngine.generate at
+    B=8, prompt 512, 32 steps."""
     from repro_torch.serving import EngineConfig
 
     cfg = model.cfg
+    label = f"generate {cfg.name}"
     B_, plen, steps = 8, 512, 32
-    engine = make_engine_class()(model, EngineConfig(), device=model.device)
+    ecfg = EngineConfig()
+    engine = make_engine_class()(model, ecfg, device=model.device)
     rng = np.random.default_rng(4)
     engine.generate({"inputs": rng.integers(0, cfg.vocab_size, (2, 16))}, 2, 16)   # warm-up
     toks = rng.integers(0, cfg.vocab_size, (B_, plen))
@@ -804,19 +1018,17 @@ def phase_generate_rwkv(name_line: str, model) -> dict:
     out = engine.generate({"inputs": toks}, steps, plen)
     wall = time.perf_counter() - t0
     launches = read_launches()
-    check(out.shape == (B_, steps), f"generate rwkv6: shape {out.shape}")
-    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "generate rwkv6: out-of-vocab token")
-    check(int(engine.nonfinite) == 0,
-          f"generate rwkv6: {int(engine.nonfinite)} non-finite logits")
-    check(launches["wkv6"] == cfg.n_layers,
-          f"generate rwkv6: {launches['wkv6']} wkv6 launches, not {cfg.n_layers}")
-    check(attention_launches(launches) == 0, f"generate rwkv6: attention launched: {launches}")
+    check(out.shape == (B_, steps), f"{label}: shape {out.shape}")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()), f"{label}: out-of-vocab token")
+    check(int(engine.nonfinite) == 0, f"{label}: {int(engine.nonfinite)} non-finite logits")
+    check_launches(launches, expected_scan_launches(cfg, 1, steps, ecfg.max_len), label)
     return dict(batch=B_, prompt_len=plen, steps=steps, layers=cfg.n_layers, dtype=cfg.dtype,
                 wall_s=wall, tokens_per_s=B_ * steps / wall, launches=launches, card=name_line)
 
 
-def phase_rwkv_card_vs_cpu(cfg) -> dict:
-    """Phase 5d: rwkv6-7b at full width cut to 2 layers, fp32, on the card
+def phase_scan_card_vs_cpu(cfg, n_layers: int) -> dict:
+    """Phases 5d (rwkv6-7b, 2 layers) and 5e (zamba2-2.7b, 12 layers: two
+    shared applications): full width cut to ``n_layers``, fp32, on the card
     and on the CPU: 6 requests through a 2-slot session (slots reused);
     then decode after prefill(300) against prefill(301) on the card."""
     import dataclasses
@@ -824,7 +1036,8 @@ def phase_rwkv_card_vs_cpu(cfg) -> dict:
     from repro_torch.models import Model
     from repro_torch.serving import EngineConfig
 
-    small = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    small = dataclasses.replace(cfg, n_layers=n_layers, dtype="float32")
+    label = f"{cfg.name} card-vs-cpu"
     cpu_model = Model(small, device="cpu").init_(torch.Generator().manual_seed(3))
     card_model = Model(small, device="cuda")
     card_model.load_state_dict(cpu_model.state_dict())
@@ -835,12 +1048,12 @@ def phase_rwkv_card_vs_cpu(cfg) -> dict:
     reset_launches()
     card_h, card_wall, card_eng = serve(card_model, ecfg, prompts, max_new, torch.device("cuda"))
     launches = read_launches()
-    check(launches["wkv6"] == small.n_layers * len(prompts),
-          f"rwkv card-vs-cpu: {launches['wkv6']} wkv6 launches")
-    check(attention_launches(launches) == 0, "rwkv card-vs-cpu: attention launched")
+    tel = card_eng.telemetry
+    check_launches(launches, expected_scan_launches(
+        small, tel.prefills, tel.chunks * ecfg.decode_chunk, ecfg.max_len), label)
     cpu_h, cpu_wall, cpu_eng = serve(cpu_model, ecfg, prompts, max_new, torch.device("cpu"))
-    check_handles(card_h, card_eng, max_new, small.vocab_size, "rwkv card-vs-cpu card fp32")
-    check_handles(cpu_h, cpu_eng, max_new, small.vocab_size, "rwkv card-vs-cpu cpu fp32")
+    check_handles(card_h, card_eng, max_new, small.vocab_size, f"{label} card fp32")
+    check_handles(cpu_h, cpu_eng, max_new, small.vocab_size, f"{label} cpu fp32")
     exact, ties = compare_streams(prompts, [h.result() for h in card_h],
                                   [h.result() for h in cpu_h], card_model, cpu_model,
                                   ("card", "cpu"))
@@ -848,15 +1061,18 @@ def phase_rwkv_card_vs_cpu(cfg) -> dict:
     # the decode path reads it
     S = 300
     toks = torch.as_tensor(rng.integers(0, small.vocab_size, (1, S + 1)), device="cuda")
-    _, cache = card_model.prefill(toks[:, :S])
+    _, pcache = card_model.prefill(toks[:, :S])
+    cache = card_model.empty_cache(1, S + 1)
+    for buf, leaf in zip(cache, pcache):
+        buf[tuple(slice(0, n) for n in leaf.shape)] = leaf
     step = card_model.decode(toks[:, S:], cache, torch.full((1,), S, device="cuda"))
     full, _ = card_model.prefill(toks)
     err = _err(step, full)
     check(bool(torch.allclose(step, full, atol=2e-4, rtol=1e-4)),
-          f"rwkv decode after prefill({S}) vs prefill({S + 1}): max abs err {err:.3e}")
+          f"{label}: decode after prefill({S}) vs prefill({S + 1}): max abs err {err:.3e}")
     return dict(requests=len(prompts), exact_streams=exact, near_ties=ties,
                 layers=small.n_layers, dtype=small.dtype, slots=ecfg.decode_batch,
-                prefills=card_eng.telemetry.prefills, launches=launches,
+                prefills=tel.prefills, launches=launches,
                 card_wall_s=card_wall, cpu_wall_s=cpu_wall,
                 decode_vs_prefill_max_abs_err=err)
 
@@ -1045,6 +1261,90 @@ def phase_timing() -> dict:
         5 * N * N * S * H, None,
         f"bf16 r/k/v/u, fp32 logw, B=1 S={S} H={H} N={N}, zero state; "
         "library: none (no one call computes the WKV6 recurrence)")
+    del r, k, v, logw, u
+
+    # SSD at phase 4h's longest prefill: B=1, S=2000, 80 heads of P=64, N=64,
+    # bf16 x/B/C, fp32 dt and A, from a zero state (as Model.prefill calls
+    # it).  Bytes: x, dt, A, B, C read once, y and the final state written
+    # once; ops: 5 P N per token and head, fp32.
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+
+    H, P, N = 80, 64, 64
+    x, dt_, A, Bm, Cm, _ = ssd_inputs(gen, 1, S, H, P, N, dt, state=False)
+    zeros = torch.zeros((1, H, P, N), device="cuda")
+    row("ssd", torch.float32,
+        time_ms(lambda: ssd_kernel.ssd_cuda(x, dt_, A, Bm, Cm), 50),
+        time_ms(lambda: ssd_ref.ssd_chunked(x, dt_, A, Bm, Cm, zeros), 5),
+        S * H * P * es + 2 * S * N * es + S * H * 4 + H * 4 + S * H * P * 4 + H * P * N * 4,
+        5 * P * N * S * H, None,
+        f"bf16 x/B/C, fp32 dt/A, B=1 S={S} H={H} P={P} N={N}, zero state; "
+        "library: none (no one call computes the SSD recurrence)")
+    del x, dt_, Bm, Cm
+
+    # RMSNorm at the same prefill's rows: (2000, 2560) bf16, the plain form
+    # (yardstick: F.rms_norm) and the fused residual add; ops: 4 (plain) or
+    # 5 (fused) fp32 flops per element
+    from repro_torch.kernels.rmsnorm import kernel as norm_kernel
+    from repro_torch.kernels.rmsnorm import ref as norm_ref
+
+    M, dm = S, 2560
+    xn, res, w = _rand(gen, (M, dm), dt), _rand(gen, (M, dm), dt), _rand(gen, (dm,), dt)
+    F = torch.nn.functional
+    row("rmsnorm", torch.float32,
+        time_ms(lambda: norm_kernel.rmsnorm_cuda(xn, w), 200),
+        time_ms(lambda: norm_ref.rmsnorm_ref(xn, w), 50),
+        2 * M * dm * es + dm * es, 4 * M * dm,
+        time_ms(lambda: F.rms_norm(xn, (dm,), w, 1e-6), 200),
+        f"bf16 M={M} d={dm}; library: F.rms_norm")
+    row("rmsnorm_fused", torch.float32,
+        time_ms(lambda: norm_kernel.rmsnorm_cuda(xn, w, res), 200),
+        time_ms(lambda: norm_ref.rmsnorm_ref(xn, w, res), 50),
+        4 * M * dm * es + dm * es, 5 * M * dm, None,
+        f"bf16 M={M} d={dm}, residual add fused; library: none (no one call adds and "
+        "normalises)")
+    del xn, res
+
+    # the attention kernels again at zamba2's head_dim 80 and G=1
+    def row80(name, dtype, ms, plain_ms, nbytes, ops, library_ms, shape):
+        b_ms, by = bound_ms(nbytes, ops, dtype)
+        out[name]["d80"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                                library_ms=library_ms, shape=shape)
+
+    Hq = Hk = Z_H
+    Dz = Z_D
+    q = _rand(gen, (1, S, Hq, Dz), dt)
+    k, v = _rand(gen, (1, S, Hk, Dz), dt), _rand(gen, (1, S, Hk, Dz), dt)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    row80("flash_attention", dt,
+          time_ms(lambda: flash_kernel.flash_attention_cuda(q, k, v, causal=True), 50),
+          time_ms(lambda: flash_ref.flash_attention(q, k, v, causal=True), 10),
+          (2 * S * Hq * Dz + 2 * S * Hk * Dz) * es, 4 * Dz * Hq * S * (S + 1) // 2,
+          time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 50),
+          f"bf16 B=1 Sq=Sk={S} Hq={Hq} Hkv={Hk} D={Dz} causal")
+    del q, k, v
+    Sc = S_MAX
+    k, v = _rand(gen, (B, Sc, Hk, Dz), dt), _rand(gen, (B, Sc, Hk, Dz), dt)
+    q = _rand(gen, (B, Hq, Dz), dt)
+    lens_np = rng.integers(16, 2033, B)
+    lens = torch.as_tensor(lens_np, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(Sc, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    keys = int(lens_np.sum())
+    part_bytes = B * Hk * K * (Dz + 2) * 4
+    m, l, acc = kernel.splitk_partial_cuda(q, k, v, lens, k_splits=K)
+    row80("decode_attention_splitk_partial", dt,
+          time_ms(lambda: kernel.splitk_partial_cuda(q, k, v, lens, k_splits=K), 200),
+          time_ms(lambda: ref.decode_attention_splitk_partial(q, k, v, lens, k_splits=K), 20),
+          2 * keys * Hk * Dz * es + B * Hq * Dz * es + 4 * B + part_bytes,
+          4 * keys * Hq * Dz,
+          time_ms(lambda: _sdpa(q[:, None], k, v, mask), 50),
+          f"bf16 B={B} S={Sc} K={K} Hkv={Hk} G=1 D={Dz} lengths={lens_np.tolist()}; "
+          "library_ms is SDPA for the whole partial+combine pair")
+    row80("decode_attention_splitk_combine", torch.float32,
+          time_ms(lambda: kernel.splitk_combine_cuda(m, l, acc, dt), 200),
+          time_ms(lambda: ref.splitk_combine(m, l, acc, dt), 50),
+          part_bytes + B * Hq * Dz * es, B * Hk * K * (3 * Dz + 4),
+          None, f"fp32 partials B={B} Hkv={Hk} K={K} G=1 D={Dz} -> bf16")
     return out
 
 
@@ -1052,6 +1352,9 @@ def phase_timing() -> dict:
 
 
 REPLACES = {
+    "ssd": "src/repro/kernels/ssd_scan/kernel.py:75",
+    "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:55",
+    "rmsnorm_fused": "src/repro/kernels/rmsnorm/kernel.py:65",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:96",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:103",
     "decode_attention_splitk_partial": "src/repro/kernels/decode_attention/kernel.py:218",
@@ -1063,16 +1366,20 @@ REPLACES = {
     "wkv6": "src/repro/kernels/rwkv6_scan/kernel.py:75",
 }
 # the main-path runs whose launches each kernel reports (the combine serves both layouts)
+ZAMBA2_PHASES = ("serve_zamba2", "generate_zamba2")
 LAUNCH_PHASES = {
-    "flash_attention": ("serve_legacy", "serve_legacy_paged", "generate"),
+    "flash_attention": ("serve_legacy", "serve_legacy_paged", "generate") + ZAMBA2_PHASES,
     "decode_attention": ("card_vs_cpu",),
-    "decode_attention_splitk_partial": ("serve",),
-    "decode_attention_splitk_combine": ("serve", "serve_paged"),
+    "decode_attention_splitk_partial": ("serve",) + ZAMBA2_PHASES,
+    "decode_attention_splitk_combine": ("serve", "serve_paged") + ZAMBA2_PHASES,
     "mixed_attention": ("serve",),
     "decode_attention_paged": ("card_vs_cpu_paged",),
     "decode_attention_paged_splitk_partial": ("serve_paged",),
     "mixed_attention_paged": ("serve_paged", "serve_legacy_paged"),
     "wkv6": ("serve_rwkv", "generate_rwkv"),
+    "ssd": ZAMBA2_PHASES,
+    "rmsnorm": ZAMBA2_PHASES,
+    "rmsnorm_fused": ZAMBA2_PHASES,
 }
 
 
@@ -1089,15 +1396,18 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.rmsnorm import kernel as norm_kernel
     from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.models import Model
 
+    kernel_mods = (kernel, flash_kernel, wkv_kernel, ssd_kernel, norm_kernel)
     t_start = time.perf_counter()
     name_line = card_line()
     print(f"[1/6] card: {name_line}", flush=True)
 
     t0 = time.perf_counter()
-    logs = _build.build([kernel.SOURCE, flash_kernel.SOURCE, wkv_kernel.SOURCE])
+    logs = _build.build([m.SOURCE for m in kernel_mods])
     print(f"[2/6] built {len(logs)} source(s) in {time.perf_counter() - t0:.1f} s", flush=True)
     for src, log in logs.items():
         print(f"  {src.relative_to(ROOT)}:")
@@ -1139,15 +1449,33 @@ def main() -> int:
     print(f"[4f/6] rwkv6-7b: {sum(p.numel() for p in model.parameters()) / 1e9:.3f} G "
           f"parameters initialised in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    runs["serve_rwkv"] = phase_serve_rwkv(name_line, model)
+    runs["serve_rwkv"] = phase_serve_scan(name_line, model)
     free_memory()
     print(f"[4f/6] served full-width rwkv6-7b (legacy admission) in "
           f"{time.perf_counter() - t0:.1f} s on {name_line}: " + json.dumps(runs["serve_rwkv"]),
           flush=True)
     t0 = time.perf_counter()
-    runs["generate_rwkv"] = phase_generate_rwkv(name_line, model)
+    runs["generate_rwkv"] = phase_generate_scan(name_line, model)
     print(f"[4g/6] generate on rwkv6-7b in {time.perf_counter() - t0:.1f} s: "
           + json.dumps(runs["generate_rwkv"]), flush=True)
+    del model
+    free_memory()
+
+    zcfg = get_config("zamba2-2.7b")
+    t0 = time.perf_counter()
+    model = Model(zcfg, device="cuda").init_(torch.Generator("cuda").manual_seed(0))
+    print(f"[4h/6] zamba2-2.7b: {sum(p.numel() for p in model.parameters()) / 1e9:.3f} G "
+          f"parameters initialised in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    runs["serve_zamba2"] = phase_serve_scan(name_line, model)
+    free_memory()
+    print(f"[4h/6] served full-width zamba2-2.7b (legacy admission) in "
+          f"{time.perf_counter() - t0:.1f} s on {name_line}: "
+          + json.dumps(runs["serve_zamba2"]), flush=True)
+    t0 = time.perf_counter()
+    runs["generate_zamba2"] = phase_generate_scan(name_line, model)
+    print(f"[4i/6] generate on zamba2-2.7b in {time.perf_counter() - t0:.1f} s: "
+          + json.dumps(runs["generate_zamba2"]), flush=True)
     del model
     free_memory()
 
@@ -1171,10 +1499,16 @@ def main() -> int:
     del cpu_model, card_model
     free_memory()
     t0 = time.perf_counter()
-    runs["rwkv_card_vs_cpu"] = phase_rwkv_card_vs_cpu(rcfg)
+    runs["rwkv_card_vs_cpu"] = phase_scan_card_vs_cpu(rcfg, 2)
     free_memory()
     print(f"[5d/6] rwkv6-7b card vs cpu (2 layers, fp32, 2 slots) in "
           f"{time.perf_counter() - t0:.1f} s: " + json.dumps(runs["rwkv_card_vs_cpu"]), flush=True)
+    t0 = time.perf_counter()
+    runs["zamba2_card_vs_cpu"] = phase_scan_card_vs_cpu(zcfg, 12)
+    free_memory()
+    print(f"[5e/6] zamba2-2.7b card vs cpu (12 layers, fp32, 2 slots) in "
+          f"{time.perf_counter() - t0:.1f} s: " + json.dumps(runs["zamba2_card_vs_cpu"]),
+          flush=True)
 
     t0 = time.perf_counter()
     tim = phase_timing()
@@ -1185,14 +1519,15 @@ def main() -> int:
     for name, t in tim.items():
         by_phase = {ph: runs[ph]["launches"][name] for ph in LAUNCH_PHASES[name]}
         e = errs[name]
-        src = next(m.SOURCE for m in (kernel, flash_kernel, wkv_kernel) if name in m.LAUNCHES)
+        src = next(m.SOURCE for m in kernel_mods if name in m.LAUNCHES)
         rows.append(dict(
             name=name, route="cuda", source=str(src.relative_to(ROOT)),
             replaces=REPLACES[name], launches=sum(by_phase.values()),
             launches_by_phase=by_phase,
             max_abs_err=e[str(torch.bfloat16)], max_abs_err_fp32=e[str(torch.float32)],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-            library_ms=t["library_ms"], shape=t["shape"]))
+            library_ms=t["library_ms"], shape=t["shape"],
+            **({"head_dim_80": t["d80"]} if "d80" in t else {})))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(name_line)
     print(json.dumps({"kernels": rows}))

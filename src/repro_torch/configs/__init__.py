@@ -13,6 +13,7 @@ from repro_torch.configs.base import ModelConfig
 _ARCH_MODULES = {
     "qwen3-0.6b": "repro_torch.configs.qwen3_0_6b",
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
 }
 
 ARCH_IDS: Tuple[str, ...] = tuple(_ARCH_MODULES)

@@ -8,8 +8,9 @@ It splits the stacked ``(L, ...)`` layer leaves per layer and fuses what
 the port keeps fused: ``wqkv = [wq|wk|wv]``, ``w_gu = [w_gate|w_up]`` and
 the per-head ``qk_norm`` weight.  An rwkv layer's leaves keep their JAX
 names and dtypes (``ln_x_w``/``ln_x_b`` stay fp32) with no fusion: each of
-r, k, v, w and g projects its own mixed input.  An untied ``lm_head`` is
-kept.
+r, k, v, w and g projects its own mixed input.  So do a Mamba-2 layer's
+(``A_log``, ``D`` and ``dt_bias`` stay fp32); the hybrid's one ``shared``
+block is fused as a dense layer is.  An untied ``lm_head`` is kept.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, layers, rwkv6
+from repro_torch.models import attention, layers, mamba2, rwkv6
 
 
 def _t(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
@@ -40,26 +41,39 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     if not cfg.tie_embeddings:
         state["lm_head"] = _t(tree["lm_head"], dtype)
     lay = tree["layers"]
-    if cfg.family == "rwkv":
-        fp32 = {"ln_x_w", "ln_x_b"}
-        for name in rwkv6.RWKVLayer(cfg, device="meta", dtype=dtype).state_dict():
+    if cfg.family in ("rwkv", "hybrid"):
+        # per-layer leaves under their JAX names, no fusion
+        layer_cls, fp32 = ((rwkv6.RWKVLayer, {"ln_x_w", "ln_x_b"}) if cfg.family == "rwkv"
+                           else (mamba2.Mamba2Layer, {"A_log", "D", "dt_bias"}))
+        for name in layer_cls(cfg, device="meta", dtype=dtype).state_dict():
             for li in range(cfg.n_layers):
                 state[f"layers.{li}.{name}"] = _t(lay[name][li],
                                                   torch.float32 if name in fp32 else dtype)
+        if cfg.family == "hybrid":
+            sh = tree["shared"]
+            _decoder_layer(state, "shared.", sh, sh["attn"], sh["mlp"], None, cfg)
         return state
-    at, mlp = lay["attn"], lay["mlp"]
     for li in range(cfg.n_layers):
-        pre = f"layers.{li}."
-        state[pre + "ln1"] = _t(lay["ln1"][li], dtype)
-        state[pre + "ln2"] = _t(lay["ln2"][li], dtype)
-        state[pre + "attn.wqkv"] = attention.fuse_qkv_weights(
-            _t(at["wq"][li], dtype), _t(at["wk"][li], dtype), _t(at["wv"][li], dtype))
-        state[pre + "attn.wo"] = _t(at["wo"][li], dtype)
-        if cfg.qk_norm:
-            state[pre + "attn.qk_norm"] = attention.fuse_qk_norm(
-                _t(at["q_norm"][li], dtype), _t(at["k_norm"][li], dtype),
-                cfg.n_heads, cfg.n_kv_heads).contiguous()
-        state[pre + "w_gu"] = layers.fuse_gate_up_weights(
-            _t(mlp["w_gate"][li], dtype), _t(mlp["w_up"][li], dtype))
-        state[pre + "w_down"] = _t(mlp["w_down"][li], dtype)
+        _decoder_layer(state, f"layers.{li}.", lay, lay["attn"], lay["mlp"], li, cfg)
     return state
+
+
+def _decoder_layer(state: Dict[str, torch.Tensor], pre: str, lay: Mapping, at: Mapping,
+                   mlp: Mapping, li, cfg: ModelConfig) -> None:
+    """One ``DecoderLayer``'s entries under ``pre``, fused: layer ``li`` of
+    stacked leaves, or with ``li`` None unstacked leaves (the shared block)."""
+    dtype = cfg.torch_dtype
+
+    def leaf(tree, name):
+        return _t(tree[name] if li is None else tree[name][li], dtype)
+
+    state[pre + "ln1"] = leaf(lay, "ln1")
+    state[pre + "ln2"] = leaf(lay, "ln2")
+    state[pre + "attn.wqkv"] = attention.fuse_qkv_weights(
+        leaf(at, "wq"), leaf(at, "wk"), leaf(at, "wv"))
+    state[pre + "attn.wo"] = leaf(at, "wo")
+    if cfg.qk_norm:
+        state[pre + "attn.qk_norm"] = attention.fuse_qk_norm(
+            leaf(at, "q_norm"), leaf(at, "k_norm"), cfg.n_heads, cfg.n_kv_heads).contiguous()
+    state[pre + "w_gu"] = layers.fuse_gate_up_weights(leaf(mlp, "w_gate"), leaf(mlp, "w_up"))
+    state[pre + "w_down"] = leaf(mlp, "w_down")

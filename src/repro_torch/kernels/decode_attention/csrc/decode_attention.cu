@@ -36,6 +36,11 @@
 // window view k[:, :W] of a larger cache is read in place.  Still simple:
 // fp32 CUDA-core math, no wgmma/TMA; later work makes it fast.
 //
+// Head dims 32, 64, 80 and 128.  At D = 80 (zamba2's shared attention) a
+// bf16 tile is 320 16-byte packs for 128 threads, so each thread makes 3
+// loads and the third is predicated off for half of them; the other dims
+// split evenly and compile to the same code as without the predicate.
+//
 // Paged KV.  With a block table (tbl != nullptr) the KV operands are a
 // shared pool (P, ps, Hkv, D) and key ``pos`` of sequence b lives at row
 // pos % ps of page tbl[b * tbl_sb + pos / ps]; the logical length is
@@ -161,11 +166,15 @@ __global__ void __launch_bounds__(kThreads) flash_rows_kernel(RowsParams p) {
 #pragma unroll
   for (int i = 0; i < kPer; ++i) acc[i] = 0.f;
 
-  // the next tile's K and V, 16 bytes per load, kVec loads of each per thread
+  // the next tile's K and V, 16 bytes per load, kVec loads of each per
+  // thread; where the tile's packs do not split evenly over the threads
+  // (D = 80 in bf16: 320 packs, 2.5 a thread) the last load is predicated
   constexpr int kPackN = Pack<T>::N;
   constexpr int kPacksPerKey = D / kPackN;
-  constexpr int kVec = kTile * kPacksPerKey / kThreads;
-  static_assert(kVec * kThreads == kTile * kPacksPerKey, "tile must split evenly");
+  constexpr int kUnits = kTile * kPacksPerKey;
+  constexpr int kEven = kUnits % kThreads == 0;
+  constexpr int kVec = (kUnits + kThreads - 1) / kThreads;
+  static_assert(kPacksPerKey * kPackN == D, "a key row splits into 16-byte packs");
   uint4 kreg[kVec], vreg[kVec];
   auto fetch = [&](int t0) {
 #pragma unroll
@@ -174,7 +183,7 @@ __global__ void __launch_bounds__(kThreads) flash_rows_kernel(RowsParams p) {
       const int pos = t0 + j;
       kreg[i] = make_uint4(0, 0, 0, 0);
       vreg[i] = make_uint4(0, 0, 0, 0);
-      if (pos < hi) {
+      if ((kEven || u < kUnits) && pos < hi) {
         long long row = pos;   // contiguous: the key's own row
         if (p.tbl != nullptr) row = (long long)p.tbl[b * p.tbl_sb + pos / p.ps] * p.ps + pos % p.ps;
         const long long off = row * p.Hkv * D + (long long)h * D + d0;
@@ -189,6 +198,7 @@ __global__ void __launch_bounds__(kThreads) flash_rows_kernel(RowsParams p) {
 #pragma unroll
     for (int i = 0; i < kVec; ++i) {
       const int u = tid + i * kThreads, j = u / kPacksPerKey, d0 = (u % kPacksPerKey) * kPackN;
+      if (!kEven && u >= kUnits) continue;
       float kf[kPackN], vf[kPackN];
       unpack(kreg[i], kf, T());
       unpack(vreg[i], vf, T());
@@ -305,6 +315,7 @@ int dispatch_rows(int D, const RowsParams& p, cudaStream_t stream) {
   switch (D) {
     case 32: launch_rows<T, 32>(p, stream); break;
     case 64: launch_rows<T, 64>(p, stream); break;
+    case 80: launch_rows<T, 80>(p, stream); break;
     case 128: launch_rows<T, 128>(p, stream); break;
     default: return -1;
   }

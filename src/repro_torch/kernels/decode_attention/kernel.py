@@ -34,7 +34,7 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches per kernel, counted where each wrapper launches and nowhere else

@@ -35,6 +35,12 @@
 // Still simple: fp32 CUDA-core FMAs over shared-memory tiles, plain 16-byte
 // loads, no mma.sync/wgmma, no TMA; a later change makes it fast.
 //
+// Head dims 64, 80 and 128.  The score product walks D in steps of 4, so
+// any multiple of 4 works there; in the PV product a lane owns 4 columns
+// of each 64-column chunk, and at D = 80 the second chunk's 16 columns
+// belong to lanes 0-3 alone (the others skip it, and store nothing past
+// column 80).  Shared rows stay D + 4 floats, so no column is padded.
+//
 // Numerics match the TPU kernel: fp32 scores and softmax state, masking
 // with -1e30 (not -inf: with a window, a row's first tile can be wholly
 // masked; then p = exp(0) = 1 on masked keys until a later tile's
@@ -122,7 +128,10 @@ template <int D> struct Smem {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(FlashParams p) {
   constexpr int kS = Smem<D>::kS, kPS = Smem<D>::kPS;
-  constexpr int kC = D / 64;                   // 4-column chunks per thread in PV
+  constexpr int kC = (D + 63) / 64;            // 4-column chunks per thread in PV
+  // D = 80: the second chunk holds 16 columns, those of lanes 0-3 (the
+  // predicate folds away where 64 divides D)
+  auto col_ok = [](int c, int ln) { return D % 64 == 0 || c * 64 + ln * 4 < D; };
   constexpr int kPackN = Pack<T>::N;
   constexpr int kPacks = D / kPackN;           // 16-byte packs per row
   extern __shared__ float4 smem4[];
@@ -250,6 +259,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(FlashParams p) {
       const float pr[kRowsPer] = {pv.x, pv.y, pv.z, pv.w};
 #pragma unroll
       for (int c = 0; c < kC; ++c) {
+        if (!col_ok(c, lane)) continue;
         const float4 vv = *reinterpret_cast<const float4*>(vs + j * kS + c * 64 + lane * 4);
 #pragma unroll
         for (int i = 0; i < kRowsPer; ++i) {
@@ -271,9 +281,11 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(FlashParams p) {
     T* o = out + (((long long)b * p.Sq + q0 + qi) * p.Hq + h * G + g) * D;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < kC; ++c)
+    for (int c = 0; c < kC; ++c) {
+      if (!col_ok(c, lane)) continue;
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[c * 64 + lane * 4 + e] = from_f<T>(acc[i][c * 4 + e] / den);
+    }
   }
 }
 
@@ -292,6 +304,7 @@ template <typename T>
 int dispatch(int D, const FlashParams& p, cudaStream_t stream) {
   switch (D) {
     case 64: return launch<T, 64>(p, stream);
+    case 80: return launch<T, 80>(p, stream);
     case 128: return launch<T, 128>(p, stream);
     default: return -1;
   }

@@ -25,7 +25,7 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)
 MAX_GROUP = 64          # a CTA holds 64 (query, head) rows of one kv head
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

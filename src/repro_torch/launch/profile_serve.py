@@ -1,19 +1,20 @@
 """Profile the port's serving path on the card with ``torch.profiler``.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--arch qwen3-0.6b|rwkv6-7b]
-        [--paged] [--legacy] [--out build/profile]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve
+        [--arch qwen3-0.6b|rwkv6-7b|zamba2-2.7b] [--paged] [--legacy] [--out build/profile]
 
 Serves a full-width model (all layers, seeded random weights, bf16;
 qwen3-0.6b by default) through ``EngineClient`` at the default
 ``EngineConfig`` (with ``--paged``, ``paged_kv=True``; with ``--legacy``,
-``mixed_step=False``: one prefill per admission; rwkv6-7b takes legacy
-admission either way, as it has no mixed step) -- 8 requests with
-distinct prompts of 16 to 1024 tokens, 16 new tokens each -- once to warm
-up and once under the profiler, and prints one JSON line: wall time,
-device busy time (the union of kernel and memcpy intervals in the trace)
-and idle share, time per engine step (a mixed step, a decode step or a
-prefill), the top device kernels, the prefill kernel's share of the
-device busy time (flash attention, or the WKV6 recurrence for rwkv), the
+``mixed_step=False``: one prefill per admission; rwkv6-7b and
+zamba2-2.7b take legacy admission either way, as they have no mixed
+step) -- 8 requests with distinct prompts of 16 to 1024 tokens, 16 new
+tokens each -- once to warm up and once under the profiler, and prints
+one JSON line: wall time, device busy time (the union of kernel and
+memcpy intervals in the trace) and idle share, time per engine step (a
+mixed step, a decode step or a prefill), the top device kernels, the
+prefill kernel's share of the device busy time (flash attention, the
+WKV6 recurrence for rwkv, or the SSD scan for the hybrid), the
 host-side calls that synchronise (``cudaStreamSynchronize``, pageable
 ``cudaMemcpyAsync``), and the device kernels one decode step and one
 prefill launch per layer (each counted in a trace of that call alone).
@@ -108,7 +109,8 @@ def main(argv=None) -> int:
     rt = Counter(e["name"] for e in events if e.get("cat") == "cuda_runtime")
     legacy_prefills = 0 if engine.mixed else tel.prefills
     steps = tel.mixed_steps + tel.chunks * ecfg.decode_chunk + legacy_prefills
-    prefill_kernel = "wkv6_kernel" if cfg.family == "rwkv" else "flash_fwd_kernel"
+    prefill_kernel = {"rwkv": "wkv6_kernel", "hybrid": "ssd_kernel"}.get(cfg.family,
+                                                                        "flash_fwd_kernel")
     prefill_us = sum(v for k, v in kern.items() if prefill_kernel in k)
 
     # kernels per layer: one decode step over the slot batch, one prefill

@@ -1,5 +1,5 @@
-"""Model facade of the port (dense and rwkv families): prefill, decode and
-mixed steps.
+"""Model facade of the port (dense, rwkv and hybrid families): prefill,
+decode and mixed steps.
 
     model = Model(cfg, device="cuda").init_(torch.Generator("cuda").manual_seed(0))
     logits, pcache = model.prefill(tokens)                       # (B, V), (L, B, ...)
@@ -14,10 +14,13 @@ Counterpart of the JAX package's ``models/model.py`` for the serving path.
 The dense KV cache keeps the JAX layout ``(L, B, S, Hkv, Dh)``, the page
 pool ``(L, P, page_size, Hkv, Dh)``; the rwkv cache is an
 ``RWKVLayerCache`` of (L, B, H, N, N) fp32 states and (L, B, d) shift
-rows, whatever ``max_len``.  All are updated in place (the JAX engine
-donated them).  The rwkv family has no mixed step and no paged KV
-(``step_mixed``, ``prefill_paged`` and ``empty_page_pool`` raise
-``ValueError``, as in JAX).  ``device`` defaults to the card; a missing
+rows, whatever ``max_len``; the hybrid cache a ``Zamba2Cache`` of (L, B,
+K-1, conv_ch) conv tails, (L, B, H, P, N) fp32 Mamba-2 states and one
+(G, B, S, Hkv, Dh) KV pair per shared-attention application.  All are
+updated in place (the JAX engine donated them).  The rwkv and hybrid
+families have no mixed step and no paged KV (``step_mixed``,
+``prefill_paged`` and ``empty_page_pool`` raise ``ValueError``, as in
+JAX).  ``device`` defaults to the card; a missing
 card raises.
 """
 from __future__ import annotations
@@ -31,7 +34,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, rwkv6, transformer
+from repro_torch.models import attention, mamba2, rwkv6, transformer, zamba2
 
 
 class DecoderKVCache(NamedTuple):
@@ -39,8 +42,8 @@ class DecoderKVCache(NamedTuple):
     v: torch.Tensor
 
 
-# the cache of either family
-Cache = Union[DecoderKVCache, rwkv6.RWKVLayerCache]
+# the cache of any family
+Cache = Union[DecoderKVCache, rwkv6.RWKVLayerCache, zamba2.Zamba2Cache]
 
 
 def _host_ints(a) -> np.ndarray:
@@ -50,9 +53,10 @@ def _host_ints(a) -> np.ndarray:
 
 
 class Model(nn.Module):
-    """Embedding, an ``nn.ModuleList`` of ``DecoderLayer``s (dense) or
-    ``RWKVLayer``s (rwkv) and the final norm; the head is the tied
-    embedding, or ``lm_head`` (d, V) when untied.  Parameters are allocated
+    """Embedding, an ``nn.ModuleList`` of ``DecoderLayer``s (dense),
+    ``RWKVLayer``s (rwkv) or ``Mamba2Layer``s (hybrid, with the one
+    ``shared`` attention ``DecoderLayer``) and the final norm; the head is
+    the tied embedding, or ``lm_head`` (d, V) when untied.  Parameters are allocated
     empty on ``device``: call ``init_`` (seeded) or ``load_state_dict``
     (``convert.params_from_jax``) before use."""
 
@@ -66,9 +70,12 @@ class Model(nn.Module):
         self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model, **kw),
                                   requires_grad=False)
         self.final_norm = nn.Parameter(torch.ones(cfg.d_model, **kw), requires_grad=False)
-        layer_cls = rwkv6.RWKVLayer if self.is_rwkv else transformer.DecoderLayer
+        layer_cls = {"rwkv": rwkv6.RWKVLayer, "hybrid": mamba2.Mamba2Layer}.get(
+            cfg.family, transformer.DecoderLayer)
         self.layers = nn.ModuleList(
             layer_cls(cfg, device=self.device, dtype=dtype) for _ in range(cfg.n_layers))
+        if self.is_hybrid:
+            self.shared = transformer.DecoderLayer(cfg, device=self.device, dtype=dtype)
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty(cfg.d_model, cfg.vocab_size, **kw),
                                         requires_grad=False)
@@ -76,6 +83,10 @@ class Model(nn.Module):
     @property
     def is_rwkv(self) -> bool:
         return self.cfg.family == "rwkv"
+
+    @property
+    def is_hybrid(self) -> bool:
+        return self.cfg.family == "hybrid"
 
     @property
     def head(self) -> torch.Tensor:
@@ -86,14 +97,19 @@ class Model(nn.Module):
     def init_(self, generator: torch.Generator) -> "Model":
         """Seeded random weights (the JAX init's distributions): embedding
         N(0, 0.02²), matrices N(0, 1/fan_in) (``lm_head`` too), norms at
-        one; the rwkv layers as ``rwkv6.init_rwkv_layer_``."""
+        one; the rwkv layers as ``rwkv6.init_rwkv_layer_``, the Mamba-2
+        layers as ``mamba2.init_mamba2_layer_``."""
         transformer._normal_(self.embed, 0.02, generator)
         self.final_norm.fill_(1.0)
         for layer in self.layers:
             if self.is_rwkv:
                 rwkv6.init_rwkv_layer_(layer, generator)
+            elif self.is_hybrid:
+                mamba2.init_mamba2_layer_(layer, generator)
             else:
                 transformer.init_layer_(layer, self.cfg, generator)
+        if self.is_hybrid:
+            transformer.init_layer_(self.shared, self.cfg, generator)
         if not self.cfg.tie_embeddings:
             transformer._normal_(self.lm_head, 1.0 / math.sqrt(self.cfg.d_model), generator)
         return self
@@ -106,11 +122,14 @@ class Model(nn.Module):
     def prefill(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
         """tokens (B, S).  Returns the LAST position's logits (B, V) — the
         all-position logits of a 2000-token prompt at full width would be
-        1.2 GB of fp32 — and the prompt cache: KV (L, B, S, Hkv, Dh), or for
-        rwkv the states and shift rows after the last token."""
+        1.2 GB of fp32 — and the prompt cache: KV (L, B, S, Hkv, Dh), for
+        rwkv the states and shift rows after the last token, for hybrid the
+        conv tails, states and (G, B, S, Hkv, Dh) shared-attention KV."""
         x = self.embed[torch.as_tensor(tokens, device=self.device)]
         if self.is_rwkv:
             x, cache = rwkv6.run_rwkv_seq(self.layers, x, self.cfg)
+        elif self.is_hybrid:
+            x, cache = zamba2.run_zamba2_seq(self.layers, self.shared, x, self.cfg)
         else:
             x, (k, v) = transformer.run_layers_seq(self.layers, x, self.cfg)
             cache = DecoderKVCache(k=k, v=v)
@@ -145,12 +164,19 @@ class Model(nn.Module):
         next-token logits (B, V).  With ``page_table`` ((B, n_blocks) int32)
         ``cache`` is the page pool of ``empty_page_pool``, read and written
         through the tables.  An rwkv cache holds no positions, so
-        ``cache_len`` is not read, as in JAX."""
+        ``cache_len`` is not read, as in JAX; the hybrid's shared attention
+        reads it."""
         x = self.embed[tokens]
         if self.is_rwkv:
             if page_table is not None:
                 raise ValueError("paged KV is not supported for rwkv caches")
             return self._logits(rwkv6.run_rwkv_decode(self.layers, x, cache, self.cfg))[:, 0]
+        if self.is_hybrid:
+            if page_table is not None:
+                raise ValueError("paged KV is not supported for hybrid caches")
+            x = zamba2.run_zamba2_decode(self.layers, self.shared, x, cache,
+                                         cache_len.to(self.device, torch.int32), self.cfg)
+            return self._logits(x)[:, 0]
         if page_table is not None:
             page_table = torch.as_tensor(page_table, dtype=torch.int32, device=self.device)
         x = transformer.run_layers_decode(self.layers, x, cache.k, cache.v,
@@ -201,8 +227,8 @@ class Model(nn.Module):
     def supports_mixed_step(self) -> bool:
         """The mixed step shares the paged-KV contract: a decoding model with
         the (L, ..., S, Hkv, Dh) cache, full attention and token input (the
-        JAX rule).  An rwkv state cannot replay a multi-token suffix per slot
-        in one step."""
+        JAX rule).  An rwkv or Mamba-2 state cannot replay a multi-token
+        suffix per slot in one step."""
         cfg = self.cfg
         return (cfg.supports_decode and cfg.family not in ("rwkv", "hybrid")
                 and cfg.sliding_window == 0 and cfg.input_mode == "tokens")
@@ -227,10 +253,13 @@ class Model(nn.Module):
 
     def empty_cache(self, batch: int, max_len: int) -> Cache:
         """The (L, B, max_len, Hkv, Dh) cache, zeroed; for rwkv the zeroed
-        (L, B, H, N, N) fp32 states and (L, B, d) shift rows."""
+        (L, B, H, N, N) fp32 states and (L, B, d) shift rows; for hybrid
+        the zeroed ``Zamba2Cache``."""
         cfg = self.cfg
         if self.is_rwkv:
             return rwkv6.empty_cache(cfg, cfg.n_layers, batch, cfg.torch_dtype, self.device)
+        if self.is_hybrid:
+            return zamba2.empty_cache(cfg, batch, max_len, cfg.torch_dtype, self.device)
         shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
         kw = dict(dtype=cfg.torch_dtype, device=self.device)
         return DecoderKVCache(k=torch.zeros(shape, **kw), v=torch.zeros(shape, **kw))

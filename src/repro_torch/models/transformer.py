@@ -37,17 +37,26 @@ class DecoderLayer(nn.Module):
 
 def check_supported(cfg: ModelConfig) -> None:
     """The port serves the dense token-LM family with SwiGLU and tied
-    embeddings, and the rwkv family (token input, decoding), for now."""
-    if cfg.family == "rwkv":
+    embeddings, the rwkv family (token input, decoding) and the hybrid
+    family (token input, decoding, a SwiGLU shared block with full
+    attention after every ``attention_every`` Mamba-2 layers), for now."""
+    if cfg.family in ("rwkv", "hybrid"):
         if cfg.input_mode != "tokens" or not cfg.supports_decode:
+            raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is ported for "
+                                      f"token input and decoding only")
+        if cfg.family == "hybrid" and (
+                cfg.mlp_type != "swiglu" or cfg.sliding_window > 0 or not cfg.attention_every
+                or cfg.n_layers % cfg.attention_every):
             raise NotImplementedError(
-                f"{cfg.name}: the rwkv family is ported for token input and decoding only")
+                f"{cfg.name}: the hybrid family is ported with a SwiGLU shared block, full "
+                f"attention and whole groups of attention_every layers")
         return
     if (cfg.family != "dense" or cfg.is_moe or cfg.mlp_type != "swiglu"
             or cfg.input_mode != "tokens" or not cfg.tie_embeddings):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense SwiGLU token-LM family with tied embeddings and the "
-            f"rwkv family are ported (family {cfg.family!r}, mlp {cfg.mlp_type!r})")
+            f"{cfg.name}: only the dense SwiGLU token-LM family with tied embeddings, the "
+            f"rwkv family and the hybrid family are ported (family {cfg.family!r}, "
+            f"mlp {cfg.mlp_type!r})")
     if cfg.sliding_window > 0:
         raise NotImplementedError(
             f"{cfg.name}: sliding-window attention is not ported yet (it comes with mixtral)")

@@ -1,6 +1,7 @@
 """Serving engine of the port: mixed-batch and legacy admission, contiguous
-or paged, and fixed-batch ``generate``, over the dense family's KV cache or
-the rwkv family's constant-size state.
+or paged, and fixed-batch ``generate``, over the dense family's KV cache,
+the rwkv family's constant-size state or the hybrid family's Mamba-2
+states and shared-attention KV.
 
 Counterpart of the JAX package's ``serving/engine.py`` (``spec_k=0``) on
 both cache layouts.  With ``mixed_step=True`` (the default)
@@ -14,7 +15,10 @@ suffix on a prefix hit), then the same decode chunk.  A model without
 a mixed step (the rwkv family, ``Model.supports_mixed_step`` False) takes
 legacy admission whatever ``mixed_step`` says, as in JAX: its per-slot
 cache is a recurrent state (L, B, H, N, N) and two shift rows (L, B, d),
-which admission replaces whole for the slot.
+which admission replaces whole for the slot.  The hybrid family (zamba2)
+also has no mixed step: admission replaces its conv tails (L, B, K-1, C)
+and Mamba-2 states (L, B, H, P, N) whole and writes each shared
+application's KV (G, B, S, Hkv, Dh) over [0, S).
 
 With ``EngineConfig.paged_kv`` the per-slot stripes become a shared page
 pool (L, P, page_size, Hkv, Dh) read and written through per-slot block
@@ -45,8 +49,7 @@ Differences from the JAX engine, and why:
 
 Not ported yet: speculative decoding (``spec_k > 0`` raises
 ``NotImplementedError``; ROADMAP §1 item 7), durable-KV frontiers, the
-scan-state ``StateFrontier`` included (item 8), and the mamba2/zamba2
-scan-state families (item 11).
+scan-state ``StateFrontier`` included (item 8).
 """
 from __future__ import annotations
 
@@ -179,8 +182,8 @@ class ServingEngine:
     def _expand_cache(self, pcache, batch: int):
         """The prefill cache in the fixed decode buffer, leaf by leaf: a KV
         leaf at the head of a fresh (L, B, max_len, ...) buffer; a leaf
-        whose shape the buffer already has (rwkv states, shift rows) passes
-        through."""
+        whose shape the buffer already has (rwkv states, shift rows, the
+        hybrid's conv tails and states) passes through."""
         buf = self.model.empty_cache(batch, self.cfg.max_len)
 
         def place(b, c):
@@ -194,8 +197,9 @@ class ServingEngine:
     def _place_slot(self, cache, pcache, slot: int) -> None:
         """Write a B=1 prefill cache into slot ``slot`` of the decode buffer,
         in place, over every leaf at a zero offset in every axis but the
-        batch: KV at positions [0, S); rwkv states and shift rows replaced
-        whole, so nothing an idle slot decoded survives admission."""
+        batch: KV at positions [0, S); rwkv states and shift rows, and the
+        hybrid's conv tails and Mamba-2 states, replaced whole, so nothing
+        an idle slot decoded survives admission."""
         for buf, c in zip(cache, pcache):
             buf[(slice(None), slot) + tuple(slice(0, n) for n in c.shape[2:])] = c[:, 0]
 
@@ -320,8 +324,8 @@ class QueueSession:
         else:
             self.allocator = None
             self.cache = engine.model.empty_cache(n_slots, engine.cfg.max_len)
-        # scan-state backend: the rwkv decode state is a constant-size
-        # per-slot cache (no pages); its frontiers are not ported yet
+        # scan-state backend: the rwkv and hybrid decode states are
+        # per-slot caches (no pages); their frontiers are not ported yet
         self.scan_state = (not self.paged
                            and engine.model.cfg.family in ("rwkv", "hybrid"))
         self.tok = torch.zeros((n_slots,), dtype=torch.int32, device=dev)

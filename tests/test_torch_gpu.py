@@ -1,9 +1,13 @@
 """Card-only tests of the port: every CUDA kernel against its plain version
 (the paged kernels at page sizes 4, 8, 16 and 64; the flash-attention
 forward causal and not, windowed, with Sk > Sq, at ragged lengths 1 to
-2000, G 1, 2 and 4, head_dim 64 and 128, and on strided views; the WKV6
+2000, G 1, 2 and 4, head_dim 64, 80 and 128, and on strided views; the
+decode and split-K kernels also at zamba2's head_dim 80 and G 1; the WKV6
 recurrence at lengths 1 to 2000, 1 to 64 heads of 16, 32 and 64, with a
-zero or random initial state, a slow decay and strided views).
+zero or random initial state, a slow decay and strided views; the SSD scan
+at lengths 1 to 2000, P 32 and 64, N 16 and 64, at zamba2's prefill shape,
+with a slow decay, a random state and on strided views; the RMSNorm in
+both forms at widths 128, 2560 and 5120 over 1 to 2000 rows).
 
 Marked ``gpu``; each test asks the ``cuda`` fixture for the card, which
 skips when ``torch.cuda.is_available()`` is false.  This file imports no
@@ -17,9 +21,12 @@ another order than the plain version's einsum, p rounds to bf16 before
 the PV product and outputs round at one ulp (2^-8 relative).  The row
 check is there because an output element at length L is only about
 sqrt(e / L) in size (0.026 at L=4096), below the flat bf16 atol.  The
-WKV6 kernel computes in fp32 from the same inputs as its plain versions in
-both dtypes, so it is held at the scan tolerance of ``tests/test_kernels.py``
-(atol 5e-4, rtol 1e-3) on y and the final state.
+WKV6 and SSD kernels compute in fp32 from the same inputs as their plain
+versions in both dtypes, so they are held at the scan tolerance of
+``tests/test_kernels.py`` (atol 5e-4, rtol 1e-3) on y and the final state.
+The RMSNorm kernel and its plain version round the same fp32 function once:
+fp32 atol 2e-5 / rtol 1e-3, bf16 within one bf16 ulp (rtol 2^-7), and the
+fused form's rounded sum bit for bit.
 """
 import numpy as np
 import pytest
@@ -32,6 +39,12 @@ from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
 from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
 from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
+from repro_torch.kernels.rmsnorm import kernel as norm_kernel
+from repro_torch.kernels.rmsnorm import ops as norm_ops
+from repro_torch.kernels.rmsnorm import ref as norm_ref
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -413,3 +426,234 @@ def test_wkv6_kernel_rejects_bad_layout(cuda):
         wkv_kernel.wkv6_cuda(x.transpose(2, 3).contiguous().transpose(2, 3), x, x, x, u)
     with pytest.raises(ValueError):                 # state0 of the wrong shape
         wkv_kernel.wkv6_cuda(x, x, x, x, u, torch.zeros((1, 2, 64, 32), device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# zamba2's shared attention: head_dim 80, one q head per kv head
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_vs_plain_head_dim_80(cuda, dtype):
+    rng = np.random.default_rng(20)
+    B, S, Hkv, D = 4, 1024, 32, 80
+    k, v = _kv(rng, B, S, Hkv, D, dtype, cuda)
+    q = torch.as_tensor(rng.standard_normal((B, Hkv, D)), dtype=torch.float32).to(cuda, dtype)
+    lens = torch.tensor([S, S // 2 + 17, 1, 33], dtype=torch.int32, device=cuda)
+    _close(kernel.decode_attention_cuda(q, k, v, lens), ref.decode_attention(q, k, v, lens),
+           dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_splitk_kernels_vs_plain_head_dim_80(cuda, dtype):
+    """The hybrid decode step's call: max_len 4096 (K=8), 32 kv heads of 80."""
+    rng = np.random.default_rng(21)
+    B, S, Hkv, D, K = 8, 4096, 32, 80, 8
+    assert ops.auto_k_splits(S) == K
+    k, v = _kv(rng, B, S, Hkv, D, dtype, cuda)
+    q = torch.as_tensor(rng.standard_normal((B, Hkv, D)), dtype=torch.float32).to(cuda, dtype)
+    lens = torch.tensor([S, 2049, 17, 1, 600, 1999, 3000, 4095], dtype=torch.int32, device=cuda)
+    m, l, acc = kernel.splitk_partial_cuda(q, k, v, lens, k_splits=K)
+    m_r, l_r, acc_r = ref.decode_attention_splitk_partial(q, k, v, lens, k_splits=K)
+    torch.testing.assert_close(m, m_r, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(l, l_r, atol=1e-4, rtol=1e-3)
+    torch.testing.assert_close(acc, acc_r, atol=ACC_ATOL[dtype], rtol=1e-3)
+    _close(kernel.splitk_combine_cuda(m_r, l_r, acc_r, dtype),
+           ref.splitk_combine(m_r, l_r, acc_r, dtype), dtype)
+    _close(ops.decode_attention(q, k, v, lens), ref.decode_attention(q, k, v, lens), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 17, 100, 700, 2000])
+def test_flash_kernel_vs_plain_head_dim_80(cuda, dtype, S):
+    """The hybrid prefill's call (32 q and 32 kv heads of 80, causal), with
+    q, k and v as slices of one fused projection, as the prefill passes them."""
+    rng = np.random.default_rng(S + 80)
+    H, D = 32, 80
+    fused = torch.as_tensor(rng.standard_normal((1, S, 3 * H, D)),
+                            dtype=torch.float32).to(cuda, dtype)
+    q, k, v = fused[:, :, :H], fused[:, :, H:2 * H], fused[:, :, 2 * H:]
+    out = flash_kernel.flash_attention_cuda(q, k, v, causal=True)
+    _close(out, flash_ref.flash_attention(q.contiguous(), k.contiguous(), v.contiguous()), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_vs_plain_head_dim_80_masks(cuda, dtype):
+    rng = np.random.default_rng(81)
+    for Sq, Sk, G, causal, window in ((256, 256, 1, False, 0), (100, 700, 2, True, 96)):
+        q, k, v = _flash_inputs(rng, 2, Sq, Sk, 4, G, 80, dtype, cuda)
+        out = flash_kernel.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        _close(out, flash_ref.flash_attention(q, k, v, causal=causal, window=window), dtype)
+
+
+# ---------------------------------------------------------------------------
+# the Mamba-2 SSD scan
+# ---------------------------------------------------------------------------
+
+
+def _ssd_inputs(rng, B, S, H, P, N, dtype, dev, *, slow=False, state=True):
+    """x, B, C ~ N(0, 1) in ``dtype``; dt = softplus(N(0, 1)) fp32; A =
+    -exp(0.3 N(0, 1)), or with ``slow`` -1e-3 times that, where the state
+    keeps thousands of steps; state0 fp32 or None.  With ``slow`` x is
+    scaled by 1/16 (exact in bf16), so y keeps the scale of the fast case
+    (mean |y| ~9 rather than ~130) that the scan tolerance is set for: at
+    unit x the two plain versions alone differ by up to 2.9e-3 at S=2000,
+    fp32 summation order over 2000 steps, not a fault."""
+    def f32(a):
+        return torch.as_tensor(a, dtype=torch.float32).to(dev)
+    x = f32(rng.standard_normal((B, S, H, P)) / (16.0 if slow else 1.0)).to(dtype)
+    dt = torch.nn.functional.softplus(f32(rng.standard_normal((B, S, H))))
+    A = -(1e-3 if slow else 1.0) * torch.exp(0.3 * f32(rng.standard_normal(H)))
+    Bm, Cm = (f32(rng.standard_normal((B, S, N))).to(dtype) for _ in range(2))
+    s0 = f32(rng.standard_normal((B, H, P, N))) if state else None
+    return x, dt, A, Bm, Cm, s0
+
+
+def _ssd_close(x, dt, A, Bm, Cm, s0):
+    """The kernel against both plain versions, on y and the final state."""
+    y, st = ssd_kernel.ssd_cuda(x, dt, A, Bm, Cm, s0)
+    B, _, H, P = x.shape
+    zeros = torch.zeros((B, H, P, Bm.shape[-1]), dtype=torch.float32, device=x.device)
+    for f in (ssd_ref.ssd_ref, ssd_ref.ssd_chunked):
+        y_p, st_p = f(x, dt, A, Bm, Cm, zeros if s0 is None else s0)
+        torch.testing.assert_close(y, y_p, atol=5e-4, rtol=1e-3)
+        torch.testing.assert_close(st, st_p, atol=5e-4, rtol=1e-3)
+    return y, st
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P,N", [(32, 16), (32, 64), (64, 16), (64, 64)])
+@pytest.mark.parametrize("S", [1, 17, 100, 700, 2000])
+def test_ssd_kernel_vs_plain(cuda, dtype, P, N, S):
+    """Lengths no 32-token block divides, B=2, 3 heads, a random state0."""
+    rng = np.random.default_rng(S + P + N)
+    _ssd_close(*_ssd_inputs(rng, 2, S, 3, P, N, dtype, cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_main_path_shape(cuda, dtype):
+    """Model.prefill's call at zamba2-2.7b (B=1, S=2000, H=80, P=N=64) from
+    a zero state (state0 None)."""
+    rng = np.random.default_rng(30)
+    _ssd_close(*_ssd_inputs(rng, 1, 2000, 80, 64, 64, dtype, cuda, state=False))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [100, 2000])
+def test_ssd_kernel_slow_decay(cuda, dtype, S):
+    """A about -1e-3: a fault at a token-block boundary cannot hide behind a
+    short memory here."""
+    rng = np.random.default_rng(S + 31)
+    _ssd_close(*_ssd_inputs(rng, 2, S, 4, 64, 64, dtype, cuda, slow=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_reads_strided_views(cuda, dtype):
+    """x, B and C as mamba2_layer passes them: slices of one conv output
+    (sequence stride H*P + 2N), dt a slice of a wider buffer; the result
+    equals the kernel on contiguous copies bit for bit."""
+    rng = np.random.default_rng(32)
+    B, S, H, P, N = 2, 333, 4, 64, 64
+    conv = torch.as_tensor(rng.standard_normal((B, S, H * P + 2 * N)),
+                           dtype=torch.float32).to(cuda, dtype)
+    x = conv[..., :H * P].reshape(B, S, H, P)
+    Bm, Cm = conv[..., H * P:H * P + N], conv[..., H * P + N:]
+    assert not x.is_contiguous() and not Bm.is_contiguous()
+    _, dt, A, _, _, s0 = _ssd_inputs(rng, B, 2 * S, H, P, N, dtype, cuda)
+    dt = dt[:, ::2]
+    _ssd_close(x, dt, A, Bm, Cm, s0)
+    y, st = ssd_kernel.ssd_cuda(x, dt, A, Bm, Cm, s0)
+    y_c, st_c = ssd_kernel.ssd_cuda(x.contiguous(), dt.contiguous(), A, Bm.contiguous(),
+                                    Cm.contiguous(), s0)
+    assert torch.equal(y, y_c) and torch.equal(st, st_c)
+
+
+def test_ssd_dispatch_counts_launches(cuda):
+    rng = np.random.default_rng(33)
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(rng, 1, 50, 2, 32, 16, torch.float32, cuda)
+    ssd_kernel.reset_launches()
+    y, st = ssd_ops.ssd(x, dt, A, Bm, Cm)
+    torch.cuda.synchronize()
+    assert ssd_kernel.LAUNCHES == {"ssd": 1}
+    zeros = torch.zeros((1, 2, 32, 16), device=cuda)
+    y_p, st_p = ssd_ref.ssd_ref(x, dt, A, Bm, Cm, zeros)
+    torch.testing.assert_close(y, y_p, atol=5e-4, rtol=1e-3)
+    torch.testing.assert_close(st, st_p, atol=5e-4, rtol=1e-3)
+
+
+def test_ssd_kernel_rejects_bad_layout(cuda):
+    rng = np.random.default_rng(34)
+    x, dt, A, Bm, Cm, s0 = _ssd_inputs(rng, 1, 8, 2, 32, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="state size"):
+        ssd_kernel.ssd_cuda(x, dt, A, torch.zeros((1, 8, 128), device=cuda),
+                            torch.zeros((1, 8, 128), device=cuda))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ssd_kernel.ssd_cuda(x[..., :24], dt, A, Bm, Cm)
+    with pytest.raises(TypeError):                  # dt must be fp32
+        ssd_kernel.ssd_cuda(x, dt.bfloat16(), A, Bm, Cm)
+    with pytest.raises(TypeError):                  # B and C in x's dtype
+        ssd_kernel.ssd_cuda(x, dt, A, Bm.bfloat16(), Cm.bfloat16())
+    with pytest.raises(ValueError):                 # (H, P) not dense
+        ssd_kernel.ssd_cuda(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, Bm, Cm)
+    with pytest.raises(ValueError, match="16-byte"):    # a sequence stride off 16 bytes
+        wide = torch.zeros((1, 8, 17), device=cuda)
+        ssd_kernel.ssd_cuda(x, dt, A, wide[..., :16], Cm)
+    with pytest.raises(ValueError):                 # state0 of the wrong shape
+        ssd_kernel.ssd_cuda(x, dt, A, Bm, Cm, s0[..., :8].contiguous())
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm, plain and fused with the residual add
+# ---------------------------------------------------------------------------
+
+
+def _norm_close(out, want, dtype):
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(out.float(), want.float(), atol=1e-5, rtol=2 ** -7)
+    else:
+        torch.testing.assert_close(out, want, **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("M", [1, 7, 2000])
+@pytest.mark.parametrize("d", [128, 2560, 5120])
+def test_rmsnorm_kernel_vs_plain(cuda, dtype, fused, M, d):
+    rng = np.random.default_rng(M + d)
+
+    def t(shape, scale=1.0):
+        return (torch.as_tensor(rng.standard_normal(shape) * scale, dtype=torch.float32)
+                .to(cuda, dtype))
+    x, w = t((M, d), 3.0), t((d,))
+    r = t((M, d)) if fused else None
+    out, summed = norm_kernel.rmsnorm_cuda(x, w, r, eps=1e-6)
+    want, want_sum = norm_ref.rmsnorm_ref(x, w, r, 1e-6)
+    _norm_close(out, want, dtype)
+    assert torch.equal(summed, want_sum)
+    if not fused:
+        assert summed is x
+
+
+def test_rmsnorm_dispatch_counts_launches(cuda):
+    x = torch.randn((2, 3, 256), device=cuda)
+    w = torch.randn(256, device=cuda)
+    norm_kernel.reset_launches()
+    out = norm_ops.rms_norm(x, w)
+    h, s = norm_ops.rmsnorm(x, w, x)
+    torch.cuda.synchronize()
+    assert norm_kernel.LAUNCHES == {"rmsnorm": 1, "rmsnorm_fused": 1}
+    _norm_close(out, norm_ref.rmsnorm_ref(x, w)[0], torch.float32)
+    _norm_close(h, norm_ref.rmsnorm_ref(x, w, x)[0], torch.float32)
+
+
+def test_rmsnorm_kernel_rejects_bad_layout(cuda):
+    x = torch.zeros((4, 256), device=cuda)
+    w = torch.ones(256, device=cuda)
+    with pytest.raises(ValueError):                 # not contiguous
+        norm_kernel.rmsnorm_cuda(x.t().contiguous().t(), w)
+    with pytest.raises(ValueError):                 # a width off 16-byte packs
+        norm_kernel.rmsnorm_cuda(torch.zeros((4, 6), device=cuda), torch.ones(6, device=cuda))
+    with pytest.raises(TypeError):                  # the weight in x's dtype
+        norm_kernel.rmsnorm_cuda(x, w.bfloat16())
+    with pytest.raises(ValueError):                 # the residual of another shape
+        norm_kernel.rmsnorm_cuda(x, w, torch.zeros((2, 256), device=cuda))
