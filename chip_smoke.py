@@ -10,7 +10,9 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. card: name and power limit from nvidia-smi;
 2. build: nvcc builds every kernel source of the path, one process per
-   source, all at once (printing ptxas -v);
+   source, all at once (printing ptxas -v); the bf16 tensor-core attention
+   kernels' registers, spills and static shared memory on a line of their
+   own, and no instantiation may spill;
 3. kernels: each CUDA kernel against its plain PyTorch version at the
    serving shapes, in bf16 (atol 2e-2, and each output row's largest error
    within a tenth of that row's RMS) and fp32 (atol 2e-5, rtol 1e-3); the
@@ -34,7 +36,11 @@ Phases (any failure exits non-zero; nothing is caught):
    slow decay (A about -1e-3) over 2000 tokens and strided views; the
    RMSNorm in both forms at the hybrid widths (2560, 5120) over 1, 8 and
    2000 rows (bf16 within one bf16 ulp, fp32 atol 2e-5); the decode,
-   split-K and flash kernels at zamba2's head_dim 80 and G=1;
+   split-K and flash kernels at zamba2's head_dim 80 and G=1; poison
+   checks, both dtypes: NaN in the cache past every length (phase 4's mixed
+   step), in the trash page and every pool row a sequence does not hold
+   (phase 4d's prefill_paged call), past Sq and Sk (the flash prefill at
+   S=2000) leave the output finite and bit-equal to the clean run's;
 4. serve: EngineClient serves full-width qwen3-0.6b (28 layers, bf16,
    seeded random weights) at the default EngineConfig: 16 requests,
    prompts 16..2000 tokens, 32 new tokens each; launch counters are
@@ -89,8 +95,9 @@ Phases (any failure exits non-zero; nothing is caught):
    the same result (scaled_dot_product_attention, used only as a
    yardstick; no one call reads a block table or computes the WKV6 or SSD
    recurrence; ``F.rms_norm`` for the plain RMSNorm) timed with CUDA
-   events, the attention kernels also at head_dim 80; bounds from the
-   bytes and operations of the inputs timed.
+   events over calls queued behind a sleep kernel (device time, not the
+   host's call rate), the attention kernels also at head_dim 80; bounds
+   from the bytes and operations of the inputs timed.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout
@@ -112,6 +119,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
+
+from attention_timing import time_ms  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -161,6 +170,35 @@ def read_launches() -> dict:
     for mod in _kernel_modules():
         out.update(mod.LAUNCHES)
     return out
+
+
+def mma_build_report(logs: dict) -> list:
+    """The tensor-core attention kernels' ptxas -v lines, per instantiation:
+    registers, spill stores and loads, static shared memory (their K/V ring
+    is dynamic shared memory, sized in each source's header note)."""
+    import re
+
+    rows, cur = [], None
+    for log in logs.values():
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '.*?\d+([a-z_]+_mma_kernel)ILi(\d+)E", line)
+            if m:
+                cur = dict(kernel=f"{m.group(1)}<{m.group(2)}>")
+                rows.append(cur)
+                continue
+            if "Compiling entry" in line:
+                cur = None
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                cur.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                cur["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    return rows
 
 
 def card_line() -> str:
@@ -340,6 +378,9 @@ def phase_kernels() -> dict:
                 errs["mixed_attention_paged"][str(dtype)], err)
             del kp, vp
     errs["flash_attention"] = flash_kernel_checks(gen)
+    # a generator of their own, so the checks after them see the same inputs as before
+    done = poison_checks(torch.Generator("cuda").manual_seed(3))
+    print(f"  poison checks passed: {json.dumps(done)}", flush=True)
     errs["wkv6"] = wkv6_kernel_checks(gen)
     for name, e in head_dim_80_checks(gen).items():
         for dt, err in e.items():
@@ -560,6 +601,75 @@ def rmsnorm_kernel_checks(gen) -> dict:
                     check(bool(torch.equal(summed, want_sum)), f"{name} M={M} d={d}: sum differs")
                     errs[name][str(dtype)] = max(errs[name].get(str(dtype), 0.0), err)
     return errs
+
+
+def _nan_rows(t: torch.Tensor, dead: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` with NaN in the rows ``dead`` of its first two axes, flattened."""
+    out = t.clone()
+    out.view(-1, *t.shape[2:])[dead] = float("nan")
+    return out
+
+
+def poison_checks(gen) -> list:
+    """Each attention kernel of the tensor-core redesign, in both dtypes, at
+    its main-path shape with NaN wherever the kernel must not look: the
+    contiguous cache past every cache_len + Q (phase 4's mixed step, read
+    through the 2048-key window view), every pool row that is not the
+    sequence's own below its length, the trash page included (phase 4d's
+    prefill_paged call), and the rows past Sq and Sk of the buffers q, k
+    and v are cut from (the flash prefill at B=1, S=2000).  The output must
+    be finite and equal to the clean run's, bit for bit."""
+    from repro_torch.kernels.decode_attention import kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+    done = []
+
+    def same(name, got, want):
+        check(bool(torch.isfinite(got).all()), f"poison {name}: non-finite output")
+        check(bool(torch.equal(got, want)), f"poison {name}: output differs from the clean run "
+                                            f"by {_err(got, want):.3e}")
+        done.append(name)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        Q, W = 8, 2048
+        k, v = _rand(gen, (B, S_MAX, HKV, D), dtype), _rand(gen, (B, S_MAX, HKV, D), dtype)
+        qm = _rand(gen, (B, Q, HKV * G, D), dtype)
+        cl = torch.tensor([0, 1, 17, 511, 512, 1000, 1500, W - Q], dtype=torch.int32,
+                          device="cuda")
+        dead = (torch.arange(S_MAX, device="cuda")[None, :] >= (cl[:, None] + Q)).reshape(-1)
+        kn, vn = _nan_rows(k, dead), _nan_rows(v, dead)
+        same(f"mixed_attention B={B} Q={Q} window={W} {dtype}",
+             kernel.mixed_attention_cuda(qm, kn[:, :W], vn[:, :W], cl),
+             kernel.mixed_attention_cuda(qm, k[:, :W], v[:, :W], cl))
+        del k, v, kn, vn
+
+        start = 1024
+        for Q in (21, 500):
+            kp, vp, tbl = paged_inputs(gen, np.full(B, start + Q), PAGE, dtype)
+            row = tbl[0].as_strided((1, tbl.shape[1]), (0, 1))
+            pos = torch.arange(start + Q, device="cuda")
+            live = torch.zeros(kp.shape[0] * PAGE, dtype=torch.bool, device="cuda")
+            live[row[0, pos // PAGE].long() * PAGE + pos % PAGE] = True
+            check(not bool(live[:PAGE].any()), "poison: the trash page holds live keys")
+            kn, vn = _nan_rows(kp, ~live), _nan_rows(vp, ~live)
+            qm = _rand(gen, (1, Q, HKV * G, D), dtype)
+            cl = torch.tensor([start], dtype=torch.int32, device="cuda")
+            same(f"mixed_attention_paged prefill_paged Q={Q} start={start} {dtype}",
+                 kernel.mixed_attention_paged_cuda(qm, kn, vn, row, cl),
+                 kernel.mixed_attention_paged_cuda(qm, kp, vp, row, cl))
+            del kp, vp, kn, vn
+
+        S, extra = 2000, 64
+        q = _rand(gen, (1, S + extra, HKV * G, D), dtype)
+        k, v = (_rand(gen, (1, S + extra, HKV, D), dtype) for _ in range(2))
+        clean = flash_kernel.flash_attention_cuda(q[:, :S].contiguous(), k[:, :S].contiguous(),
+                                                  v[:, :S].contiguous(), causal=True)
+        for t in (q, k, v):
+            t[:, S:] = float("nan")
+        same(f"flash_attention B=1 S={S} {dtype}",
+             flash_kernel.flash_attention_cuda(q[:, :S], k[:, :S], v[:, :S], causal=True), clean)
+        del q, k, v
+    return done
 
 
 def paged_inputs(gen, lens_np, ps, dtype, max_len=S_MAX):
@@ -1082,19 +1192,6 @@ def phase_scan_card_vs_cpu(cfg, n_layers: int) -> dict:
 # --------------------------------------------------------------------------
 
 
-def time_ms(fn, iters: int, warm: int = 3) -> float:
-    for _ in range(warm):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[dtype]
@@ -1414,6 +1511,11 @@ def main() -> int:
         for line in log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print("    " + line.strip())
+    mma = mma_build_report(logs)
+    print("  tensor-core attention kernels (ptxas -v): " + json.dumps(mma), flush=True)
+    check(len(mma) == 7, f"expected 7 tensor-core kernel instantiations, found {len(mma)}")
+    for r in mma:
+        check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0, f"ptxas spills: {r}")
 
     t0 = time.perf_counter()
     errs = phase_kernels()

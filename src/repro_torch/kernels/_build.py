@@ -2,13 +2,15 @@
 
 Each ``csrc/*.cu`` file has a plain C interface and compiles on its own
 into a shared library under ``build/kernels/`` at the repository root
-(listed in ``.gitignore``), named by a hash of the source, the headers
-beside it and the flags, so an edited source is rebuilt and an unchanged
-one is reused.  The build runs on first use, never at import: the CPU
+(listed in ``.gitignore``), named by a hash of the flags, the source, the
+headers beside it and every header under ``kernels/include/`` (the shared
+tiles, on the ``-I`` path), so an edited source or header is rebuilt and an
+unchanged one is reused.  The build runs on first use, never at import: the CPU
 tests import every module of the port on a machine without ``nvcc``.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so <src>
+         -Xcompiler -fPIC -Xptxas -v -I src/repro_torch/kernels/include \\
+         -o build/kernels/<name>-<hash>.so <src>
 
 ``build`` starts one ``nvcc`` per source, all at once, and returns each
 compiler log (``-Xptxas -v``: registers, shared memory and spills per
@@ -25,9 +27,10 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+INCLUDE_DIR = Path(__file__).resolve().parent / "include"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(INCLUDE_DIR),
 )
 
 _LIBS: Dict[Path, ctypes.CDLL] = {}
@@ -44,11 +47,14 @@ def nvcc_path() -> str:
 
 
 def target_of(source: Path) -> Path:
-    """The library a source builds into (content-addressed)."""
+    """The library a source builds into (content-addressed: the flags, the
+    source, the headers beside it and every header under ``INCLUDE_DIR``)."""
     source = Path(source).resolve()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update(source.read_bytes())
-    for header in sorted(source.parent.glob("*.cuh")):
+    headers = sorted(source.parent.glob("*.cuh")) + sorted(INCLUDE_DIR.rglob("*.cuh"))
+    for header in headers:
+        h.update(header.name.encode())
         h.update(header.read_bytes())
     return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 

@@ -5,13 +5,17 @@
 //   * decode_attention_splitk  (_splitk_partial_kernel)  -> flash_rows, Q=1, add=0, splits=K,
 //                                                           partial state out
 //                              (_splitk_combine_kernel)  -> splitk_combine
-//   * mixed_attention_pallas   (_mixed_kernel)           -> flash_rows, add=1, splits=1
+//   * mixed_attention_pallas   (_mixed_kernel)           -> flash_rows, add=1, splits=1:
+//                                                           mixed_mma_kernel in bf16,
+//                                                           flash_rows_kernel in fp32
 //   * decode_attention_paged   (_paged_decode_kernel)    -> flash_rows, tbl, Q=1, add=0, splits=1
 //   * decode_attention_paged_splitk
 //                              (_paged_splitk_partial_kernel) -> flash_rows, tbl, Q=1, add=0,
 //                                                           splits=K, partial state out
 //                              (combine: the same splitk_combine)
-//   * mixed_attention_paged    (_mixed_paged_kernel)     -> flash_rows, tbl, add=1, splits=1
+//   * mixed_attention_paged    (_mixed_paged_kernel)     -> flash_rows, tbl, add=1, splits=1:
+//                                                           mixed_mma_kernel in bf16,
+//                                                           flash_rows_kernel in fp32
 //
 // What bounds it: memory.  Every KV byte below a sequence's length is read
 // once per (row block) and does 2 multiply-adds per element of math, far
@@ -53,6 +57,37 @@
 // in place.  Keys are only fetched below hi <= S, so tbl is never indexed
 // at or past nb; a split-K chunk is nb / splits whole pages.
 //
+// The bf16 mixed step: mixed_mma_kernel.  The q-chunk rows of one (b, kv
+// head) are R = Q * G (the same row packing); at the main path (Q = 8,
+// G = 2) R = 16, one m16 tensor-core tile, and a CTA of flash_rows_kernel
+// walked ~1000 keys with one scalar dot product of D shared loads per
+// (row, key) and four barriers per 32-key tile: bound by latency and issue
+// rate at 30x a bytes bound.  mixed_mma_kernel runs the warp tile of
+// include/attention_mma.cuh: 8 warps over a 64-row block, QK^T and PV on
+// the tensor cores (mma.sync m16n8k16, fp32 accumulate), 128-key K/V tiles
+// in a 2-stage ring of 16-byte cp.async.cg copies (the next tile loads
+// while this one is computed), keys at or past the CTA's limit zero-filled so a
+// NaN in a stale tail or in the trash page never reaches a product.  A key
+// row's address is resolved per row, through the batch stride or the block
+// table (a paged tile is not one box, hence cp.async and not TMA): one
+// thread per key row writes the tile's row offsets into a shared ring a
+// stage ahead of the copies, reading its table entry a further tile ahead,
+// and 16 threads copy each 256-byte row (at D = 128), so a warp's copy
+// covers whole rows while the table, the page arithmetic and the 64-bit
+// offset are done once per key row, not once per 16-byte copy.
+// At the main path the block has one m16 tile, so a warp's work per tile
+// is short chains of dependent mma, shuffle and exp steps and the kernel is
+// bound by latency more than by bytes: the warps of a block with fewer m16
+// tiles than warps split each staged tile's keys (8 ways for one m-tile,
+// the main path's 16 rows; 4 for two; 2 for three or four, as in
+// prefill_paged's suffix) and keep their own (m, l, acc), merged in the
+// epilogue through shared memory with the log-sum-exp rescale, inside the
+// same launch.  The loop stops at the widest live row's limit.  Shared
+// memory (Q, ring, row offsets): 158,720 bytes at D = 128, 103,424 at
+// D = 80, 84,992 at D = 64, 48,128 at D = 32.  ptxas (sm_90a, CUDA 12.9):
+// 229 registers per thread at D = 128, 149 at D = 80, 134 at D = 64, 128 at
+// D = 32, no spills: one 8-warp CTA per SM (two at D = 32).
+//
 // Numerics match the TPU kernels: fp32 scores and softmax state, masking
 // with -1e30 (not -inf: a fully masked row stays finite), p rounded to V's
 // dtype before the PV product, output divided by max(l, 1e-30).  A split
@@ -64,6 +99,8 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -322,6 +359,177 @@ int dispatch_rows(int D, const RowsParams& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bf16 mixed step on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaThreads = 256;        // 8 warps
+constexpr int kMmaRows = 64;            // 4 m16 tiles per CTA
+constexpr int kMmaKeys = 128;           // keys per staged K/V tile
+constexpr int kStages = 2;              // K/V ring depth
+
+template <int D> struct MixedSmem {
+  using Tile = attn_mma::Tile<D>;
+  static constexpr int kQ = kMmaRows * Tile::kStride;              // bf16 elements
+  static constexpr int kRing = kStages * 2 * kMmaKeys * Tile::kStride;
+  static constexpr int kOffs = (kQ + kRing) * 2;                    // byte offset of the row ring
+  static constexpr int kBytes = kOffs + kStages * kMmaKeys * 8;
+  static_assert(kMmaThreads / 32 * attn_mma::Reduce<D>::kFloats * 4 <= kRing * 2,
+                "the epilogue's floats fit in the ring");
+};
+
+// Row r of a CTA's (b, h) group is chunk query r / G, head h*G + r % G; it
+// sees keys below min(S, lens[b] + r / G + 1).
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads) mixed_mma_kernel(RowsParams p) {
+  using namespace attn_mma;
+  constexpr int SR = Tile<D>::kStride;
+  constexpr int TS = kMmaKeys * SR;              // one K or V tile, in bf16
+  constexpr int C = Tile<D>::kChunks;
+  constexpr int U = kMmaKeys * C / kMmaThreads;  // 16-byte K (and V) copies per thread
+  static_assert(U * kMmaThreads == kMmaKeys * C, "a tile splits evenly over the threads");
+  extern __shared__ uint4 smem_mma[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_mma);  // [kMmaRows][stride]
+  bf16* ring = qs + MixedSmem<D>::kQ;            // [kStages][K, V][kMmaKeys][stride]
+
+  const int G = p.Hq / p.Hkv;
+  const int R = p.Q * G;
+  const int r0 = blockIdx.x * kMmaRows;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int nr = min(kMmaRows, R - r0);          // live rows in this CTA
+  const int base = p.lens[b];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // warps per live m16 tile: each staged tile's keys are split among them
+  const int mtiles = (nr + kWarpRows - 1) / kWarpRows;
+  const int split = mtiles == 1 ? 8 : mtiles == 2 ? 4 : 2;
+  const int mt = warp / split;                   // this warp's m-tile
+  const int koff = warp % split * (kMmaKeys / split);
+  const bool idle = mt >= mtiles;                // warps 6, 7 over three m-tiles
+
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + (long long)h * D;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + (long long)h * D;
+  const int* tbl = p.tbl != nullptr ? p.tbl + (long long)b * p.tbl_sb : nullptr;
+  const long long kv_row = (long long)p.Hkv * D;  // elements between key rows
+
+  stage_rows<D, kMmaThreads, kMmaRows>(qs, q, [&](int r) -> const bf16* {
+    const int rg = r0 + r;
+    return r < nr ? q + (long long)(rg / G) * p.q_sq + (long long)(h * G + rg % G) * D : nullptr;
+  });
+
+  // keys the CTA needs: cut at the widest live row's limit
+  const int hi = min(p.S, base + (r0 + nr - 1) / G + 1);
+  // row r sees [0, hi_r); padding rows take the last live row's limit
+  auto hi_of = [&](int r) { return min(p.S, base + (r0 + min(r, nr - 1)) / G + 1); };
+  const int rw = mt * kWarpRows + lane / 4;
+  WarpTile<D> t;
+  t.init(0, hi_of(rw), 0, hi_of(rw + 8));
+  const int ntiles = (hi + kMmaKeys - 1) / kMmaKeys;
+
+  // A thread copies the same U (key, chunk) units of every tile (16
+  // threads cover one 256-byte row at D = 128), so it needs the global
+  // offset of U key rows per tile.  Thread j < kMmaKeys resolves key row j
+  // of a tile once, into a ring of row offsets in shared memory, a stage
+  // ahead of the copies that read it: through a block table, key pos of
+  // sequence b is row pos % ps of page tbl[pos / ps], and that page is
+  // read a further tile ahead, so the table load's latency hides behind a
+  // tile's math.  A power-of-two page size (the engine's default of 16)
+  // resolves with shifts, any other (EngineConfig accepts any) by division.
+  // -1 marks a key at or past the CTA's limit: zero-filled.
+  long long* offs = reinterpret_cast<long long*>(
+      reinterpret_cast<char*>(smem_mma) + MixedSmem<D>::kOffs);   // [kStages][kMmaKeys]
+  const bool pow2 = (p.ps & (p.ps - 1)) == 0;
+  const int shift = __ffs(p.ps) - 1;
+  int page = 0;
+  auto fetch_page = [&](int tile) {
+    const int pos = tile * kMmaKeys + threadIdx.x;
+    if (tbl != nullptr && threadIdx.x < kMmaKeys && pos < hi)
+      page = tbl[pow2 ? pos >> shift : pos / p.ps];
+  };
+  auto resolve = [&](int tile) {                 // row offsets of `tile`, from `page`
+    const int pos = tile * kMmaKeys + threadIdx.x;
+    if (threadIdx.x >= kMmaKeys) return;
+    long long row = pos;                         // contiguous: the key's own row
+    if (tbl != nullptr)
+      row = pow2 ? ((long long)page << shift) + (pos & (p.ps - 1))
+                 : (long long)page * p.ps + pos % p.ps;
+    offs[tile % kStages * kMmaKeys + threadIdx.x] = pos < hi ? row * kv_row : -1;
+  };
+  auto stage_kv = [&](int tile) {
+    bf16* ks = ring + (tile % kStages) * 2 * TS;
+    const long long* ro = offs + tile % kStages * kMmaKeys;
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      const int u = threadIdx.x + i * kMmaThreads, j = u / C, c = (u % C) * 8;
+      const long long off = ro[j];
+      const bool ok = off >= 0;
+      cp_async16(ks + j * SR + c, k + (ok ? off + c : 0), ok);
+      cp_async16(ks + TS + j * SR + c, v + (ok ? off + c : 0), ok);
+    }
+  };
+  // prologue: row offsets of tiles 0 .. kStages - 1, copies of tiles
+  // 0 .. kStages - 2 (group g holds tile g, group 0 also Q)
+  for (int g = 0; g < kStages; ++g) {
+    fetch_page(g);
+    resolve(g);
+  }
+  fetch_page(kStages);
+  __syncthreads();
+  for (int g = 0; g < kStages - 1; ++g) {
+    if (g < ntiles) stage_kv(g);
+    cp_async_commit();
+  }
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<kStages - 2>();                // tile it has landed
+    __syncthreads();                             // ... for all; tile it - 1 is consumed
+    if (it == 0) t.load_q(qs + mt * kWarpRows * SR);
+    if (it + kStages - 1 < ntiles) {
+      stage_kv(it + kStages - 1);                // offsets resolved an iteration ago
+      resolve(it + kStages);                     // into the slot tile it's copies read
+      fetch_page(it + kStages + 1);
+    }
+    cp_async_commit();
+    if (idle) continue;
+    const bf16* ks = ring + (it % kStages) * 2 * TS + koff * SR;
+    const int k0 = it * kMmaKeys + koff;
+    if (split == 8) t.template step<kMmaKeys / 8>(ks, ks + TS, k0, p.scale);
+    else if (split == 4) t.template step<kMmaKeys / 4>(ks, ks + TS, k0, p.scale);
+    else t.template step<kMmaKeys / 2>(ks, ks + TS, k0, p.scale);
+  }
+  cp_async_wait<0>();
+  __syncthreads();                               // the ring is free for the epilogue
+
+  bf16* out = static_cast<bf16*>(p.out);
+  finish_rows<D, kMmaThreads>(t, reinterpret_cast<float*>(ring), split, mt * kWarpRows, nr,
+                              [&](int r) {
+    const int rg = r0 + r;
+    return out + (((long long)b * p.Q + rg / G) * p.Hq + h * G + rg % G) * D;
+  });
+}
+
+template <int D>
+int launch_mixed_mma(const RowsParams& p, cudaStream_t stream) {
+  constexpr int bytes = MixedSmem<D>::kBytes;    // above 48 KB: opt in once
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      mixed_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int R = p.Q * (p.Hq / p.Hkv);
+  dim3 grid((R + kMmaRows - 1) / kMmaRows, p.Hkv, p.B);
+  mixed_mma_kernel<D><<<grid, kMmaThreads, bytes, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch_mixed_mma(int D, const RowsParams& p, cudaStream_t stream) {
+  switch (D) {
+    case 32: return launch_mixed_mma<32>(p, stream);
+    case 64: return launch_mixed_mma<64>(p, stream);
+    case 80: return launch_mixed_mma<80>(p, stream);
+    case 128: return launch_mixed_mma<128>(p, stream);
+    default: return -1;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  tbl: nullptr for a contiguous cache,
@@ -339,6 +547,9 @@ extern "C" int flash_rows(int dtype, int D, const void* q, const void* k, const 
                static_cast<float*>(acc_out),
                B, Q, Hq, Hkv, S, splits, add, q_sb, q_sq, k_sb, v_sb, tbl_sb, ps, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the bf16 mixed step (contiguous or paged) runs on the tensor cores
+  if (dtype == 1 && add == 1 && splits == 1 && m_out == nullptr)
+    return dispatch_mixed_mma(D, p, s);
   if (dtype == 0) return dispatch_rows<float>(D, p, s);
   if (dtype == 1) return dispatch_rows<__nv_bfloat16>(D, p, s);
   return -1;

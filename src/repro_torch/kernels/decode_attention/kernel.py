@@ -8,15 +8,20 @@ of ``LAUNCHES``:
 * ``decode_attention_cuda`` — replaces ``decode_attention_pallas``;
 * ``splitk_partial_cuda`` / ``splitk_combine_cuda`` — the two stages of
   ``decode_attention_splitk``;
-* ``mixed_attention_cuda`` — replaces ``mixed_attention_pallas``;
+* ``mixed_attention_cuda`` — replaces ``mixed_attention_pallas`` (bf16 on
+  the tensor cores through ``mixed_mma_kernel``; fp32 and every other
+  wrapper through ``flash_rows_kernel`` on the CUDA cores);
 * ``decode_attention_paged_cuda`` — replaces ``decode_attention_paged``;
 * ``paged_splitk_partial_cuda`` — stage 1 of ``decode_attention_paged_splitk``
   (its stage 2 is the shared ``splitk_combine_cuda``);
-* ``mixed_attention_paged_cuda`` — replaces ``mixed_attention_paged``.
+* ``mixed_attention_paged_cuda`` — replaces ``mixed_attention_paged`` (as
+  ``mixed_attention_cuda``, through the block tables).
 
 The paged wrappers take the (P, page_size, Hkv, D) pool, (B, n_blocks)
 int32 block tables (a row stride is allowed, so a column slice
-``tables[:, :w]`` is read in place) and (B,) int32 lengths.
+``tables[:, :w]`` is read in place) and (B,) int32 lengths.  The bf16
+mixed step copies q's rows with 16-byte cp.async, so its q must be 16-byte
+aligned with 16-byte batch and sequence strides.
 
 The library is built on the first call (``kernels._build``).  These take
 CUDA tensors only; ``ops`` sends CPU tensors to ``ref``.
@@ -141,6 +146,15 @@ def _check_paged(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                          f"{tuple(k_pages.shape)}")
 
 
+def _check_q_staging(q: torch.Tensor) -> None:
+    """The bf16 mixed step stages q's rows with 16-byte cp.async copies."""
+    if q.dtype == torch.bfloat16 and (
+            q.data_ptr() % 16
+            or any(q.shape[i] > 1 and (q.stride(i) * q.element_size()) % 16 for i in (0, 1))):
+        raise ValueError(f"bf16 q must be 16-byte aligned, with 16-byte batch and sequence "
+                         f"strides: strides {q.stride()}")
+
+
 def _rows(q4: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lens: torch.Tensor,
           *, add: int, splits: int, out: Optional[torch.Tensor],
           partial: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
@@ -229,6 +243,7 @@ def mixed_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.
                          cache_lens: torch.Tensor) -> torch.Tensor:
     """q-chunk attention: q (B, Q, Hq, D); row i sees keys <= cache_lens[b] + i."""
     _check_kv(q, k_cache, v_cache, cache_lens)
+    _check_q_staging(q)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _rows(q, k_cache, v_cache, cache_lens, add=1, splits=1, out=out, partial=None,
           name="mixed_attention")
@@ -282,6 +297,7 @@ def mixed_attention_paged_cuda(q: torch.Tensor, k_pages: torch.Tensor, v_pages: 
     """Paged q-chunk attention: q (B, Q, Hq, D); row i sees keys <=
     cache_lens[b] + i among the first n_blocks·ps of its table."""
     _check_paged(q, k_pages, v_pages, block_tables, cache_lens)
+    _check_q_staging(q)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _rows(q, k_pages, v_pages, cache_lens, add=1, splits=1, out=out, partial=None,
           name="mixed_attention_paged", tables=block_tables)

@@ -1,10 +1,11 @@
 """Wrapper of the CUDA flash-attention forward (``csrc/flash_attention.cu``).
 
-``flash_attention_cuda`` replaces ``flash_attention_pallas``.  It checks
-device, dtype, shapes and strides, allocates the output with
-``torch.empty``, launches on PyTorch's current stream without
-synchronising, raises if the launch was refused, and adds one to
-``LAUNCHES["flash_attention"]``.
+``flash_attention_cuda`` replaces ``flash_attention_pallas``: in bf16
+through ``flash_fwd_mma_kernel`` (tensor cores, K/V staged by cp.async),
+in fp32 through ``flash_fwd_kernel`` (CUDA cores).  It checks device,
+dtype, shapes and strides, allocates the output with ``torch.empty``,
+launches on PyTorch's current stream without synchronising, raises if the
+launch was refused, and adds one to ``LAUNCHES["flash_attention"]``.
 
 q, k and v may be views with any batch and sequence strides (the prefill
 passes slices of the fused qkv projection) as long as each head's D values

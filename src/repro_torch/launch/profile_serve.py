@@ -109,8 +109,8 @@ def main(argv=None) -> int:
     rt = Counter(e["name"] for e in events if e.get("cat") == "cuda_runtime")
     legacy_prefills = 0 if engine.mixed else tel.prefills
     steps = tel.mixed_steps + tel.chunks * ecfg.decode_chunk + legacy_prefills
-    prefill_kernel = {"rwkv": "wkv6_kernel", "hybrid": "ssd_kernel"}.get(cfg.family,
-                                                                        "flash_fwd_kernel")
+    # flash_fwd_mma_kernel in bf16, flash_fwd_kernel in fp32
+    prefill_kernel = {"rwkv": "wkv6_kernel", "hybrid": "ssd_kernel"}.get(cfg.family, "flash_fwd")
     prefill_us = sum(v for k, v in kern.items() if prefill_kernel in k)
 
     # kernels per layer: one decode step over the slot batch, one prefill

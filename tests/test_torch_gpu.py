@@ -657,3 +657,151 @@ def test_rmsnorm_kernel_rejects_bad_layout(cuda):
         norm_kernel.rmsnorm_cuda(x, w.bfloat16())
     with pytest.raises(ValueError):                 # the residual of another shape
         norm_kernel.rmsnorm_cuda(x, w, torch.zeros((2, 256), device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# the bf16 tensor-core attention kernels (mixed step and flash forward)
+# ---------------------------------------------------------------------------
+
+MIXED_LENS = (0, 37, 203)        # cached lengths: none, and off any 64-key tile
+
+
+def _mixed_inputs(rng, D, G, Q, dtype, dev, Hkv=2):
+    """q (3, Q, Hkv·G, D) and a contiguous cache with room for every chunk."""
+    B = len(MIXED_LENS)
+    S = max(MIXED_LENS) + Q + 50
+    k, v = _kv(rng, B, S, Hkv, D, dtype, dev)
+    q = torch.as_tensor(rng.standard_normal((B, Q, Hkv * G, D)),
+                        dtype=torch.float32).to(dev, dtype)
+    return q, k, v, torch.tensor(MIXED_LENS, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("Q", [1, 3, 8, 32, 500])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("D", [32, 64, 80, 128])
+def test_mixed_mma_kernel_vs_plain(cuda, D, G, Q):
+    """One to 63 m16 tiles per (b, kv head): the warps split each tile's
+    keys 4 or 2 ways, or take an m-tile each."""
+    rng = np.random.default_rng(D + 10 * G + Q)
+    q, k, v, cl = _mixed_inputs(rng, D, G, Q, torch.bfloat16, cuda)
+    out = kernel.mixed_attention_cuda(q, k, v, cl)
+    _close(out, ref.mixed_attention(q, k, v, cl), torch.bfloat16)
+
+
+@pytest.mark.parametrize("ps", [4, 5, 12, 16, 64])   # 5 and 12 take the division path
+@pytest.mark.parametrize("Q", [1, 3, 8, 32, 500])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("D", [32, 64, 80, 128])
+def test_paged_mixed_mma_kernel_vs_plain(cuda, D, G, Q, ps):
+    rng = np.random.default_rng(D + 10 * G + Q + ps)
+    B, Hkv = len(MIXED_LENS), 2
+    cl_np = np.array(MIXED_LENS)
+    nb = -(-(cl_np.max() + Q + 50) // ps)
+    k, v, tbl = _paged(rng, B, nb, ps, Hkv, D, cl_np + Q, torch.bfloat16, cuda)
+    q = torch.as_tensor(rng.standard_normal((B, Q, Hkv * G, D)),
+                        dtype=torch.float32).to(cuda, torch.bfloat16)
+    cl = torch.as_tensor(cl_np, dtype=torch.int32, device=cuda)
+    out = kernel.mixed_attention_paged_cuda(q, k, v, tbl, cl)
+    _close(out, ref.mixed_attention_paged(q, k, v, tbl, cl), torch.bfloat16)
+
+
+@pytest.mark.parametrize("Sq,Sk,Hkv,G,D,causal,window", [
+    (300, 300, 2, 8, 128, True, 0),      # G = 8: 8 queries per 64-row block
+    (333, 333, 1, 8, 64, False, 0),
+    (150, 1000, 2, 8, 80, True, 0),      # Sq < Sk, G = 8
+    (300, 300, 2, 4, 128, True, 16),     # rows whose first tile is wholly masked
+    (256, 256, 4, 2, 64, False, 8),
+    (70, 900, 2, 2, 80, True, 24),
+])
+def test_flash_mma_kernel_vs_plain(cuda, Sq, Sk, Hkv, G, D, causal, window):
+    rng = np.random.default_rng(Sq + Sk + G + D)
+    q, k, v = _flash_inputs(rng, 2, Sq, Sk, Hkv, G, D, torch.bfloat16, cuda)
+    out = flash_kernel.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    _close(out, flash_ref.flash_attention(q, k, v, causal=causal, window=window),
+           torch.bfloat16)
+
+
+def _poisoned(t: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` with NaN in the leading-axis-flattened rows ``rows``."""
+    out = t.clone()
+    out.view(-1, *t.shape[2:])[rows] = float("nan")
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mixed_kernel_ignores_nan_past_the_lengths(cuda, dtype):
+    """NaN in every cache row at or past cache_len + Q, read through a
+    window view: the output is finite and equals the clean cache's."""
+    rng = np.random.default_rng(30)
+    D, G, Q = 128, 2, 8
+    q, k, v, cl = _mixed_inputs(rng, D, G, Q, dtype, cuda, Hkv=8)
+    B, S = k.shape[:2]
+    W = S - 10
+    pos = torch.arange(S, device=cuda)
+    dead = (pos[None, :] >= (cl[:, None] + Q)).reshape(-1)
+    kp, vp = _poisoned(k, dead), _poisoned(v, dead)
+    clean = kernel.mixed_attention_cuda(q, k[:, :W], v[:, :W], cl)
+    out = kernel.mixed_attention_cuda(q, kp[:, :W], vp[:, :W], cl)
+    assert bool(torch.isfinite(out).all())
+    assert torch.equal(out, clean)
+    _close(clean, ref.mixed_attention(q, k[:, :W], v[:, :W], cl), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ps", [5, 12, 16])
+def test_paged_mixed_kernel_ignores_nan_in_the_pool(cuda, dtype, ps):
+    """NaN in the trash page (0) and in every pool row no sequence holds
+    below its cache_len + Q (the tails of partly used pages), at page sizes
+    that are and are not powers of two."""
+    rng = np.random.default_rng(31 + ps)
+    D, G, Q, Hkv = 128, 2, 8, 8
+    B = len(MIXED_LENS)
+    cl_np = np.array(MIXED_LENS)
+    nb = -(-(cl_np.max() + Q + 50) // ps)
+    k, v, tbl = _paged(rng, B, nb, ps, Hkv, D, cl_np + Q, dtype, cuda)
+    q = torch.as_tensor(rng.standard_normal((B, Q, Hkv * G, D)),
+                        dtype=torch.float32).to(cuda, dtype)
+    cl = torch.as_tensor(cl_np, dtype=torch.int32, device=cuda)
+    live = torch.zeros(k.shape[0] * ps, dtype=torch.bool, device=cuda)
+    for b in range(B):
+        pos = torch.arange(int(cl_np[b]) + Q, device=cuda)
+        live[tbl[b, pos // ps].long() * ps + pos % ps] = True
+    assert not bool(live[:ps].any())               # nothing live on the trash page
+    kp, vp = _poisoned(k, ~live), _poisoned(v, ~live)
+    clean = kernel.mixed_attention_paged_cuda(q, k, v, tbl, cl)
+    out = kernel.mixed_attention_paged_cuda(q, kp, vp, tbl, cl)
+    assert bool(torch.isfinite(out).all())
+    assert torch.equal(out, clean)
+    _close(clean, ref.mixed_attention_paged(q, k, v, tbl, cl), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_ignores_nan_past_the_sequence(cuda, dtype):
+    """q, k and v as the first Sq / Sk rows of buffers whose later rows are
+    NaN (the padding rows of the last query block and the keys past Sk)."""
+    rng = np.random.default_rng(32)
+    B, Sq, Sk, Hkv, G, D, extra = 2, 77, 333, 8, 2, 128, 100
+    q, k, v = _flash_inputs(rng, B, Sq + extra, Sk + extra, Hkv, G, D, dtype, cuda)
+    qn, kn, vn = (torch.cat([t[:, :n], torch.full_like(t[:, n:], float("nan"))], 1)
+                  for t, n in ((q, Sq), (k, Sk), (v, Sk)))
+    for causal, window in ((True, 0), (False, 0), (True, 40)):
+        clean = flash_kernel.flash_attention_cuda(q[:, :Sq].contiguous(), k[:, :Sk].contiguous(),
+                                                  v[:, :Sk].contiguous(), causal=causal,
+                                                  window=window)
+        out = flash_kernel.flash_attention_cuda(qn[:, :Sq], kn[:, :Sk], vn[:, :Sk],
+                                                causal=causal, window=window)
+        assert bool(torch.isfinite(out).all())
+        assert torch.equal(out, clean)
+
+
+def test_mixed_kernel_rejects_unaligned_bf16_q(cuda):
+    k = torch.zeros((2, 64, 2, 64), device=cuda, dtype=torch.bfloat16)
+    lens = torch.ones((2,), dtype=torch.int32, device=cuda)
+    wide = torch.zeros((2, 4, 4 * 64 + 4), device=cuda, dtype=torch.bfloat16)
+    q = wide[..., 4:].unflatten(-1, (4, 64))        # 8 bytes off, rows 520 bytes apart
+    with pytest.raises(ValueError, match="16-byte"):
+        kernel.mixed_attention_cuda(q, k, k, lens)
+    pool = torch.zeros((4, 16, 2, 64), device=cuda, dtype=torch.bfloat16)
+    tbl = torch.ones((2, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernel.mixed_attention_paged_cuda(q, pool, pool, tbl, lens)

@@ -161,7 +161,8 @@ def _imports(path: Path):
 
 
 def test_port_imports_neither_jax_nor_repro():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "attention_timing.py"]
     assert len(files) > 10
     for path in files:
         for mod in _imports(path):
