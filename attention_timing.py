@@ -7,8 +7,12 @@ SDPA yardsticks, by three methods on one card.
 The rows are phase 6's: the mixed q-chunk step (B=8, Q=8, 8 kv heads,
 G=2, D=128, a 2048-key window of a 4096-row cache, phase 6's cache
 lengths), the same through block tables over phase 6's 3073-page pool,
-and the flash forward at B=1, S=2000, causal (16 q / 8 kv heads of 128,
-and 32 / 32 heads of 80).  Each is timed by
+the flash forward at B=1, S=2000, causal (16 q / 8 kv heads of 128,
+and 32 / 32 heads of 80), and the split-K decode partial and its pair
+(partial + combine) at K=8 over a 4096-row cache at phase 6's lengths
+(8 kv heads, G=2, D=128; 32 kv heads of 80, G=1; and D=128 through the
+pool), each pair beside the one SDPA call with its result.  Each is
+timed by
 
 - ``back_to_back``: CUDA events around ``iters`` calls made one after the
   other, after a warm-up.  For a kernel shorter than its wrapper's host
@@ -135,13 +139,17 @@ def measure() -> dict:
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
 
     gen = torch.Generator("cuda").manual_seed(2)
-    # phase 6's draws, in its order: decode lengths, split-K lengths, cache lengths
+    # phase 6's draws, in its order: decode lengths, split-K lengths, cache
+    # lengths, split-K lengths at head_dim 80
     rng = np.random.default_rng(2)
     rng.integers(16, 1024 + 1, B)
     lens_np = rng.integers(16, 2033, B)
     cl_np = rng.integers(0, W - Q + 1, B)
+    lens80_np = rng.integers(16, 2033, B)
     cl = torch.as_tensor(cl_np, dtype=torch.int32, device="cuda")
-    out = {"cache_lens": cl_np.tolist()}
+    lens80 = torch.as_tensor(lens80_np, dtype=torch.int32, device="cuda")
+    out = {"cache_lens": cl_np.tolist(), "lengths": lens_np.tolist(),
+           "lengths_d80": lens80_np.tolist()}
 
     qm = _rand(gen, (B, Q, HKV * G, D))
     caches = [(_rand(gen, (B, S_MAX, HKV, D))[:, :W], _rand(gen, (B, S_MAX, HKV, D))[:, :W])
@@ -176,6 +184,32 @@ def measure() -> dict:
                                k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
                                enable_gqa=hq != hk) for q, k, v in sets], 50)
         del sets
+
+    # split-K decode at K=8 over the 4096-row cache, phase 6's lengths
+    K = 8
+    lens = torch.as_tensor(lens_np, dtype=torch.int32, device="cuda")
+    for tag, hkv, g, d, ln in (("", HKV, G, D, lens), ("_d80", 32, 1, 80, lens80)):
+        q = _rand(gen, (B, hkv * g, d))
+        caches = [(_rand(gen, (B, S_MAX, hkv, d)), _rand(gen, (B, S_MAX, hkv, d)))
+                  for _ in range(RING)]
+        mask = (torch.arange(S_MAX, device="cuda")[None, :] < ln[:, None])[:, None, None, :]
+        out["splitk_partial" + tag] = _three_ways(
+            [functools.partial(kernel.splitk_partial_cuda, q, k, v, ln, k_splits=K)
+             for k, v in caches], 200)
+        out["splitk_pair" + tag] = _three_ways(
+            [functools.partial(kernel.decode_attention_splitk_cuda, q, k, v, ln, k_splits=K)
+             for k, v in caches], 200)
+        out["splitk_sdpa" + tag] = _three_ways(
+            [functools.partial(_sdpa, q[:, None], k, v, mask) for k, v in caches], 50)
+        del caches
+    q = _rand(gen, (B, HKV * G, D))
+    pools = [(_rand(gen, (P, PAGE, HKV, D)), _rand(gen, (P, PAGE, HKV, D))) for _ in range(RING)]
+    out["paged_splitk_partial"] = _three_ways(
+        [functools.partial(kernel.paged_splitk_partial_cuda, q, kp, vp, tbl, lens, k_splits=K)
+         for kp, vp in pools], 200)
+    out["paged_splitk_pair"] = _three_ways(
+        [functools.partial(kernel.decode_attention_paged_splitk_cuda, q, kp, vp, tbl, lens,
+                           k_splits=K) for kp, vp in pools], 200)
     return out
 
 

@@ -12,7 +12,8 @@ Phases (any failure exits non-zero; nothing is caught):
 2. build: nvcc builds every kernel source of the path, one process per
    source, all at once (printing ptxas -v); the bf16 tensor-core attention
    kernels' registers, spills and static shared memory on a line of their
-   own, and no instantiation may spill;
+   own (flash, mixed step and split-K partial: 11 instantiations), and no
+   instantiation may spill;
 3. kernels: each CUDA kernel against its plain PyTorch version at the
    serving shapes, in bf16 (atol 2e-2, and each output row's largest error
    within a tenth of that row's RMS) and fp32 (atol 2e-5, rtol 1e-3); the
@@ -40,7 +41,11 @@ Phases (any failure exits non-zero; nothing is caught):
    checks, both dtypes: NaN in the cache past every length (phase 4's mixed
    step), in the trash page and every pool row a sequence does not hold
    (phase 4d's prefill_paged call), past Sq and Sk (the flash prefill at
-   S=2000) leave the output finite and bit-equal to the clean run's;
+   S=2000), and in bf16 past every length and in every pool row not held
+   for the split-K partial and pair (qwen3's and zamba2's heads, phase
+   4b's pool) leave the output finite and bit-equal to the clean run's;
+   the bf16 paged split-K also at page sizes 5 and 12 (the kernel's
+   division path); every empty split chunk is the identity state exactly;
 4. serve: EngineClient serves full-width qwen3-0.6b (28 layers, bf16,
    seeded random weights) at the default EngineConfig: 16 requests,
    prompts 16..2000 tokens, 32 new tokens each; launch counters are
@@ -264,6 +269,7 @@ def phase_kernels() -> dict:
         check(bool(empty.any()), "split-K case has no empty chunk")
         check(bool((m[empty] <= -1e29).all() and (l[empty] == 0).all()
                    and (acc[empty] == 0).all()), "empty split chunk is not the identity state")
+        check(torch.equal(m[empty], m_r[empty]), "empty split chunk's m is not exactly -1e30")
         check(_err(m[~empty], m_r[~empty]) < 1e-4, "split-K partial m differs")
         check(bool(torch.allclose(l, l_r, rtol=1e-3, atol=1e-4)), "split-K partial l differs")
         norm = lambda a, ll: a / ll.clamp(min=1e-30)[..., None]  # noqa: E731
@@ -306,25 +312,8 @@ def phase_kernels() -> dict:
             f"decode_attention_paged {tag}", kernel.decode_attention_paged_cuda(
                 q, kp, vp, tbl, lens), ref.decode_attention_paged(q, kp, vp, tbl, lens), dtype))
 
-        K = ops.auto_paged_k_splits(tbl.shape[1], ps)
-        check(K == 8, f"paged split at nb={tbl.shape[1]}, ps={ps} is {K}, not 8")
-        m, l, acc = kernel.paged_splitk_partial_cuda(q, kp, vp, tbl, lens, k_splits=K)
-        m_r, l_r, acc_r = ref.decode_attention_paged_splitk_partial(q, kp, vp, tbl, lens,
-                                                                    k_splits=K)
-        empty = m_r <= -1e29
-        check(bool(empty.any()), "paged split-K case has no empty chunk")
-        check(bool((m[empty] <= -1e29).all() and (l[empty] == 0).all()
-                   and (acc[empty] == 0).all()),
-              "empty paged split chunk is not the identity state")
-        check(_err(m[~empty], m_r[~empty]) < 1e-4, f"paged split-K partial m differs ({tag})")
-        check(bool(torch.allclose(l, l_r, rtol=1e-3, atol=1e-4)),
-              f"paged split-K partial l differs ({tag})")
-        norm = lambda a, ll: a / ll.clamp(min=1e-30)[..., None]  # noqa: E731
-        note("decode_attention_paged_splitk_partial", _close(
-            f"paged splitk_partial (acc/l) {tag}", norm(acc, l), norm(acc_r, l_r), dtype))
-        _close(f"paged splitk pair {tag}", kernel.decode_attention_paged_splitk_cuda(
-            q, kp, vp, tbl, lens, k_splits=K), ref.decode_attention_paged(q, kp, vp, tbl, lens),
-            dtype)
+        note("decode_attention_paged_splitk_partial",
+             paged_splitk_check(tag, q, kp, vp, tbl, lens, dtype))
 
         # Q=8 through the table cut to its first 2048 keys (a column slice)
         Q, W = 8, 2048
@@ -336,6 +325,20 @@ def phase_kernels() -> dict:
         note("mixed_attention_paged", _close(
             f"mixed_attention_paged Q={Q} {tag}", kernel.mixed_attention_paged_cuda(
                 qm, kp, vp, view, cl), ref.mixed_attention_paged(qm, kp, vp, view, cl), dtype))
+        del kp, vp
+
+    # the bf16 paged split-K at page sizes that are not powers of two (the
+    # kernel's division path), at max_len 4000 and 4032 (tables of 800 and
+    # 336 columns, so K=8); a generator of its own, so the checks after it
+    # see the same inputs as before
+    sgen = torch.Generator("cuda").manual_seed(4)
+    for ps, max_len in ((5, 4000), (12, 4032)):
+        dtype, ck = torch.bfloat16, max_len // 8
+        lens_np = np.array([1, ps, ck // 2, ck, ck + 1, 999, 2049, max_len])
+        kp, vp, tbl = paged_inputs(sgen, lens_np, ps, dtype, max_len)
+        lens = torch.as_tensor(lens_np, dtype=torch.int32, device="cuda")
+        q = _rand(sgen, (B, HKV * G, D), dtype)
+        paged_splitk_check(f"ps={ps} max_len={max_len}", q, kp, vp, tbl, lens, dtype)
         del kp, vp
 
     # the single-stage paged decode and the paged mixed step at their phase
@@ -389,6 +392,34 @@ def phase_kernels() -> dict:
     errs.update(rmsnorm_kernel_checks(gen))
     torch.cuda.synchronize()
     return errs
+
+
+def paged_splitk_check(tag, q, kp, vp, tbl, lens, dtype) -> float:
+    """The paged split-K partial (at the engine's split of this table) and
+    the pair against their plain versions; returns the partial's error."""
+    from repro_torch.kernels.decode_attention import kernel, ops, ref
+
+    ps = kp.shape[1]
+    K = ops.auto_paged_k_splits(tbl.shape[1], ps)
+    check(K == 8, f"paged split at nb={tbl.shape[1]}, ps={ps} is {K}, not 8")
+    m, l, acc = kernel.paged_splitk_partial_cuda(q, kp, vp, tbl, lens, k_splits=K)
+    m_r, l_r, acc_r = ref.decode_attention_paged_splitk_partial(q, kp, vp, tbl, lens,
+                                                                k_splits=K)
+    empty = m_r <= -1e29
+    check(bool(empty.any()), "paged split-K case has no empty chunk")
+    check(bool((m[empty] <= -1e29).all() and (l[empty] == 0).all()
+               and (acc[empty] == 0).all()),
+          "empty paged split chunk is not the identity state")
+    check(torch.equal(m[empty], m_r[empty]), "empty paged split chunk's m is not exactly -1e30")
+    check(_err(m[~empty], m_r[~empty]) < 1e-4, f"paged split-K partial m differs ({tag})")
+    check(bool(torch.allclose(l, l_r, rtol=1e-3, atol=1e-4)),
+          f"paged split-K partial l differs ({tag})")
+    norm = lambda a, ll: a / ll.clamp(min=1e-30)[..., None]  # noqa: E731
+    err = _close(f"paged splitk_partial (acc/l) {tag}", norm(acc, l), norm(acc_r, l_r), dtype)
+    _close(f"paged splitk pair {tag}", kernel.decode_attention_paged_splitk_cuda(
+        q, kp, vp, tbl, lens, k_splits=K), ref.decode_attention_paged(q, kp, vp, tbl, lens),
+        dtype)
+    return err
 
 
 def flash_kernel_checks(gen) -> dict:
@@ -501,6 +532,7 @@ def head_dim_80_checks(gen) -> dict:
         empty = m_r <= -1e29
         check(bool((m[empty] <= -1e29).all() and (l[empty] == 0).all()
                    and (acc[empty] == 0).all()), "D=80: empty split chunk is not the identity")
+        check(torch.equal(m[empty], m_r[empty]), "D=80: empty split chunk's m is not exactly -1e30")
         check(_err(m[~empty], m_r[~empty]) < 1e-4, "D=80 split-K partial m differs")
         check(bool(torch.allclose(l, l_r, rtol=1e-3, atol=1e-4)), "D=80 split-K partial l differs")
         norm = lambda a, ll: a / ll.clamp(min=1e-30)[..., None]  # noqa: E731
@@ -617,8 +649,10 @@ def poison_checks(gen) -> list:
     through the 2048-key window view), every pool row that is not the
     sequence's own below its length, the trash page included (phase 4d's
     prefill_paged call), and the rows past Sq and Sk of the buffers q, k
-    and v are cut from (the flash prefill at B=1, S=2000).  The output must
-    be finite and equal to the clean run's, bit for bit."""
+    and v are cut from (the flash prefill at B=1, S=2000); then the bf16
+    split-K partial and pair, with NaN past every length (qwen3's and
+    zamba2's heads) and in every pool row not held (phase 4b's pool).  The
+    output must be finite and equal to the clean run's, bit for bit."""
     from repro_torch.kernels.decode_attention import kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
 
@@ -669,6 +703,42 @@ def poison_checks(gen) -> list:
         same(f"flash_attention B=1 S={S} {dtype}",
              flash_kernel.flash_attention_cuda(q[:, :S], k[:, :S], v[:, :S], causal=True), clean)
         del q, k, v
+
+    # the bf16 split-K partial (m, l, acc) and pair, K=8 over 4096 keys:
+    # NaN in the cache past every length at qwen3's heads and at zamba2's
+    # (32 kv heads of 80), then in every row of phase 4b's pool that no
+    # sequence holds below its length, the trash page included
+    dtype, K = torch.bfloat16, 8
+    lens_np = np.array([1, 17, 511, 512, 513, 2049, 3000, S_MAX - 5])
+    lens = torch.as_tensor(lens_np, dtype=torch.int32, device="cuda")
+
+    def same_split(tag, partial, pair, *kv):
+        for what, got, want in zip(("m", "l", "acc"), partial(*kv[:2]), partial(*kv[2:])):
+            same(f"splitk_partial {what} {tag}", got, want)
+        same(f"splitk pair {tag}", pair(*kv[:2]), pair(*kv[2:]))
+
+    dead = (torch.arange(S_MAX, device="cuda")[None, :] >= lens[:, None]).reshape(-1)
+    for hkv, g, d in ((HKV, G, D), (Z_H, 1, Z_D)):
+        k, v = _rand(gen, (B, S_MAX, hkv, d), dtype), _rand(gen, (B, S_MAX, hkv, d), dtype)
+        q = _rand(gen, (B, hkv * g, d), dtype)
+        same_split(f"B={B} S={S_MAX} Hkv={hkv} G={g} D={d} K={K} {dtype}",
+                   lambda k_, v_: kernel.splitk_partial_cuda(q, k_, v_, lens, k_splits=K),
+                   lambda k_, v_: kernel.decode_attention_splitk_cuda(q, k_, v_, lens,
+                                                                      k_splits=K),
+                   _nan_rows(k, dead), _nan_rows(v, dead), k, v)
+        del k, v
+    kp, vp, tbl = paged_inputs(gen, lens_np, PAGE, dtype)
+    live = torch.zeros(kp.shape[0] * PAGE, dtype=torch.bool, device="cuda")
+    for b, n in enumerate(lens_np):
+        pos = torch.arange(int(n), device="cuda")
+        live[tbl[b, pos // PAGE].long() * PAGE + pos % PAGE] = True
+    check(not bool(live[:PAGE].any()), "poison: the trash page holds live keys")
+    q = _rand(gen, (B, HKV * G, D), dtype)
+    same_split(f"paged pool={kp.shape[0]}x{PAGE} K={K} {dtype}",
+               lambda k_, v_: kernel.paged_splitk_partial_cuda(q, k_, v_, tbl, lens, k_splits=K),
+               lambda k_, v_: kernel.decode_attention_paged_splitk_cuda(q, k_, v_, tbl, lens,
+                                                                        k_splits=K),
+               _nan_rows(kp, ~live), _nan_rows(vp, ~live), kp, vp)
     return done
 
 
@@ -1513,7 +1583,7 @@ def main() -> int:
                 print("    " + line.strip())
     mma = mma_build_report(logs)
     print("  tensor-core attention kernels (ptxas -v): " + json.dumps(mma), flush=True)
-    check(len(mma) == 7, f"expected 7 tensor-core kernel instantiations, found {len(mma)}")
+    check(len(mma) == 11, f"expected 11 tensor-core kernel instantiations, found {len(mma)}")
     for r in mma:
         check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0, f"ptxas spills: {r}")
 

@@ -3,7 +3,9 @@
 // Replaces the Pallas TPU kernels of repro/kernels/decode_attention/kernel.py:
 //   * decode_attention_pallas  (_decode_kernel)          -> flash_rows, Q=1, add=0, splits=1
 //   * decode_attention_splitk  (_splitk_partial_kernel)  -> flash_rows, Q=1, add=0, splits=K,
-//                                                           partial state out
+//                                                           partial state out:
+//                                                           splitk_mma_kernel in bf16 (G <= 16),
+//                                                           flash_rows_kernel otherwise
 //                              (_splitk_combine_kernel)  -> splitk_combine
 //   * mixed_attention_pallas   (_mixed_kernel)           -> flash_rows, add=1, splits=1:
 //                                                           mixed_mma_kernel in bf16,
@@ -11,7 +13,9 @@
 //   * decode_attention_paged   (_paged_decode_kernel)    -> flash_rows, tbl, Q=1, add=0, splits=1
 //   * decode_attention_paged_splitk
 //                              (_paged_splitk_partial_kernel) -> flash_rows, tbl, Q=1, add=0,
-//                                                           splits=K, partial state out
+//                                                           splits=K, partial state out:
+//                                                           splitk_mma_kernel in bf16 (G <= 16),
+//                                                           flash_rows_kernel otherwise
 //                              (combine: the same splitk_combine)
 //   * mixed_attention_paged    (_mixed_paged_kernel)     -> flash_rows, tbl, add=1, splits=1:
 //                                                           mixed_mma_kernel in bf16,
@@ -37,8 +41,11 @@
 // to fp32 in shared memory.  Small row blocks (8 rows) give the mixed step
 // two CTAs per (b, kv head) at Q=8; the second reads KV mostly from L2.
 // The KV operands are addressed through a batch stride, so an attention
-// window view k[:, :W] of a larger cache is read in place.  Still simple:
-// fp32 CUDA-core math, no wgmma/TMA; later work makes it fast.
+// window view k[:, :W] of a larger cache is read in place.  This is
+// fp32 CUDA-core math, far over a bytes bound; it serves fp32, the
+// single-stage decode and split-K groups of more than 16 heads.  The bf16
+// mixed step and the bf16 split-K partial run on the tensor cores
+// (mixed_mma_kernel and splitk_mma_kernel, below).
 //
 // Head dims 32, 64, 80 and 128.  At D = 80 (zamba2's shared attention) a
 // bf16 tile is 320 16-byte packs for 128 threads, so each thread makes 3
@@ -87,6 +94,33 @@
 // D = 80, 84,992 at D = 64, 48,128 at D = 32.  ptxas (sm_90a, CUDA 12.9):
 // 229 registers per thread at D = 128, 149 at D = 80, 134 at D = 64, 128 at
 // D = 32, no spills: one 8-warp CTA per SM (two at D = 32).
+//
+// The bf16 split-K partial: splitk_mma_kernel.  flash_rows_kernel gave a
+// decode CTA kRows = 8 rows of which G (2 for qwen3, 1 for zamba2) are
+// live, converted each 32-key tile to fp32 in shared memory and passed four
+// barriers per tile: 0.0849 ms at phase 6's D = 128 shape against a bound
+// of 0.0116, slower than SDPA's 0.0610 for the whole pair.  One CTA per
+// (kv head, sequence, chunk) now runs the warp tile: the G rows are padded
+// with zeros to one m16 tile, all 8 warps hold those 16 rows and take 16
+// keys each of every 128-key tile (the tensor cores are far from the limit
+// on this bytes-bound call), and their (m, l, acc) merge in finish_partial,
+// which writes the chunk's unnormalised state for splitk_combine.  The
+// chunk's keys [c * ck, min((c + 1) * ck, lens[b])) are the tile's row
+// interval; K/V come through the mixed kernel's cp.async ring with its row
+// offsets (zero-fill past the length; shifts or division for the page).  A
+// chunk wholly past the length writes the identity state and exits before
+// any copy: at phase 6's lengths, 42 of each head's 64 chunks.  Q arrives
+// with plain loads while the first tile is in flight, so q may be any view
+// with dense heads (the decode step's q[:, 0] of the projection).  Ring:
+// 2 stages (shared memory 145,664 bytes at D = 128, 94,976 at D = 80,
+// 78,080 at D = 64, 44,288 at D = 32).  A third stage took the same time
+// at D = 128 (one CTA per SM either way) and 12% longer at D = 80, where
+// it leaves one CTA per SM instead of two.  ptxas (sm_90a): 173
+// registers per thread at D = 128, 120 at D = 80, 114 at D = 64, 57 at
+// D = 32, no spills.  NVIDIA H100 80GB HBM3, 700.00 W, phase 6's shapes,
+// queued and warm (attention_timing.py): 0.0208 ms at D = 128 (1.8x its
+// bound; the pair 0.0251 against SDPA's 0.0610), 0.0443 at D = 80 (1.5x),
+// 0.0205 paged.
 //
 // Numerics match the TPU kernels: fp32 scores and softmax state, masking
 // with -1e30 (not -inf: a fully masked row stays finite), p rounded to V's
@@ -530,6 +564,170 @@ int dispatch_mixed_mma(int D, const RowsParams& p, cudaStream_t stream) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 split-K decode partial on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kSplitStages = 2;         // K/V ring depth (a third stage was no faster)
+
+template <int D> struct SplitSmem {
+  using Tile = attn_mma::Tile<D>;
+  static constexpr int kQ = attn_mma::kWarpRows * Tile::kStride;   // bf16 elements
+  static constexpr int kRing = kSplitStages * 2 * kMmaKeys * Tile::kStride;
+  static constexpr int kOffs = (kQ + kRing) * 2;                    // byte offset of the row ring
+  static constexpr int kBytes = kOffs + kSplitStages * kMmaKeys * 8;
+  static_assert(kMmaThreads / 32 * attn_mma::Reduce<D>::kFloats * 4 <= kRing * 2,
+                "the epilogue's floats fit in the ring");
+};
+
+// One CTA per (kv head h, sequence b, chunk c): the G query rows of head
+// group h (padded with zero rows to one m16 tile) over keys [c * ck,
+// min((c + 1) * ck, lens[b])), ck = S / splits; the 8 warps take 16 keys
+// each of every staged 128-key tile.  Writes the chunk's unnormalised
+// (m, l, acc) to the (B, Hkv, splits, G[, D]) partials.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads) splitk_mma_kernel(RowsParams p) {
+  using namespace attn_mma;
+  using Smem = SplitSmem<D>;
+  constexpr int SR = Tile<D>::kStride;
+  constexpr int TS = kMmaKeys * SR;              // one K or V tile, in bf16
+  constexpr int C = Tile<D>::kChunks;
+  constexpr int U = kMmaKeys * C / kMmaThreads;  // 16-byte K (and V) copies per thread
+  static_assert(U * kMmaThreads == kMmaKeys * C, "a tile splits evenly over the threads");
+  extern __shared__ uint4 smem_split[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_split);  // [kWarpRows][stride]
+  bf16* ring = qs + Smem::kQ;                      // [kSplitStages][K, V][kMmaKeys][stride]
+
+  const int G = p.Hq / p.Hkv;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y / p.splits, c = blockIdx.y % p.splits;
+  const int ck = p.S / p.splits;
+  const int lo = c * ck;
+  const int* tbl = p.tbl != nullptr ? p.tbl + (long long)b * p.tbl_sb : nullptr;
+
+  // Key rows resolve as in mixed_mma_kernel: thread j < kMmaKeys writes the
+  // offset of key lo + tile * kMmaKeys + j into a shared ring a stage ahead
+  // of the copies, from a table entry read a further tile ahead (shifts for
+  // a power-of-two page size, division otherwise); -1 marks a key at or
+  // past hi, zero-filled.  A chunk is whole pages, so any entry below its
+  // end may be read; the first tiles' entries are read before the length
+  // is known, so that load and the length's overlap.
+  const bool pow2 = (p.ps & (p.ps - 1)) == 0;
+  const int shift = __ffs(p.ps) - 1;
+  auto page_of = [&](int tile) {
+    const int pos = lo + tile * kMmaKeys + threadIdx.x;
+    return tbl != nullptr && threadIdx.x < kMmaKeys && pos < lo + ck
+        ? tbl[pow2 ? pos >> shift : pos / p.ps] : 0;
+  };
+  int pages[kSplitStages + 1];
+#pragma unroll
+  for (int g = 0; g <= kSplitStages; ++g) pages[g] = page_of(g);
+
+  const int hi = min(lo + ck, min(p.S, p.lens[b]));
+  const long long cell = ((long long)(b * p.Hkv + h) * p.splits + c) * G;
+  if (hi <= lo) {                                // wholly past the length: the identity
+    for (int e = threadIdx.x; e < G * D; e += kMmaThreads) p.acc_out[cell * D + e] = 0.f;
+    if (threadIdx.x < G) {
+      p.m_out[cell + threadIdx.x] = attn_mma::kNegInf;
+      p.l_out[cell + threadIdx.x] = 0.f;
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x / 32;
+  const int koff = warp * (kMmaKeys / 8);
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + (long long)h * D;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + (long long)h * D;
+  const long long kv_row = (long long)p.Hkv * D;  // elements between key rows
+  const int ntiles = (hi - lo + kMmaKeys - 1) / kMmaKeys;
+
+  long long* offs = reinterpret_cast<long long*>(
+      reinterpret_cast<char*>(smem_split) + Smem::kOffs);   // [kSplitStages][kMmaKeys]
+  auto resolve = [&](int tile, int page) {
+    const int pos = lo + tile * kMmaKeys + threadIdx.x;
+    if (threadIdx.x >= kMmaKeys) return;
+    long long row = pos;                         // contiguous: the key's own row
+    if (tbl != nullptr)
+      row = pow2 ? ((long long)page << shift) + (pos & (p.ps - 1))
+                 : (long long)page * p.ps + pos % p.ps;
+    offs[tile % kSplitStages * kMmaKeys + threadIdx.x] = pos < hi ? row * kv_row : -1;
+  };
+  auto stage_kv = [&](int tile) {
+    bf16* ks = ring + (tile % kSplitStages) * 2 * TS;
+    const long long* ro = offs + tile % kSplitStages * kMmaKeys;
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      const int u = threadIdx.x + i * kMmaThreads, j = u / C, cc = (u % C) * 8;
+      const long long off = ro[j];
+      const bool ok = off >= 0;
+      cp_async16(ks + j * SR + cc, k + (ok ? off + cc : 0), ok);
+      cp_async16(ks + TS + j * SR + cc, v + (ok ? off + cc : 0), ok);
+    }
+  };
+  // prologue: row offsets of tiles 0 .. kSplitStages - 1, copies of tiles
+  // 0 .. kSplitStages - 2 (group g holds tile g)
+#pragma unroll
+  for (int g = 0; g < kSplitStages; ++g) resolve(g, pages[g]);
+  int page = pages[kSplitStages];
+  __syncthreads();
+  for (int g = 0; g < kSplitStages - 1; ++g) {
+    if (g < ntiles) stage_kv(g);
+    cp_async_commit();
+  }
+
+  // Q with plain loads while the first tiles are in flight: q may be any
+  // view with dense (Hq, D) (the decode step passes q[:, 0] of the
+  // projection), so no alignment is assumed; rows G.. are zero
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + (long long)h * G * D;
+#pragma unroll
+  for (int i = 0; i < kWarpRows * D / kMmaThreads; ++i) {
+    const int e = threadIdx.x + i * kMmaThreads, r = e / D, d = e % D;
+    qs[r * SR + d] = r < G ? q[r * D + d] : __float2bfloat16(0.f);
+  }
+
+  WarpTile<D> t;
+  t.init(lo, hi, lo, hi);
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<kSplitStages - 2>();           // tile it has landed
+    __syncthreads();                             // ... for all; tile it - 1 is consumed
+    if (it == 0) t.load_q(qs);
+    if (it + kSplitStages - 1 < ntiles) {
+      stage_kv(it + kSplitStages - 1);           // offsets resolved an iteration ago
+      resolve(it + kSplitStages, page);          // into the slot tile it's copies read
+      page = page_of(it + kSplitStages + 1);
+    }
+    cp_async_commit();
+    const bf16* ks = ring + (it % kSplitStages) * 2 * TS + koff * SR;
+    t.template step<kMmaKeys / 8>(ks, ks + TS, lo + it * kMmaKeys + koff, p.scale);
+  }
+  cp_async_wait<0>();
+  __syncthreads();                               // the ring is free for the epilogue
+
+  finish_partial<D, kMmaThreads>(t, reinterpret_cast<float*>(ring), G, p.m_out + cell,
+                                 p.l_out + cell, p.acc_out + cell * D);
+}
+
+template <int D>
+int launch_splitk_mma(const RowsParams& p, cudaStream_t stream) {
+  constexpr int bytes = SplitSmem<D>::kBytes;    // above 48 KB: opt in once
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      splitk_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  dim3 grid(p.Hkv, p.B * p.splits);
+  splitk_mma_kernel<D><<<grid, kMmaThreads, bytes, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch_splitk_mma(int D, const RowsParams& p, cudaStream_t stream) {
+  switch (D) {
+    case 32: return launch_splitk_mma<32>(p, stream);
+    case 64: return launch_splitk_mma<64>(p, stream);
+    case 80: return launch_splitk_mma<80>(p, stream);
+    case 128: return launch_splitk_mma<128>(p, stream);
+    default: return -1;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  tbl: nullptr for a contiguous cache,
@@ -550,6 +748,9 @@ extern "C" int flash_rows(int dtype, int D, const void* q, const void* k, const 
   // the bf16 mixed step (contiguous or paged) runs on the tensor cores
   if (dtype == 1 && add == 1 && splits == 1 && m_out == nullptr)
     return dispatch_mixed_mma(D, p, s);
+  // the bf16 split-K partial (contiguous or paged) too, for up to one m16 tile of rows
+  if (dtype == 1 && add == 0 && Q == 1 && m_out != nullptr && Hq / Hkv <= attn_mma::kWarpRows)
+    return dispatch_splitk_mma(D, p, s);
   if (dtype == 0) return dispatch_rows<float>(D, p, s);
   if (dtype == 1) return dispatch_rows<__nv_bfloat16>(D, p, s);
   return -1;

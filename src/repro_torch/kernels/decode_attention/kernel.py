@@ -7,13 +7,16 @@ of ``LAUNCHES``:
 
 * ``decode_attention_cuda`` — replaces ``decode_attention_pallas``;
 * ``splitk_partial_cuda`` / ``splitk_combine_cuda`` — the two stages of
-  ``decode_attention_splitk``;
+  ``decode_attention_splitk`` (the bf16 partial of up to 16 heads per kv
+  head on the tensor cores through ``splitk_mma_kernel``; fp32 and wider
+  groups through ``flash_rows_kernel``);
 * ``mixed_attention_cuda`` — replaces ``mixed_attention_pallas`` (bf16 on
-  the tensor cores through ``mixed_mma_kernel``; fp32 and every other
-  wrapper through ``flash_rows_kernel`` on the CUDA cores);
+  the tensor cores through ``mixed_mma_kernel``; fp32 and the single-stage
+  decode wrappers through ``flash_rows_kernel`` on the CUDA cores);
 * ``decode_attention_paged_cuda`` — replaces ``decode_attention_paged``;
 * ``paged_splitk_partial_cuda`` — stage 1 of ``decode_attention_paged_splitk``
-  (its stage 2 is the shared ``splitk_combine_cuda``);
+  (as ``splitk_partial_cuda``, through the block tables; its stage 2 is
+  the shared ``splitk_combine_cuda``);
 * ``mixed_attention_paged_cuda`` — replaces ``mixed_attention_paged`` (as
   ``mixed_attention_cuda``, through the block tables).
 
@@ -21,7 +24,9 @@ The paged wrappers take the (P, page_size, Hkv, D) pool, (B, n_blocks)
 int32 block tables (a row stride is allowed, so a column slice
 ``tables[:, :w]`` is read in place) and (B,) int32 lengths.  The bf16
 mixed step copies q's rows with 16-byte cp.async, so its q must be 16-byte
-aligned with 16-byte batch and sequence strides.
+aligned with 16-byte batch and sequence strides; the split-K partial loads
+q with plain loads, so any view with dense (Hq, D) works there (the decode
+step's ``q[:, 0]``).
 
 The library is built on the first call (``kernels._build``).  These take
 CUDA tensors only; ``ops`` sends CPU tensors to ``ref``.

@@ -1,6 +1,7 @@
 // A warp-level bf16 attention tile for Hopper's tensor cores (sm_90a),
-// shared by the flash-attention forward (flash_attention.cu) and the
-// mixed-step q-chunk kernel (decode_attention.cu).
+// shared by the flash-attention forward (flash_attention.cu), the
+// mixed-step q-chunk kernel and the split-K decode partial
+// (decode_attention.cu).
 //
 // One warp owns 16 (query, head) rows.  Its Q rows are held as the
 // A-fragments of mma.sync.m16n8k16 (bf16 in, fp32 accumulate), loaded once
@@ -32,7 +33,8 @@
 // its unnormalised fp32 (acc, m, l); the warps that shared the rows (a key
 // split) are merged with the log-sum-exp rescale; the result is divided by
 // max(l, 1e-30), rounded to bf16 and stored 16 bytes at a time; padding
-// rows are never stored.
+// rows are never stored.  The split-K partial's epilogue (finish_partial)
+// merges the same way and stores the merged state unnormalised, in fp32.
 
 #pragma once
 
@@ -292,6 +294,68 @@ __device__ __forceinline__ void finish_rows(const WarpTile<D>& t, float* red, in
     pk.z = pack_bf16(o[4] / den, o[5] / den);
     pk.w = pack_bf16(o[6] / den, o[7] / den);
     *reinterpret_cast<uint4*>(out_row(row0 + row) + d0) = pk;
+  }
+}
+
+// The split-K epilogue: every warp of the CTA holds the same 16 rows over
+// disjoint keys of one chunk.  Their (m, l, acc) are merged with the
+// log-sum-exp rescale and rows [0, live) are stored unnormalised, in fp32:
+// m_out[r], l_out[r] and acc_out[r * D ...].  A warp that saw no key has
+// m = -1e30, l = 0, acc = 0, so it adds nothing (its weight is 0, or 1
+// when no warp saw a key, and then the rows are the identity state).  The
+// caller has drained cp.async and synchronised, so `red` may alias the
+// K/V ring.
+template <int D, int kThreads>
+__device__ __forceinline__ void finish_partial(const WarpTile<D>& t, float* red, int live,
+                                               float* m_out, float* l_out, float* acc_out) {
+  constexpr int RS = Reduce<D>::kStride;
+  constexpr int F = Reduce<D>::kFloats;
+  constexpr int kWarps = kThreads / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* mine = red + warp * F;
+  const int r = lane / 4, c = (lane % 4) * 2;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<float2*>(mine + r * RS + n * 8 + c) = make_float2(t.acc[n][0], t.acc[n][1]);
+    *reinterpret_cast<float2*>(mine + (r + 8) * RS + n * 8 + c) =
+        make_float2(t.acc[n][2], t.acc[n][3]);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = t.l[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    if (lane % 4 == 0) {
+      mine[kWarpRows * RS + r + 8 * h] = t.m[h];
+      mine[kWarpRows * RS + kWarpRows + r + 8 * h] = l;
+    }
+  }
+  __syncthreads();
+
+  constexpr int C = D / 8;
+  for (int u = threadIdx.x; u < live * C; u += kThreads) {
+    const int row = u / C, d0 = (u % C) * 8;
+    float m_star = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) m_star = fmaxf(m_star, red[w * F + kWarpRows * RS + row]);
+    float l_star = 0.f, o[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float* g = red + w * F;
+      const float a = __expf(g[kWarpRows * RS + row] - m_star);
+      l_star += g[kWarpRows * RS + kWarpRows + row] * a;
+      const float4 x = *reinterpret_cast<const float4*>(g + row * RS + d0);
+      const float4 y = *reinterpret_cast<const float4*>(g + row * RS + d0 + 4);
+      o[0] += x.x * a; o[1] += x.y * a; o[2] += x.z * a; o[3] += x.w * a;
+      o[4] += y.x * a; o[5] += y.y * a; o[6] += y.z * a; o[7] += y.w * a;
+    }
+    float* dst = acc_out + (long long)row * D + d0;
+    *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+    *reinterpret_cast<float4*>(dst + 4) = make_float4(o[4], o[5], o[6], o[7]);
+    if (d0 == 0) {
+      m_out[row] = m_star;
+      l_out[row] = l_star;
+    }
   }
 }
 

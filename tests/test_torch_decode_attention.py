@@ -68,7 +68,10 @@ def test_decode_plain_vs_pallas(S, Hkv, G, D):
 
 
 @pytest.mark.parametrize("k_splits", [2, 4, 8])
-@pytest.mark.parametrize("S,Hkv,G,D", [(1024, 2, 4, 64), (512, 1, 8, 32)])
+@pytest.mark.parametrize("S,Hkv,G,D", [
+    (1024, 2, 4, 64), (512, 1, 8, 32),
+    (256, 2, 2, 128), (256, 2, 1, 80),   # qwen3-0.6b's and zamba2-2.7b's heads
+])
 def test_splitk_plain_vs_pallas(k_splits, S, Hkv, G, D):
     B = 4
     q, k, v = _inputs(3, B, S, Hkv, G, D)

@@ -805,3 +805,196 @@ def test_mixed_kernel_rejects_unaligned_bf16_q(cuda):
     tbl = torch.ones((2, 2), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="16-byte"):
         kernel.mixed_attention_paged_cuda(q, pool, pool, tbl, lens)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 split-K decode partial on the tensor cores (splitk_mma_kernel)
+# ---------------------------------------------------------------------------
+
+SPLIT_S = 1024                   # K=2, 4, 8: chunks of 4, 2 and 1 staged 128-key tiles
+
+
+def _split_lens(S, K):
+    """One token; inside the first chunk (every later chunk empty); on a
+    chunk boundary; one past it; the whole cache."""
+    ck = S // K
+    return [1, ck // 2 + 3, ck, ck + 1, S]
+
+
+def _partial_close(got, want, dtype):
+    (m, l, acc), (m_r, l_r, acc_r) = got, want
+    torch.testing.assert_close(m, m_r, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(l, l_r, atol=1e-4, rtol=1e-3)
+    torch.testing.assert_close(acc, acc_r, atol=ACC_ATOL[dtype], rtol=1e-3)
+    empty = m_r <= -1e29
+    assert bool(empty.any())
+    # a chunk wholly past the length is the identity state, exactly
+    assert torch.equal(m[empty], m_r[empty])
+    assert bool((l[empty] == 0).all()) and bool((acc[empty] == 0).all())
+
+
+def _q(rng, B, Hq, D, dtype, dev):
+    return torch.as_tensor(rng.standard_normal((B, Hq, D)), dtype=torch.float32).to(dev, dtype)
+
+
+@pytest.mark.parametrize("K", [2, 4, 8])
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("D", [32, 64, 80, 128])
+def test_splitk_mma_kernel_vs_plain(cuda, D, G, K):
+    rng = np.random.default_rng(D + 10 * G + K)
+    Hkv, lens_l = 2, _split_lens(SPLIT_S, K)
+    B = len(lens_l)
+    k, v = _kv(rng, B, SPLIT_S, Hkv, D, torch.bfloat16, cuda)
+    q = _q(rng, B, Hkv * G, D, torch.bfloat16, cuda)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=cuda)
+    _partial_close(kernel.splitk_partial_cuda(q, k, v, lens, k_splits=K),
+                   ref.decode_attention_splitk_partial(q, k, v, lens, k_splits=K),
+                   torch.bfloat16)
+    _close(kernel.decode_attention_splitk_cuda(q, k, v, lens, k_splits=K),
+           ref.decode_attention(q, k, v, lens), torch.bfloat16)
+
+
+@pytest.mark.parametrize("K", [2, 8])
+@pytest.mark.parametrize("D,G", [(128, 2), (80, 1)])            # qwen3-0.6b, zamba2-2.7b
+@pytest.mark.parametrize("ps", [4, 5, 12, 16, 64])   # 5 and 12 take the division path
+def test_paged_splitk_mma_kernel_vs_plain(cuda, ps, D, G, K):
+    rng = np.random.default_rng(ps + D + K)
+    Hkv = 2
+    nb = 8 * -(-SPLIT_S // (8 * ps))               # a multiple of every K
+    lens_l = _split_lens(nb * ps, K)
+    B = len(lens_l)
+    k, v, tbl = _paged(rng, B, nb, ps, Hkv, D, lens_l, torch.bfloat16, cuda)
+    q = _q(rng, B, Hkv * G, D, torch.bfloat16, cuda)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=cuda)
+    _partial_close(kernel.paged_splitk_partial_cuda(q, k, v, tbl, lens, k_splits=K),
+                   ref.decode_attention_paged_splitk_partial(q, k, v, tbl, lens, k_splits=K),
+                   torch.bfloat16)
+    _close(kernel.decode_attention_paged_splitk_cuda(q, k, v, tbl, lens, k_splits=K),
+           ref.decode_attention_paged(q, k, v, tbl, lens), torch.bfloat16)
+
+
+def _same_partials(got, clean):
+    for a, b in zip(got, clean):
+        assert bool(torch.isfinite(a).all())
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D,G", [(128, 2), (80, 1)])
+def test_splitk_mma_kernel_ignores_nan_past_the_lengths(cuda, D, G):
+    """NaN in every cache row at or past each length: the partials and the
+    pair's output are finite and equal the clean cache's, bit for bit."""
+    rng = np.random.default_rng(33 + D)
+    Hkv, K = 2, 8
+    lens_l = _split_lens(SPLIT_S, K)[:-1] + [SPLIT_S - 5]
+    B = len(lens_l)
+    k, v = _kv(rng, B, SPLIT_S, Hkv, D, torch.bfloat16, cuda)
+    q = _q(rng, B, Hkv * G, D, torch.bfloat16, cuda)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=cuda)
+    dead = (torch.arange(SPLIT_S, device=cuda)[None, :] >= lens[:, None]).reshape(-1)
+    kn, vn = _poisoned(k, dead), _poisoned(v, dead)
+    _same_partials(kernel.splitk_partial_cuda(q, kn, vn, lens, k_splits=K),
+                   kernel.splitk_partial_cuda(q, k, v, lens, k_splits=K))
+    out = kernel.decode_attention_splitk_cuda(q, kn, vn, lens, k_splits=K)
+    assert bool(torch.isfinite(out).all())
+    assert torch.equal(out, kernel.decode_attention_splitk_cuda(q, k, v, lens, k_splits=K))
+
+
+@pytest.mark.parametrize("ps", [5, 12, 16])
+def test_paged_splitk_mma_kernel_ignores_nan_in_the_pool(cuda, ps):
+    """NaN in the trash page (0) and in every pool row no sequence holds
+    below its length, at page sizes that are and are not powers of two."""
+    rng = np.random.default_rng(36 + ps)
+    Hkv, G, D, K = 2, 2, 128, 8
+    nb = 8 * -(-SPLIT_S // (8 * ps))
+    lens_l = _split_lens(nb * ps, K)[:-1] + [nb * ps - 5]
+    B = len(lens_l)
+    k, v, tbl = _paged(rng, B, nb, ps, Hkv, D, lens_l, torch.bfloat16, cuda)
+    q = _q(rng, B, Hkv * G, D, torch.bfloat16, cuda)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=cuda)
+    live = torch.zeros(k.shape[0] * ps, dtype=torch.bool, device=cuda)
+    for b, n in enumerate(lens_l):
+        pos = torch.arange(n, device=cuda)
+        live[tbl[b, pos // ps].long() * ps + pos % ps] = True
+    assert not bool(live[:ps].any())               # nothing live on the trash page
+    kn, vn = _poisoned(k, ~live), _poisoned(v, ~live)
+    _same_partials(kernel.paged_splitk_partial_cuda(q, kn, vn, tbl, lens, k_splits=K),
+                   kernel.paged_splitk_partial_cuda(q, k, v, tbl, lens, k_splits=K))
+    out = kernel.decode_attention_paged_splitk_cuda(q, kn, vn, tbl, lens, k_splits=K)
+    assert bool(torch.isfinite(out).all())
+    assert torch.equal(out, kernel.decode_attention_paged_splitk_cuda(q, k, v, tbl, lens,
+                                                                      k_splits=K))
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_splitk_mma_kernel_reads_a_strided_q_view(cuda, offset):
+    """The decode step's q[:, 0]: a view of the fused projection (B, 1,
+    (Hq + 2 Hkv) D), here also 2 bytes past a 16-byte boundary."""
+    rng = np.random.default_rng(38 + offset)
+    Hkv, G, D, K = 2, 2, 128, 8
+    lens_l = _split_lens(SPLIT_S, K)
+    B = len(lens_l)
+    k, v = _kv(rng, B, SPLIT_S, Hkv, D, torch.bfloat16, cuda)
+    width = offset + (Hkv * G + 2 * Hkv) * D
+    fused = torch.as_tensor(rng.standard_normal((B, 1, width)),
+                            dtype=torch.float32).to(cuda, torch.bfloat16)
+    q = fused[:, :, offset:offset + Hkv * G * D].unflatten(-1, (Hkv * G, D))[:, 0]
+    assert not q.is_contiguous() and q.data_ptr() % 16 == 2 * offset
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=cuda)
+    qc = q.contiguous()
+    _same_partials(kernel.splitk_partial_cuda(q, k, v, lens, k_splits=K),
+                   kernel.splitk_partial_cuda(qc, k, v, lens, k_splits=K))
+    _partial_close(kernel.splitk_partial_cuda(q, k, v, lens, k_splits=K),
+                   ref.decode_attention_splitk_partial(qc, k, v, lens, k_splits=K),
+                   torch.bfloat16)
+
+
+def _device_kernels(fn, calls: int = 2) -> set:
+    """Names of the device kernels that ``calls`` calls of ``fn`` launch,
+    from a profiler trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("dtype,G,name", [
+    (torch.bfloat16, 2, "splitk_mma_kernel"),
+    (torch.bfloat16, 16, "splitk_mma_kernel"),
+    (torch.bfloat16, 32, "flash_rows_kernel"),     # past one m16 tile of rows
+    (torch.float32, 2, "flash_rows_kernel"),
+])
+def test_splitk_partial_runs_the_expected_kernel(cuda, dtype, G, name):
+    """Which kernel the split-K partial launches (contiguous and paged), by
+    the profiler's kernel names, with one count per wrapper call (two calls
+    per traced session)."""
+    rng = np.random.default_rng(40 + G)
+    Hkv, D, K, ps = 1, 128, 8, 16
+    nb = SPLIT_S // ps
+    lens_l = _split_lens(SPLIT_S, K)
+    B = len(lens_l)
+    k, v = _kv(rng, B, SPLIT_S, Hkv, D, dtype, cuda)
+    kp, vp, tbl = _paged(rng, B, nb, ps, Hkv, D, lens_l, dtype, cuda)
+    q = _q(rng, B, Hkv * G, D, dtype, cuda)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=cuda)
+    calls = (lambda: kernel.splitk_partial_cuda(q, k, v, lens, k_splits=K),
+             lambda: kernel.paged_splitk_partial_cuda(q, kp, vp, tbl, lens, k_splits=K))
+    # built and loaded outside the traced sessions, and the profiler warmed
+    # up: a process's first traced session has missed its launches
+    _device_kernels(lambda: [call() for call in calls], calls=1)
+    other = "flash_rows_kernel" if name == "splitk_mma_kernel" else "splitk_mma_kernel"
+    kernel.reset_launches()
+    for call in calls:
+        names = _device_kernels(call)
+        assert any(name in n for n in names), names
+        assert not any(other in n for n in names), names
+    assert kernel.LAUNCHES["decode_attention_splitk_partial"] == 2
+    assert kernel.LAUNCHES["decode_attention_paged_splitk_partial"] == 2
+    _partial_close(calls[0](), ref.decode_attention_splitk_partial(q, k, v, lens, k_splits=K),
+                   dtype)
+    _partial_close(calls[1](), ref.decode_attention_paged_splitk_partial(
+        q, kp, vp, tbl, lens, k_splits=K), dtype)

@@ -94,7 +94,7 @@ def test_paged_decode_plain_vs_pallas(ps):
 
 
 @pytest.mark.parametrize("k_splits", [2, 4, 8])
-@pytest.mark.parametrize("ps", [4, 8, 16])
+@pytest.mark.parametrize("ps", [4, 8, 16, 5, 12])    # 5, 12: the CUDA kernel's division path
 def test_paged_splitk_plain_vs_pallas(k_splits, ps):
     rng = np.random.default_rng(10 * k_splits + ps)
     B, Hkv, G, D, nb = 3, 2, 2, 32, 16
