@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Time the bf16 attention kernels of ``chip_smoke.py`` phase 6, and their
-SDPA yardsticks, by three methods on one card.
+SDPA yardsticks, and the bf16 WKV6 kernel, by three methods on one card.
 
     python3 attention_timing.py [--src DIR] [--label NAME]
 
@@ -11,8 +11,10 @@ the flash forward at B=1, S=2000, causal (16 q / 8 kv heads of 128,
 and 32 / 32 heads of 80), and the split-K decode partial and its pair
 (partial + combine) at K=8 over a 4096-row cache at phase 6's lengths
 (8 kv heads, G=2, D=128; 32 kv heads of 80, G=1; and D=128 through the
-pool), each pair beside the one SDPA call with its result.  Each is
-timed by
+pool), each pair beside the one SDPA call with its result; and the WKV6
+recurrence at phase 6's shape (rwkv6-7b's prefill: B=1, S=2000, 64 heads
+of 64, bf16 r/k/v/u, fp32 logw, zero state) and at phase 4g's (B=8,
+S=512), which no one PyTorch call computes.  Each is timed by
 
 - ``back_to_back``: CUDA events around ``iters`` calls made one after the
   other, after a warm-up.  For a kernel shorter than its wrapper's host
@@ -210,6 +212,23 @@ def measure() -> dict:
     out["paged_splitk_pair"] = _three_ways(
         [functools.partial(kernel.decode_attention_paged_splitk_cuda, q, kp, vp, tbl, lens,
                            k_splits=K) for kp, vp in pools], 200)
+    del pools
+
+    # WKV6 at rwkv6-7b's prefill (phase 6) and at generate's (phase 4g),
+    # from a zero state as Model.prefill calls it; logw as the model makes
+    # it, -exp of a log-decay near w0 = -2
+    from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+
+    for name, b, s in (("wkv6", 1, 2000), ("wkv6_b8", 8, 512)):
+        h, n = 64, 64
+        sets = [(_rand(gen, (b, s, h, n)), _rand(gen, (b, s, h, n)), _rand(gen, (b, s, h, n)),
+                 -torch.exp(-2.0 + 0.5 * torch.randn((b, s, h, n), generator=gen,
+                                                     device="cuda")),
+                 (0.5 * torch.randn((h, n), generator=gen, device="cuda")).to(torch.bfloat16))
+                for _ in range(RING)]
+        out[name] = _three_ways(
+            [functools.partial(wkv_kernel.wkv6_cuda, *args) for args in sets], 50)
+        del sets
     return out
 
 

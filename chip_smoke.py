@@ -10,10 +10,10 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. card: name and power limit from nvidia-smi;
 2. build: nvcc builds every kernel source of the path, one process per
-   source, all at once (printing ptxas -v); the bf16 tensor-core attention
-   kernels' registers, spills and static shared memory on a line of their
-   own (flash, mixed step and split-K partial: 11 instantiations), and no
-   instantiation may spill;
+   source, all at once (printing ptxas -v); the bf16 tensor-core kernels'
+   registers, spills and static shared memory on a line of their own
+   (flash, mixed step and split-K partial: 11 instantiations; the WKV6
+   chunk kernel: 6), and no instantiation may spill;
 3. kernels: each CUDA kernel against its plain PyTorch version at the
    serving shapes, in bf16 (atol 2e-2, and each output row's largest error
    within a tenth of that row's RMS) and fp32 (atol 2e-5, rtol 1e-3); the
@@ -29,8 +29,9 @@ Phases (any failure exits non-zero; nothing is caught):
    plain versions (the per-token recurrence and the chunk form) at atol
    5e-4, rtol 1e-3, at rwkv6-7b's prefill shape (B=1, S=2000, 64 heads of
    64, from a zero state), phase 4g's (B=8, S=512), lengths 1-700 at head
-   sizes 16, 32 and 64 from a random state, a slow decay over 2000 tokens
-   and strided views; the SSD scan against both plain versions (the
+   sizes 16, 32 and 64 from a random state, 128 heads of 32, a slow decay
+   over 2000 tokens, a strong one (log-decays of -7 to -20 a token) over
+   100 and 2000, and strided views, y and the state finite; the SSD scan against both plain versions (the
    per-step recurrence and the chunk form) at atol 5e-4, rtol 1e-3, at
    zamba2-2.7b's prefill shape (B=1, S=2000, 80 heads of P=64, N=64, zero
    state), phase 4i's (B=8, S=512), lengths 1-700 from a random state, a
@@ -101,8 +102,9 @@ Phases (any failure exits non-zero; nothing is caught):
    yardstick; no one call reads a block table or computes the WKV6 or SSD
    recurrence; ``F.rms_norm`` for the plain RMSNorm) timed with CUDA
    events over calls queued behind a sleep kernel (device time, not the
-   host's call rate), the attention kernels also at head_dim 80; bounds
-   from the bytes and operations of the inputs timed.
+   host's call rate), the attention kernels also at head_dim 80, WKV6
+   also at phase 4g's shape (B=8, S=512); bounds from the bytes and
+   operations of the inputs timed.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout
@@ -129,7 +131,10 @@ from attention_timing import time_ms  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12,
+                  # fp32 products on the tensor cores as 3xTF32: three TF32
+                  # products (495 TFLOP/s dense) per fp32 product
+                  "3xtf32": 495e12 / 3}
 TOL = {torch.float32: dict(atol=2e-5, rtol=1e-3), torch.bfloat16: dict(atol=2e-2, rtol=0.0)}
 # An output element at length L is about sqrt(e / L) in size (0.026 at
 # L=4096), so the flat bf16 atol alone would let a long-length fault pass;
@@ -178,17 +183,19 @@ def read_launches() -> dict:
 
 
 def mma_build_report(logs: dict) -> list:
-    """The tensor-core attention kernels' ptxas -v lines, per instantiation:
-    registers, spill stores and loads, static shared memory (their K/V ring
-    is dynamic shared memory, sized in each source's header note)."""
+    """The tensor-core kernels' ptxas -v lines, per instantiation:
+    registers, spill stores and loads, static shared memory (their rings
+    are dynamic shared memory, sized in each source's header note)."""
     import re
 
     rows, cur = [], None
     for log in logs.values():
         for line in log.splitlines():
-            m = re.search(r"Compiling entry function '.*?\d+([a-z_]+_mma_kernel)ILi(\d+)E", line)
+            m = re.search(r"Compiling entry function '.*?\d+((?:[a-z_]|wkv6)+_(?:mma|chunk)_kernel)"
+                          r"ILi(\d+)E(?:Li(\d+)E)?", line)
             if m:
-                cur = dict(kernel=f"{m.group(1)}<{m.group(2)}>")
+                args = ", ".join(a for a in m.group(2, 3) if a)
+                cur = dict(kernel=f"{m.group(1)}<{args}>")
                 rows.append(cur)
                 continue
             if "Compiling entry" in line:
@@ -448,12 +455,12 @@ def flash_kernel_checks(gen) -> dict:
 SCAN_TOL = dict(atol=5e-4, rtol=1e-3)
 
 
-def wkv_inputs(gen, B_, S, H, N, dtype, *, state=True, slow=False):
-    """r, k, v in ``dtype``; logw fp32 as the model makes it (-exp of a
-    log-decay near w0 = -2), or with ``slow`` near -5 (a state that keeps
-    thousands of tokens); u in ``dtype``; state0 fp32 or None."""
+def wkv_inputs(gen, B_, S, H, N, dtype, *, state=True, mu=-2.0):
+    """r, k, v in ``dtype``; logw = -exp(mu + 0.5 N(0,1)) fp32: mu = -2 as
+    the model makes it (a log-decay near w0 = -2), -5 a slow decay (a state
+    that keeps thousands of tokens), 2 or 3 a strong one (log-decays of -7
+    to -20 a token); u in ``dtype``; state0 fp32 or None."""
     r, k, v = (_rand(gen, (B_, S, H, N), dtype) for _ in range(3))
-    mu = -5.0 if slow else -2.0
     logw = -torch.exp(mu + 0.5 * _rand(gen, (B_, S, H, N), torch.float32))
     u = (0.5 * _rand(gen, (H, N), torch.float32)).to(dtype)
     s0 = _rand(gen, (B_, H, N, N), torch.float32) if state else None
@@ -464,14 +471,17 @@ def wkv6_kernel_checks(gen) -> dict:
     """The WKV6 kernel vs both plain versions (y and the final state):
     phase 4f's prefill call (B=1, S=2000, 64 heads of 64, zero state),
     phase 4g's (B=8, S=512), lengths 1-700 at N 16/32/64 from a random
-    state, a slow decay over 2000 tokens, and strided views."""
+    state, 128 heads of 32 (the bf16 chunk kernel's 32-column slices at
+    N=32), a slow decay over 2000 tokens, a strong one (mu 2 and 3) over
+    100 and 2000, and strided views."""
     from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
     from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
 
     errs = {}
-    cases = [(1, 2000, 64, 64, False, False), (8, 512, 64, 64, False, False)]
-    cases += [(2, S, 4, N, True, False) for S in (1, 17, 100, 700) for N in (16, 32, 64)]
-    cases += [(2, 2000, 4, 64, True, True)]
+    cases = [(1, 2000, 64, 64, False, -2.0), (8, 512, 64, 64, False, -2.0)]
+    cases += [(2, S, 4, N, True, -2.0) for S in (1, 17, 100, 700) for N in (16, 32, 64)]
+    cases += [(1, 150, 128, 32, True, -2.0), (2, 2000, 4, 64, True, -5.0)]
+    cases += [(2, S, 4, 64, True, mu) for mu in (2.0, 3.0) for S in (100, 2000)]
     for dtype in (torch.bfloat16, torch.float32):
         def run(name, r, k, v, logw, u, s0):
             y, st = wkv_kernel.wkv6_cuda(r, k, v, logw, u, s0)
@@ -486,9 +496,9 @@ def wkv6_kernel_checks(gen) -> dict:
                           f"{err:.3e} outside atol 5e-4 rtol 1e-3")
                     errs[str(dtype)] = max(errs.get(str(dtype), 0.0), err)
 
-        for B_, S, H, N, state, slow in cases:
-            run(f"B={B_} S={S} H={H} N={N} state={state} slow={slow}",
-                *wkv_inputs(gen, B_, S, H, N, dtype, state=state, slow=slow))
+        for B_, S, H, N, state, mu in cases:
+            run(f"B={B_} S={S} H={H} N={N} state={state} mu={mu}",
+                *wkv_inputs(gen, B_, S, H, N, dtype, state=state, mu=mu))
         # slices of a wider buffer, read in place
         fused = _rand(gen, (2, 333, 3, 4, 64), dtype)
         *_, logw, u, s0 = wkv_inputs(gen, 2, 666, 4, 64, dtype)
@@ -1414,20 +1424,43 @@ def phase_timing() -> dict:
     # WKV6 at phase 4f's longest prefill: B=1, S=2000, 64 heads of 64, bf16
     # r/k/v and u, fp32 logw, from a zero state (state0 None, as
     # Model.prefill calls it).  Bytes: r, k, v, logw, u read once, y and
-    # the final state written once; ops: 5 N^2 per token and head, fp32.
+    # the final state written once; ops: 5 N^2 per token and head, fp32,
+    # which the bf16 kernel runs on the tensor cores in 3xTF32.
     from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
     from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
 
     H, N = 64, 64
     r, k, v, logw, u, _ = wkv_inputs(gen, 1, S, H, N, dt, state=False)
     zeros = torch.zeros((1, H, N, N), device="cuda")
-    row("wkv6", torch.float32,
+    row("wkv6", "3xtf32",
         time_ms(lambda: wkv_kernel.wkv6_cuda(r, k, v, logw, u), 50),
         time_ms(lambda: wkv_ref.wkv6_chunked(r, k, v, logw, u, zeros), 5),
         3 * S * H * N * es + S * H * N * 4 + H * N * es + S * H * N * 4 + H * N * N * 4,
         5 * N * N * S * H, None,
         f"bf16 r/k/v/u, fp32 logw, B=1 S={S} H={H} N={N}, zero state; "
         "library: none (no one call computes the WKV6 recurrence)")
+    # each slice width of the bf16 kernel at this shape, beside the one
+    # kernel.chunk_cols picks (32 here): the evidence for that choice
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    by_cols = {f"B=1 S={S}": {
+        c: time_ms(lambda c=c: wkv_kernel.launch(r, k, v, logw, u, None, c), 50)
+        for c in (16, 32, 64)}}
+    out["wkv6"]["cols"] = wkv_kernel.chunk_cols(1, H, N, sms)
+    # and at phase 4g's generate prefill: B=8, S=512
+    Bg, Sg = 8, 512
+    r, k, v, logw, u, _ = wkv_inputs(gen, Bg, Sg, H, N, dt, state=False)
+    zeros = torch.zeros((Bg, H, N, N), device="cuda")
+    b_ms, by = bound_ms(Bg * (3 * Sg * H * N * es + 2 * Sg * H * N * 4 + H * N * N * 4)
+                        + H * N * es, 5 * N * N * Sg * H * Bg, "3xtf32")
+    out["wkv6"]["b8"] = dict(
+        ms=time_ms(lambda: wkv_kernel.wkv6_cuda(r, k, v, logw, u), 50),
+        plain_ms=time_ms(lambda: wkv_ref.wkv6_chunked(r, k, v, logw, u, zeros), 5),
+        bound_ms=b_ms, bound_by=by, library_ms=None, cols=wkv_kernel.chunk_cols(Bg, H, N, sms),
+        shape=f"bf16 r/k/v/u, fp32 logw, B={Bg} S={Sg} H={H} N={N}, zero state")
+    by_cols[f"B={Bg} S={Sg}"] = {
+        c: time_ms(lambda c=c: wkv_kernel.launch(r, k, v, logw, u, None, c), 50)
+        for c in (16, 32, 64)}
+    out["wkv6"]["ms_by_cols"] = by_cols
     del r, k, v, logw, u
 
     # SSD at phase 4h's longest prefill: B=1, S=2000, 80 heads of P=64, N=64,
@@ -1582,8 +1615,8 @@ def main() -> int:
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print("    " + line.strip())
     mma = mma_build_report(logs)
-    print("  tensor-core attention kernels (ptxas -v): " + json.dumps(mma), flush=True)
-    check(len(mma) == 11, f"expected 11 tensor-core kernel instantiations, found {len(mma)}")
+    print("  tensor-core kernels (ptxas -v): " + json.dumps(mma), flush=True)
+    check(len(mma) == 17, f"expected 17 tensor-core kernel instantiations, found {len(mma)}")
     for r in mma:
         check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0, f"ptxas spills: {r}")
 
@@ -1699,7 +1732,9 @@ def main() -> int:
             max_abs_err=e[str(torch.bfloat16)], max_abs_err_fp32=e[str(torch.float32)],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], shape=t["shape"],
-            **({"head_dim_80": t["d80"]} if "d80" in t else {})))
+            **({"head_dim_80": t["d80"]} if "d80" in t else {}),
+            **({"phase_4g_shape": t["b8"]} if "b8" in t else {}),
+            **({"ms_by_cols": t["ms_by_cols"]} if "ms_by_cols" in t else {})))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(name_line)
     print(json.dumps({"kernels": rows}))

@@ -3,8 +3,11 @@
 forward causal and not, windowed, with Sk > Sq, at ragged lengths 1 to
 2000, G 1, 2 and 4, head_dim 64, 80 and 128, and on strided views; the
 decode and split-K kernels also at zamba2's head_dim 80 and G 1; the WKV6
-recurrence at lengths 1 to 2000, 1 to 64 heads of 16, 32 and 64, with a
-zero or random initial state, a slow decay and strided views; the SSD scan
+recurrence at lengths 1 to 2000, 1 to 192 heads of 16, 32 and 64, with a
+zero or random initial state, a slow and a strong decay, strided views,
+every value-column slice width of the bf16 chunk kernel, and which kernel
+the profiler sees (bf16: ``wkv6_chunk_kernel``, fp32: ``wkv6_kernel``,
+one launch per call); the SSD scan
 at lengths 1 to 2000, P 32 and 64, N 16 and 64, at zamba2's prefill shape,
 with a slow decay, a random state and on strided views; the RMSNorm in
 both forms at widths 128, 2560 and 5120 over 1 to 2000 rows).
@@ -22,7 +25,8 @@ the PV product and outputs round at one ulp (2^-8 relative).  The row
 check is there because an output element at length L is only about
 sqrt(e / L) in size (0.026 at L=4096), below the flat bf16 atol.  The
 WKV6 and SSD kernels compute in fp32 from the same inputs as their plain
-versions in both dtypes, so they are held at the scan tolerance of
+versions in both dtypes (the bf16 WKV6 kernel's products in 3xTF32, about
+fp32's precision), so they are held at the scan tolerance of
 ``tests/test_kernels.py`` (atol 5e-4, rtol 1e-3) on y and the final state.
 The RMSNorm kernel and its plain version round the same fp32 function once:
 fp32 atol 2e-5 / rtol 1e-3, bf16 within one bf16 ulp (rtol 2^-7), and the
@@ -325,13 +329,13 @@ def test_flash_kernel_rejects_bad_layout(cuda):
         flash_kernel.flash_attention_cuda(q, q.double(), q)
 
 
-def _wkv_inputs(rng, B, S, H, N, dtype, dev, *, slow=False, state=True):
-    """r, k, v in ``dtype``; logw fp32 as the model makes it (-exp of a
-    log-decay near w0 = -2), or with ``slow`` near -5, where the state
-    keeps thousands of tokens; u in ``dtype``; state0 fp32 or None."""
+def _wkv_inputs(rng, B, S, H, N, dtype, dev, *, mu=-2.0, state=True):
+    """r, k, v in ``dtype``; logw = -exp(mu + 0.5 N(0,1)) fp32: mu = -2 as
+    the model makes it (a log-decay near w0 = -2), -5 a slow decay (the
+    state keeps thousands of tokens), 2 or 3 a strong one (log-decays of
+    -7 to -20 a token); u in ``dtype``; state0 fp32 or None."""
     r, k, v = (torch.as_tensor(rng.standard_normal((B, S, H, N)), dtype=torch.float32)
                .to(dev, dtype) for _ in range(3))
-    mu = -5.0 if slow else -2.0
     logw = -torch.exp(torch.as_tensor(mu + 0.5 * rng.standard_normal((B, S, H, N)),
                                       dtype=torch.float32)).to(dev)
     u = torch.as_tensor(rng.standard_normal((H, N)) * 0.5, dtype=torch.float32).to(dev, dtype)
@@ -343,6 +347,7 @@ def _wkv_inputs(rng, B, S, H, N, dtype, dev, *, slow=False, state=True):
 def _wkv_close(r, k, v, logw, u, s0):
     """The kernel against both plain versions, on y and the final state."""
     y, st = wkv_kernel.wkv6_cuda(r, k, v, logw, u, s0)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
     B, _, H, N = r.shape
     zeros = torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
     for f in (wkv_ref.wkv6_ref, wkv_ref.wkv6_chunked):
@@ -375,7 +380,31 @@ def test_wkv6_kernel_slow_decay(cuda, dtype, S):
     """logw = -exp(-5 + 0.5 N(0,1)): a fault at a token-block boundary
     cannot hide behind a short memory here."""
     rng = np.random.default_rng(S + 1)
-    _wkv_close(*_wkv_inputs(rng, 2, S, 4, 64, dtype, cuda, slow=True))
+    _wkv_close(*_wkv_inputs(rng, 2, S, 4, 64, dtype, cuda, mu=-5.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mu", [2.0, 3.0])
+@pytest.mark.parametrize("S", [100, 2000])
+def test_wkv6_kernel_strong_decay(cuda, dtype, mu, S):
+    """logw = -exp(mu + 0.5 N(0,1)), mu 2 or 3: a chunk's cumulative
+    log-decay reaches -500 to -1300, so an exponent taken as a product of a
+    growing and a shrinking factor would overflow fp32; every exponent of
+    the chunk kernel is the difference of two stored cumsums, <= 0."""
+    rng = np.random.default_rng(S + int(10 * mu))
+    _wkv_close(*_wkv_inputs(rng, 2, S, 4, 64, dtype, cuda, mu=mu))
+
+
+@pytest.mark.parametrize("B,H,N,cols", [(2, 4, 16, 16), (2, 4, 32, 16), (1, 128, 32, 32),
+                                        (2, 4, 64, 16), (1, 48, 64, 32), (3, 64, 64, 64)])
+def test_wkv6_chunk_kernel_every_slice_width(cuda, B, H, N, cols):
+    """Each (N, value columns per CTA) instantiation of the bf16 chunk
+    kernel, reached through the wrapper's own choice of slice width (the
+    same on a 114- or a 132-SM card), from a random state."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert wkv_kernel.chunk_cols(B, H, N, sms) == cols
+    rng = np.random.default_rng(B * H + N)
+    _wkv_close(*_wkv_inputs(rng, B, 150, H, N, torch.bfloat16, cuda))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -395,6 +424,24 @@ def test_wkv6_kernel_reads_strided_views(cuda, dtype):
     y_c, st_c = wkv_kernel.wkv6_cuda(r.contiguous(), k.contiguous(), v.contiguous(),
                                      logw.contiguous(), u, s0)
     assert torch.equal(y, y_c) and torch.equal(st, st_c)
+
+
+def test_wkv6_bf16_kernel_rejects_misaligned_views(cuda):
+    """The bf16 kernel stages r, k, v, logw with 16-byte copies: a view off
+    a 16-byte boundary raises, and the same view in fp32 (read by plain
+    loads) runs."""
+    B, S, H, N = 1, 40, 2, 16
+    for dtype in (torch.bfloat16, torch.float32):
+        buf = torch.zeros((B, S, H * N + 1), device=cuda, dtype=dtype)
+        x = buf[:, :, 1:].unflatten(-1, (H, N))
+        logw = torch.full((B, S, H, N), -0.1, device=cuda)
+        u = torch.zeros((H, N), device=cuda, dtype=dtype)
+        if dtype == torch.bfloat16:
+            with pytest.raises(ValueError, match="16-byte"):
+                wkv_kernel.wkv6_cuda(x, x, x, logw, u)
+        else:
+            y, _ = wkv_kernel.wkv6_cuda(x, x, x, logw, u)
+            assert bool((y == 0).all())
 
 
 def test_wkv6_dispatch_counts_launches(cuda):
@@ -998,3 +1045,36 @@ def test_splitk_partial_runs_the_expected_kernel(cuda, dtype, G, name):
                    dtype)
     _partial_close(calls[1](), ref.decode_attention_paged_splitk_partial(
         q, kp, vp, tbl, lens, k_splits=K), dtype)
+
+
+def _device_kernel_counts(fn, calls: int = 2) -> dict:
+    """Launches by device kernel name that ``calls`` calls of ``fn`` make,
+    from a profiler trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("dtype,name", [(torch.bfloat16, "wkv6_chunk_kernel<"),
+                                        (torch.float32, "wkv6_kernel<")])
+def test_wkv6_runs_the_expected_kernel(cuda, dtype, name):
+    """bf16 runs the chunked tensor-core kernel, fp32 the serial token
+    kernel, by the profiler's kernel names: exactly one device kernel per
+    wrapper call (two calls per traced session), and nothing else."""
+    rng = np.random.default_rng(41)
+    args = _wkv_inputs(rng, 1, 300, 8, 64, dtype, cuda)
+    # built and loaded outside the traced sessions, and the profiler warmed
+    # up: a process's first traced session has missed its launches
+    _device_kernel_counts(lambda: wkv_kernel.wkv6_cuda(*args), calls=1)
+    wkv_kernel.reset_launches()
+    counts = _device_kernel_counts(lambda: wkv_kernel.wkv6_cuda(*args))
+    assert len(counts) == 1 and name in next(iter(counts)), counts
+    assert next(iter(counts.values())) == 2, counts
+    assert wkv_kernel.LAUNCHES == {"wkv6": 2}
+    _wkv_close(*args)

@@ -5,8 +5,10 @@
   on the CPU) against ``wkv6_pallas(interpret=True)`` at the shapes of
   ``tests/test_kernels.py``, and against the JAX ``wkv6_ref`` and
   ``models.rwkv6.wkv_chunked`` at lengths the Pallas kernel refuses
-  (``S % min(64, S) != 0``) and with a slow decay.  Tolerance: atol 5e-4,
-  rtol 1e-3 on y and the state, as ``test_kernels.py``.
+  (``S % min(64, S) != 0``), with a slow decay and with a strong one
+  (log-decays near -20 a token; no assertion is made there about
+  ``wkv6_pallas``).  Tolerance: atol 5e-4, rtol 1e-3 on y and the state,
+  as ``test_kernels.py``.
 * ``group_norm``, ``wkv_decode``, ``time_mix``, ``channel_mix``,
   ``rwkv_layer`` (without and with a cache) and ``rwkv_layer_decode``,
   ``Model.prefill`` and ``Model.decode`` against the JAX functions:
@@ -67,13 +69,13 @@ def _j(*arrays):
 # ---------------------------------------------------------------------------
 
 
-def _wkv_inputs(seed, B, S, H, N, *, slow=False):
-    """r, k, v ~ N(0, 1); logw = -exp(0.5 N(0,1)) as ``test_kernels.py``, or
-    with ``slow`` -exp(-5 + 0.5 N(0,1)), a state that keeps thousands of
-    tokens; u ~ 0.1 N(0, 1); a random fp32 state0."""
+def _wkv_inputs(seed, B, S, H, N, *, mu=0.0):
+    """r, k, v ~ N(0, 1); logw = -exp(mu + 0.5 N(0,1)): mu = 0 as
+    ``test_kernels.py``, -5 a slow decay (a state that keeps thousands of
+    tokens), 3 a strong one (about -20 per token, so a chunk's cumulative
+    log-decay reaches about -1300); u ~ 0.1 N(0, 1); a random fp32 state0."""
     rng = np.random.default_rng(seed)
     r, k, v = (rng.standard_normal((B, S, H, N)).astype(np.float32) for _ in range(3))
-    mu = -5.0 if slow else 0.0
     logw = -np.exp(mu + 0.5 * rng.standard_normal((B, S, H, N))).astype(np.float32)
     u = (0.1 * rng.standard_normal((H, N))).astype(np.float32)
     s0 = rng.standard_normal((B, H, N, N)).astype(np.float32)
@@ -94,12 +96,19 @@ def test_wkv6_plain_vs_pallas(plain, S, H, N, chunk):
 
 
 @pytest.mark.parametrize("plain", [ref.wkv6_ref, ref.wkv6_chunked])
-@pytest.mark.parametrize("S,slow", [(1, False), (17, False), (65, False), (100, False),
-                                    (100, True)])
-def test_wkv6_plain_any_length_vs_jax(plain, S, slow):
-    """Short last chunks (17, 65, 100) the Pallas kernel refuses, held
-    against the JAX recurrence and the model's ``wkv_chunked``."""
-    args = _wkv_inputs(S + 7, 2, S, 2, 32, slow=slow)
+@pytest.mark.parametrize("S,mu", [
+    pytest.param(1, 0.0, id="1-False"), pytest.param(17, 0.0, id="17-False"),
+    pytest.param(65, 0.0, id="65-False"), pytest.param(100, 0.0, id="100-False"),
+    pytest.param(100, -5.0, id="100-True"),
+    pytest.param(100, 3.0, id="100-strong"), pytest.param(173, 3.0, id="173-strong"),
+])
+def test_wkv6_plain_any_length_vs_jax(plain, S, mu):
+    """Short last chunks (17, 65, 100, 173) the Pallas kernel refuses, held
+    against the JAX recurrence and the model's ``wkv_chunked``, at the
+    default, a slow (mu -5) and a strong (mu 3) decay.  At the strong decay
+    the chunk form's exponent a_t - cum_{t-1} must come out exactly 0: taken
+    as ``cum - w`` it is the rounding error of a large cumulative sum."""
+    args = _wkv_inputs(S + 7, 2, S, 2, 32, mu=mu)
     got = plain(*_t(*args))
     _close_pair(got, jax_wkv6_ref(*_j(*args)))
     _close_pair(got, jrwkv6.wkv_chunked(*_j(*args)))
