@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time the bf16 attention kernels of ``chip_smoke.py`` phase 6, and their
-SDPA yardsticks, and the bf16 WKV6 kernel, by three methods on one card.
+SDPA yardsticks, and the bf16 WKV6 and SSD kernels, by three methods on one
+card.
 
     python3 attention_timing.py [--src DIR] [--label NAME]
 
@@ -11,10 +12,13 @@ the flash forward at B=1, S=2000, causal (16 q / 8 kv heads of 128,
 and 32 / 32 heads of 80), and the split-K decode partial and its pair
 (partial + combine) at K=8 over a 4096-row cache at phase 6's lengths
 (8 kv heads, G=2, D=128; 32 kv heads of 80, G=1; and D=128 through the
-pool), each pair beside the one SDPA call with its result; and the WKV6
+pool), each pair beside the one SDPA call with its result; the WKV6
 recurrence at phase 6's shape (rwkv6-7b's prefill: B=1, S=2000, 64 heads
 of 64, bf16 r/k/v/u, fp32 logw, zero state) and at phase 4g's (B=8,
-S=512), which no one PyTorch call computes.  Each is timed by
+S=512); and the SSD scan at phase 6's shape (zamba2-2.7b's prefill: B=1,
+S=2000, 80 heads of P=N=64, bf16 x/B/C, fp32 dt and A, zero state) and at
+phase 4i's (B=8, S=512); no one PyTorch call computes either scan.  Each
+is timed by
 
 - ``back_to_back``: CUDA events around ``iters`` calls made one after the
   other, after a warm-up.  For a kernel shorter than its wrapper's host
@@ -228,6 +232,22 @@ def measure() -> dict:
                 for _ in range(RING)]
         out[name] = _three_ways(
             [functools.partial(wkv_kernel.wkv6_cuda, *args) for args in sets], 50)
+        del sets
+
+    # SSD at zamba2-2.7b's prefill (phase 6) and at generate's (phase 4i),
+    # from a zero state; dt as the model makes it (softplus), A = -exp(0.3 z)
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+
+    for name, b, s in (("ssd", 1, 2000), ("ssd_b8", 8, 512)):
+        h, p, n = 80, 64, 64
+        sets = [(_rand(gen, (b, s, h, p)),
+                 torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen,
+                                                          device="cuda")),
+                 -torch.exp(0.3 * torch.randn((h,), generator=gen, device="cuda")),
+                 _rand(gen, (b, s, n)), _rand(gen, (b, s, n)))
+                for _ in range(RING)]
+        out[name] = _three_ways(
+            [functools.partial(ssd_kernel.ssd_cuda, *args) for args in sets], 50)
         del sets
     return out
 

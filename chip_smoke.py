@@ -13,7 +13,8 @@ Phases (any failure exits non-zero; nothing is caught):
    source, all at once (printing ptxas -v); the bf16 tensor-core kernels'
    registers, spills and static shared memory on a line of their own
    (flash, mixed step and split-K partial: 11 instantiations; the WKV6
-   chunk kernel: 6), and no instantiation may spill;
+   chunk kernel: 6; the SSD chunk kernel: 9), and no instantiation may
+   spill;
 3. kernels: each CUDA kernel against its plain PyTorch version at the
    serving shapes, in bf16 (atol 2e-2, and each output row's largest error
    within a tenth of that row's RMS) and fp32 (atol 2e-5, rtol 1e-3); the
@@ -35,7 +36,9 @@ Phases (any failure exits non-zero; nothing is caught):
    per-step recurrence and the chunk form) at atol 5e-4, rtol 1e-3, at
    zamba2-2.7b's prefill shape (B=1, S=2000, 80 heads of P=64, N=64, zero
    state), phase 4i's (B=8, S=512), lengths 1-700 from a random state, a
-   slow decay (A about -1e-3) over 2000 tokens and strided views; the
+   slow decay (A about -1e-3) over 2000 tokens, a strong one (A = -exp(3 +
+   0.5 N(0, 1))) over 100 and 2000, the bf16 chunk kernel's edges (15, 16,
+   63, 64, 65 tokens) and strided views; the
    RMSNorm in both forms at the hybrid widths (2560, 5120) over 1, 8 and
    2000 rows (bf16 within one bf16 ulp, fp32 atol 2e-5); the decode,
    split-K and flash kernels at zamba2's head_dim 80 and G=1; poison
@@ -103,8 +106,10 @@ Phases (any failure exits non-zero; nothing is caught):
    recurrence; ``F.rms_norm`` for the plain RMSNorm) timed with CUDA
    events over calls queued behind a sleep kernel (device time, not the
    host's call rate), the attention kernels also at head_dim 80, WKV6
-   also at phase 4g's shape (B=8, S=512); bounds from the bytes and
-   operations of the inputs timed.
+   also at phase 4g's shape (B=8, S=512) and SSD at phase 4i's (B=8,
+   S=512), the bf16 WKV6 and SSD kernels at each slice width
+   (``ms_by_cols``, ``ms_by_rows``); bounds from the bytes and operations
+   of the inputs timed (the bf16 scans' flops at the 3xTF32 rate).
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout
@@ -134,7 +139,10 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12,
                   # fp32 products on the tensor cores as 3xTF32: three TF32
                   # products (495 TFLOP/s dense) per fp32 product
-                  "3xtf32": 495e12 / 3}
+                  "3xtf32": 495e12 / 3,
+                  # fp32 products with one operand exact in TF32 (a widened
+                  # bf16): the other split in two, two TF32 products each
+                  "2xtf32": 495e12 / 2}
 TOL = {torch.float32: dict(atol=2e-5, rtol=1e-3), torch.bfloat16: dict(atol=2e-2, rtol=0.0)}
 # An output element at length L is about sqrt(e / L) in size (0.026 at
 # L=4096), so the flat bf16 atol alone would let a long-length fault pass;
@@ -563,16 +571,19 @@ def head_dim_80_checks(gen) -> dict:
     return errs
 
 
-def ssd_inputs(gen, B_, S, H, P, N, dtype, *, state=True, slow=False):
+def ssd_inputs(gen, B_, S, H, P, N, dtype, *, state=True, slow=False, mu=None):
     """x, B, C in ``dtype``; dt = softplus(N(0, 1)) fp32, as the model makes
     it from its projection; A = -exp(0.3 N(0, 1)), or with ``slow`` -1e-3
     times that (a state that keeps thousands of tokens) and x scaled by
     1/16, so y keeps the scale the scan tolerance is set for (at unit x the
-    two plain versions alone differ by up to 2.9e-3 over 2000 steps);
-    state0 fp32 or None."""
+    two plain versions alone differ by up to 2.9e-3 over 2000 steps), or
+    with ``mu`` -exp(mu + 0.5 N(0, 1)) from the same draw; state0 fp32 or
+    None."""
     x = (_rand(gen, (B_, S, H, P), torch.float32) / (16.0 if slow else 1.0)).to(dtype)
     dt = torch.nn.functional.softplus(_rand(gen, (B_, S, H), torch.float32))
-    A = -(1e-3 if slow else 1.0) * torch.exp(0.3 * _rand(gen, (H,), torch.float32))
+    z = _rand(gen, (H,), torch.float32)
+    A = -torch.exp(mu + 0.5 * z) if mu is not None else (
+        -(1e-3 if slow else 1.0) * torch.exp(0.3 * z))
     Bm, Cm = _rand(gen, (B_, S, N), dtype), _rand(gen, (B_, S, N), dtype)
     s0 = _rand(gen, (B_, H, P, N), torch.float32) if state else None
     return x, dt, A, Bm, Cm, s0
@@ -582,8 +593,12 @@ def ssd_kernel_checks(gen) -> dict:
     """The SSD kernel vs both plain versions (y and the final state):
     phase 4h's prefill call (B=1, S=2000, 80 heads of 64, N=64, zero
     state), phase 4i's (B=8, S=512), lengths 1-700 at N 16 and 64 from a
-    random state, a slow decay over 2000 tokens, and strided views (x, B, C
-    slices of one conv output, as mamba2_layer passes them)."""
+    random state, a slow decay over 2000 tokens, strided views (x, B, C
+    slices of one conv output, as mamba2_layer passes them); then, on a
+    generator of their own (so the checks after them see the same inputs
+    as before), a strong decay (A = -exp(3 + 0.5 N(0, 1)), unit x) over 100
+    and 2000 tokens and the bf16 chunk kernel's edges (15, 16, 63, 64, 65
+    tokens: its 16-token sub-chunks and 64-token chunks)."""
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
@@ -613,6 +628,13 @@ def ssd_kernel_checks(gen) -> dict:
         _, dt, A, _, _, s0 = ssd_inputs(gen, 2, 666, H, P, N, dtype)
         run("strided views", conv[..., :H * P].reshape(2, 333, H, P), dt[:, ::2], A,
             conv[..., H * P:H * P + N], conv[..., H * P + N:], s0)
+    sgen = torch.Generator("cuda").manual_seed(6)
+    more = [(2, S, 4, 64, 64, True, 3.0) for S in (100, 2000)]
+    more += [(2, S, 3, 64, 64, True, None) for S in (15, 16, 63, 64, 65)]
+    for dtype in (torch.bfloat16, torch.float32):
+        for B_, S, H, P, N, state, mu in more:
+            run(f"B={B_} S={S} H={H} P={P} N={N} state={state} mu={mu}",
+                *ssd_inputs(sgen, B_, S, H, P, N, dtype, state=state, mu=mu))
     return errs
 
 
@@ -1452,7 +1474,7 @@ def phase_timing() -> dict:
     zeros = torch.zeros((Bg, H, N, N), device="cuda")
     b_ms, by = bound_ms(Bg * (3 * Sg * H * N * es + 2 * Sg * H * N * 4 + H * N * N * 4)
                         + H * N * es, 5 * N * N * Sg * H * Bg, "3xtf32")
-    out["wkv6"]["b8"] = dict(
+    out["wkv6"]["phase_4g_shape"] = dict(
         ms=time_ms(lambda: wkv_kernel.wkv6_cuda(r, k, v, logw, u), 50),
         plain_ms=time_ms(lambda: wkv_ref.wkv6_chunked(r, k, v, logw, u, zeros), 5),
         bound_ms=b_ms, bound_by=by, library_ms=None, cols=wkv_kernel.chunk_cols(Bg, H, N, sms),
@@ -1466,20 +1488,44 @@ def phase_timing() -> dict:
     # SSD at phase 4h's longest prefill: B=1, S=2000, 80 heads of P=64, N=64,
     # bf16 x/B/C, fp32 dt and A, from a zero state (as Model.prefill calls
     # it).  Bytes: x, dt, A, B, C read once, y and the final state written
-    # once; ops: 5 P N per token and head, fp32.
+    # once; ops: 5 P N per token and head, fp32, which the bf16 kernel runs
+    # on the tensor cores in two TF32 passes (x, B and C are exact in TF32).
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
     H, P, N = 80, 64, 64
+
+    def ssd_bytes(Bs, Ss):
+        return (Bs * Ss * H * P * es + 2 * Bs * Ss * N * es + Bs * Ss * H * 4 + H * 4
+                + Bs * Ss * H * P * 4 + Bs * H * P * N * 4)
+
     x, dt_, A, Bm, Cm, _ = ssd_inputs(gen, 1, S, H, P, N, dt, state=False)
     zeros = torch.zeros((1, H, P, N), device="cuda")
-    row("ssd", torch.float32,
+    row("ssd", "2xtf32",
         time_ms(lambda: ssd_kernel.ssd_cuda(x, dt_, A, Bm, Cm), 50),
         time_ms(lambda: ssd_ref.ssd_chunked(x, dt_, A, Bm, Cm, zeros), 5),
-        S * H * P * es + 2 * S * N * es + S * H * 4 + H * 4 + S * H * P * 4 + H * P * N * 4,
-        5 * P * N * S * H, None,
+        ssd_bytes(1, S), 5 * P * N * S * H, None,
         f"bf16 x/B/C, fp32 dt/A, B=1 S={S} H={H} P={P} N={N}, zero state; "
         "library: none (no one call computes the SSD recurrence)")
+    # each slice width of the bf16 kernel at this shape, beside the one
+    # kernel.chunk_rows picks (64 here): the evidence for that choice
+    by_rows = {f"B=1 S={S}": {
+        r: time_ms(lambda r=r: ssd_kernel.launch(x, dt_, A, Bm, Cm, None, r), 50)
+        for r in (16, 32, 64)}}
+    out["ssd"]["rows"] = ssd_kernel.chunk_rows(P)
+    # and at phase 4i's generate prefill: B=8, S=512
+    x, dt_, A, Bm, Cm, _ = ssd_inputs(gen, Bg, Sg, H, P, N, dt, state=False)
+    zeros = torch.zeros((Bg, H, P, N), device="cuda")
+    b_ms, by = bound_ms(ssd_bytes(Bg, Sg), 5 * P * N * Sg * H * Bg, "2xtf32")
+    out["ssd"]["phase_4i_shape"] = dict(
+        ms=time_ms(lambda: ssd_kernel.ssd_cuda(x, dt_, A, Bm, Cm), 50),
+        plain_ms=time_ms(lambda: ssd_ref.ssd_chunked(x, dt_, A, Bm, Cm, zeros), 5),
+        bound_ms=b_ms, bound_by=by, library_ms=None, rows=ssd_kernel.chunk_rows(P),
+        shape=f"bf16 x/B/C, fp32 dt/A, B={Bg} S={Sg} H={H} P={P} N={N}, zero state")
+    by_rows[f"B={Bg} S={Sg}"] = {
+        r: time_ms(lambda r=r: ssd_kernel.launch(x, dt_, A, Bm, Cm, None, r), 50)
+        for r in (16, 32, 64)}
+    out["ssd"]["ms_by_rows"] = by_rows
     del x, dt_, Bm, Cm
 
     # RMSNorm at the same prefill's rows: (2000, 2560) bf16, the plain form
@@ -1616,7 +1662,7 @@ def main() -> int:
                 print("    " + line.strip())
     mma = mma_build_report(logs)
     print("  tensor-core kernels (ptxas -v): " + json.dumps(mma), flush=True)
-    check(len(mma) == 17, f"expected 17 tensor-core kernel instantiations, found {len(mma)}")
+    check(len(mma) == 26, f"expected 26 tensor-core kernel instantiations, found {len(mma)}")
     for r in mma:
         check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0, f"ptxas spills: {r}")
 
@@ -1733,8 +1779,8 @@ def main() -> int:
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], shape=t["shape"],
             **({"head_dim_80": t["d80"]} if "d80" in t else {}),
-            **({"phase_4g_shape": t["b8"]} if "b8" in t else {}),
-            **({"ms_by_cols": t["ms_by_cols"]} if "ms_by_cols" in t else {})))
+            **{k: v for k, v in t.items()
+               if k.startswith("phase_") or k in ("ms_by_cols", "ms_by_rows")}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(name_line)
     print(json.dumps({"kernels": rows}))

@@ -4,14 +4,19 @@
 strides and alignment, allocates y and the final state with
 ``torch.empty``, launches on PyTorch's current stream without
 synchronising, raises if the launch was refused, and adds one to
-``LAUNCHES["ssd"]``.
+``LAUNCHES["ssd"]``.  bf16 inputs go to the chunked tensor-core kernel
+(``ssd_chunk_kernel``), fp32 inputs to the serial token kernel
+(``ssd_kernel``); one launch either way.
 
 x, B and C may be views with any batch and sequence strides (the kernel
 reads them in place: ``mamba2_layer`` slices them out of the conv output)
 as long as each token's (H, P) block of x and N values of B and C are
-dense and every row starts on 16 bytes (the kernel reads them as 16-byte
+dense and every row starts on 16 bytes (the kernels read them as 16-byte
 vectors).  dt may have any batch and sequence strides with its heads
 dense.
+
+The bf16 kernel runs one CTA per (batch, head, slice of the head's
+channels); ``chunk_rows`` picks the slice width from P.
 
 The library is built on the first call (``kernels._build``).  This takes
 CUDA tensors only; ``ops`` sends CPU tensors to ``ref``.
@@ -30,6 +35,7 @@ from repro_torch.kernels import _build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
 STATE_SIZES = (16, 32, 64)
 P_SLICE = 16            # channels of one head per CTA: P must be a multiple
+ROW_SLICES = (16, 32, 64)   # channels per CTA of the bf16 chunk kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches, counted where the wrapper launches and nowhere else
@@ -49,7 +55,7 @@ def _lib() -> ctypes.CDLL:
     """The built library with its C signature declared (pointers and the
     stream as ``c_void_p``, so none is cut to 32 bits)."""
     lib = _build.load(SOURCE)
-    lib.ssd_fwd.argtypes = [_I, _I, *[_P] * 8, _I, _I, _I, _I, *[_LL] * 8, _P]
+    lib.ssd_fwd.argtypes = [_I, _I, _I, *[_P] * 8, _I, _I, _I, _I, *[_LL] * 8, _P]
     lib.ssd_fwd.restype = _I
     return lib
 
@@ -103,6 +109,17 @@ def _check(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
         if not _aligned(t, (0, 1)):
             raise ValueError(f"{name} must be 16-byte aligned, with 16-byte batch and "
                              f"sequence strides: strides {t.stride()}")
+    if x.dtype == torch.bfloat16 and state0 is not None and state0.data_ptr() % 8:
+        raise ValueError("with bf16 inputs state0 must be 8-byte aligned")
+
+
+def chunk_rows(P: int) -> int:
+    """Channels per CTA of the bf16 chunk kernel: the widest of 64, 32 and
+    16 that divides P.  Each CTA walks the whole sequence and every slice
+    repeats the chunk's C . B^T, so one slice per head is the cheapest; at
+    zamba2-2.7b's shapes (P=64; B=1 and B=8, S 2000 and 512) it is also the
+    fastest of the three widths on an H100 (PERF.md, PR 20)."""
+    return next(r for r in sorted(ROW_SLICES, reverse=True) if P % r == 0)
 
 
 def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
@@ -113,19 +130,29 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tenso
     (zeros).  Returns y (B, S, H, P) fp32 and the final state (B, H, P, N)
     fp32."""
     _check(x, dt, A, Bm, Cm, state0)
+    return launch(x, dt, A, Bm, Cm, state0, chunk_rows(x.shape[-1]))
+
+
+def launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+           Cm: torch.Tensor, state0: Optional[torch.Tensor], rows: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of ``ssd_fwd`` on inputs that ``_check`` passed, with
+    ``rows`` channels per CTA of the bf16 kernel (16, 32 or 64, dividing P;
+    the fp32 kernel ignores it).  ``ssd_cuda`` passes ``chunk_rows``'s
+    width; ``chip_smoke.py`` phase 6 times every width through this."""
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=x.device)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     rc = _lib().ssd_fwd(
-        _DTYPES[x.dtype], N, x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        _DTYPES[x.dtype], N, rows, x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), None if state0 is None else state0.data_ptr(), y.data_ptr(),
         state.data_ptr(), B, S, H, P,
         x.stride(0), x.stride(1), dt.stride(0), dt.stride(1), Bm.stride(0), Bm.stride(1),
         Cm.stride(0), Cm.stride(1), torch.cuda.current_stream(x.device).cuda_stream,
     )
     if rc != 0:
-        what = "unsupported dtype/state size" if rc == -1 else f"CUDA error {rc}"
+        what = "unsupported dtype/state size/slice" if rc == -1 else f"CUDA error {rc}"
         raise RuntimeError(f"ssd launch failed: {what}")
     LAUNCHES["ssd"] += 1
     return y, state

@@ -110,8 +110,9 @@ def main(argv=None) -> int:
     legacy_prefills = 0 if engine.mixed else tel.prefills
     steps = tel.mixed_steps + tel.chunks * ecfg.decode_chunk + legacy_prefills
     # flash_fwd_mma_kernel in bf16, flash_fwd_kernel in fp32
-    # wkv6_ matches the fp32 wkv6_kernel and the bf16 wkv6_chunk_kernel
-    prefill_kernel = {"rwkv": "wkv6_", "hybrid": "ssd_kernel"}.get(cfg.family, "flash_fwd")
+    # wkv6_ matches the fp32 wkv6_kernel and the bf16 wkv6_chunk_kernel,
+    # ssd_ the fp32 ssd_kernel and the bf16 ssd_chunk_kernel
+    prefill_kernel = {"rwkv": "wkv6_", "hybrid": "ssd_"}.get(cfg.family, "flash_fwd")
     prefill_us = sum(v for k, v in kern.items() if prefill_kernel in k)
 
     # kernels per layer: one decode step over the slot batch, one prefill

@@ -9,8 +9,13 @@ every value-column slice width of the bf16 chunk kernel, and which kernel
 the profiler sees (bf16: ``wkv6_chunk_kernel``, fp32: ``wkv6_kernel``,
 one launch per call); the SSD scan
 at lengths 1 to 2000, P 32 and 64, N 16 and 64, at zamba2's prefill shape,
-with a slow decay, a random state and on strided views; the RMSNorm in
-both forms at widths 128, 2560 and 5120 over 1 to 2000 rows).
+with a slow and a strong decay, a random state, at the bf16 chunk kernel's
+edges (1, 15, 16, 17, 63, 64, 65 and 2000 tokens, 64-token chunks of
+16-token sub-chunks), every (N, channels per CTA) instantiation of it,
+the state carried across two calls, on strided views, and which kernel
+the profiler sees (bf16: ``ssd_chunk_kernel``, fp32: ``ssd_kernel``, one
+launch per call); the RMSNorm in both forms at widths 128, 2560 and 5120
+over 1 to 2000 rows).
 
 Marked ``gpu``; each test asks the ``cuda`` fixture for the card, which
 skips when ``torch.cuda.is_available()`` is false.  This file imports no
@@ -25,8 +30,8 @@ the PV product and outputs round at one ulp (2^-8 relative).  The row
 check is there because an output element at length L is only about
 sqrt(e / L) in size (0.026 at L=4096), below the flat bf16 atol.  The
 WKV6 and SSD kernels compute in fp32 from the same inputs as their plain
-versions in both dtypes (the bf16 WKV6 kernel's products in 3xTF32, about
-fp32's precision), so they are held at the scan tolerance of
+versions in both dtypes (the bf16 WKV6 and SSD kernels' products in 3xTF32,
+about fp32's precision), so they are held at the scan tolerance of
 ``tests/test_kernels.py`` (atol 5e-4, rtol 1e-3) on y and the final state.
 The RMSNorm kernel and its plain version round the same fp32 function once:
 fp32 atol 2e-5 / rtol 1e-3, bf16 within one bf16 ulp (rtol 2^-7), and the
@@ -538,10 +543,11 @@ def test_flash_kernel_vs_plain_head_dim_80_masks(cuda, dtype):
 # ---------------------------------------------------------------------------
 
 
-def _ssd_inputs(rng, B, S, H, P, N, dtype, dev, *, slow=False, state=True):
+def _ssd_inputs(rng, B, S, H, P, N, dtype, dev, *, slow=False, state=True, mu=None):
     """x, B, C ~ N(0, 1) in ``dtype``; dt = softplus(N(0, 1)) fp32; A =
     -exp(0.3 N(0, 1)), or with ``slow`` -1e-3 times that, where the state
-    keeps thousands of steps; state0 fp32 or None.  With ``slow`` x is
+    keeps thousands of steps, or with ``mu`` -exp(mu + 0.5 N(0, 1)) from the
+    same draw; state0 fp32 or None.  With ``slow`` x is
     scaled by 1/16 (exact in bf16), so y keeps the scale of the fast case
     (mean |y| ~9 rather than ~130) that the scan tolerance is set for: at
     unit x the two plain versions alone differ by up to 2.9e-3 at S=2000,
@@ -550,7 +556,9 @@ def _ssd_inputs(rng, B, S, H, P, N, dtype, dev, *, slow=False, state=True):
         return torch.as_tensor(a, dtype=torch.float32).to(dev)
     x = f32(rng.standard_normal((B, S, H, P)) / (16.0 if slow else 1.0)).to(dtype)
     dt = torch.nn.functional.softplus(f32(rng.standard_normal((B, S, H))))
-    A = -(1e-3 if slow else 1.0) * torch.exp(0.3 * f32(rng.standard_normal(H)))
+    z = f32(rng.standard_normal(H))
+    A = -torch.exp(mu + 0.5 * z) if mu is not None else (
+        -(1e-3 if slow else 1.0) * torch.exp(0.3 * z))
     Bm, Cm = (f32(rng.standard_normal((B, S, N))).to(dtype) for _ in range(2))
     s0 = f32(rng.standard_normal((B, H, P, N))) if state else None
     return x, dt, A, Bm, Cm, s0
@@ -592,6 +600,52 @@ def test_ssd_kernel_slow_decay(cuda, dtype, S):
     short memory here."""
     rng = np.random.default_rng(S + 31)
     _ssd_close(*_ssd_inputs(rng, 2, S, 4, 64, 64, dtype, cuda, slow=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [100, 2000])
+def test_ssd_kernel_strong_decay(cuda, dtype, S):
+    """A = -exp(3 + 0.5 N(0, 1)) at unit x: a 64-token chunk's cumulative
+    log-decay reaches about -2000, so an exponent taken from the chunk's
+    cumsum as a whole would carry about its rounding; the chunk kernel takes
+    every exponent from sub-chunk cumsums of at most 16 terms."""
+    rng = np.random.default_rng(S + 35)
+    _ssd_close(*_ssd_inputs(rng, 2, S, 4, 64, 64, dtype, cuda, mu=3.0))
+
+
+@pytest.mark.parametrize("mu", [None, 3.0])
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 63, 64, 65, 2000])
+def test_ssd_chunk_kernel_edges(cuda, mu, S):
+    """The bf16 chunk kernel at the edges of its 16-token sub-chunks and
+    64-token chunks (and a whole prefill), from a random state, at the
+    default and a strong decay."""
+    rng = np.random.default_rng(S + 36 + (0 if mu is None else 1000))
+    _ssd_close(*_ssd_inputs(rng, 2, S, 3, 64, 64, torch.bfloat16, cuda, mu=mu))
+
+
+@pytest.mark.parametrize("N", [16, 32, 64])
+@pytest.mark.parametrize("B,H,P,rows", [(1, 80, 64, 64), (1, 40, 32, 32), (2, 4, 48, 16)])
+def test_ssd_chunk_kernel_every_slice_width(cuda, B, H, P, N, rows):
+    """Each (N, channels per CTA) instantiation of the bf16 chunk kernel,
+    reached through the wrapper's own choice of slice width (P=48: three
+    slices of 16), from a random state."""
+    assert ssd_kernel.chunk_rows(P) == rows
+    rng = np.random.default_rng(B * H + N)
+    _ssd_close(*_ssd_inputs(rng, B, 150, H, P, N, torch.bfloat16, cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_carries_state(cuda, dtype):
+    """Two calls carrying the state (split at a token no chunk boundary
+    falls on) equal one call."""
+    rng = np.random.default_rng(37)
+    x, dt, A, Bm, Cm, s0 = _ssd_inputs(rng, 2, 300, 4, 64, 64, dtype, cuda)
+    y, st = ssd_kernel.ssd_cuda(x, dt, A, Bm, Cm, s0)
+    h = 70
+    y1, st1 = ssd_kernel.ssd_cuda(x[:, :h], dt[:, :h], A, Bm[:, :h], Cm[:, :h], s0)
+    y2, st2 = ssd_kernel.ssd_cuda(x[:, h:], dt[:, h:], A, Bm[:, h:], Cm[:, h:], st1)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y, atol=5e-4, rtol=1e-3)
+    torch.testing.assert_close(st2, st, atol=5e-4, rtol=1e-3)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -647,6 +701,18 @@ def test_ssd_kernel_rejects_bad_layout(cuda):
         ssd_kernel.ssd_cuda(x, dt, A, wide[..., :16], Cm)
     with pytest.raises(ValueError):                 # state0 of the wrong shape
         ssd_kernel.ssd_cuda(x, dt, A, Bm, Cm, s0[..., :8].contiguous())
+
+
+def test_ssd_launch_rejects_a_bad_slice(cuda):
+    """A channel slice the bf16 kernel has no instantiation for, or one that
+    does not divide P, is refused, not run."""
+    rng = np.random.default_rng(38)
+    x, dt, A, Bm, Cm, s0 = _ssd_inputs(rng, 1, 8, 2, 32, 16, torch.bfloat16, cuda)
+    ssd_kernel.reset_launches()
+    for rows in (8, 48, 64):                        # no kernel; no kernel; > P
+        with pytest.raises(RuntimeError, match="slice"):
+            ssd_kernel.launch(x, dt, A, Bm, Cm, s0, rows)
+    assert ssd_kernel.LAUNCHES == {"ssd": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -1059,6 +1125,24 @@ def _device_kernel_counts(fn, calls: int = 2) -> dict:
             fn()
         torch.cuda.synchronize()
     return {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("dtype,name", [(torch.bfloat16, "ssd_chunk_kernel<"),
+                                        (torch.float32, "ssd_kernel<")])
+def test_ssd_runs_the_expected_kernel(cuda, dtype, name):
+    """bf16 runs the chunked tensor-core kernel, fp32 the serial token
+    kernel, by the profiler's kernel names: exactly one device kernel per
+    wrapper call (two calls per traced session), and nothing else."""
+    rng = np.random.default_rng(42)
+    args = _ssd_inputs(rng, 1, 300, 8, 64, 64, dtype, cuda)
+    # built and loaded outside the traced sessions, and the profiler warmed up
+    _device_kernel_counts(lambda: ssd_kernel.ssd_cuda(*args), calls=1)
+    ssd_kernel.reset_launches()
+    counts = _device_kernel_counts(lambda: ssd_kernel.ssd_cuda(*args))
+    assert len(counts) == 1 and name in next(iter(counts)), counts
+    assert next(iter(counts.values())) == 2, counts
+    assert ssd_kernel.LAUNCHES == {"ssd": 2}
+    _ssd_close(*args)
 
 
 @pytest.mark.parametrize("dtype,name", [(torch.bfloat16, "wkv6_chunk_kernel<"),
