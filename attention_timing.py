@@ -17,8 +17,14 @@ recurrence at phase 6's shape (rwkv6-7b's prefill: B=1, S=2000, 64 heads
 of 64, bf16 r/k/v/u, fp32 logw, zero state) and at phase 4g's (B=8,
 S=512); and the SSD scan at phase 6's shape (zamba2-2.7b's prefill: B=1,
 S=2000, 80 heads of P=N=64, bf16 x/B/C, fp32 dt and A, zero state) and at
-phase 4i's (B=8, S=512); no one PyTorch call computes either scan.  Each
-is timed by
+phase 4i's (B=8, S=512); no one PyTorch call computes either scan; and
+the single-stage decode (one query per sequence, B=8, 8 kv heads, G=2,
+D=128, a 1024-row cache at phase 6's single-stage lengths) in bf16 and
+fp32, contiguous (beside SDPA in bf16) and through block tables over a
+769-page pool of 16-token pages, and in fp32 at the recovery tier's
+shape (qwen3-0.6b reduced as the JAX fleet serves it: 2 kv heads of 32,
+G=2; B=3, a 205-page pool, 34-column tables: max_len 544, lengths
+512-544).  Each is timed by
 
 - ``back_to_back``: CUDA events around ``iters`` calls made one after the
   other, after a warm-up.  For a kernel shorter than its wrapper's host
@@ -120,13 +126,15 @@ def _sdpa(q4, k, v, mask):
                                           v.transpose(1, 2), attn_mask=mask, enable_gqa=True)
 
 
-def _table(lens_np) -> tuple:
-    """Phase 6's pool size and (B, nb) table: shuffled pages, rows 5 and 6
-    sharing row 4's first 768 tokens, the trash page (0) past each length."""
-    nb = S_MAX // PAGE
-    P = 1 + -(-3 * B * nb // 2)
-    tbl = np.random.default_rng(PAGE).permutation(np.arange(1, P))[: B * nb].reshape(B, nb)
-    tbl[5:7, : 768 // PAGE] = tbl[4, : 768 // PAGE]
+def _table(lens_np, max_len: int = S_MAX, pages: int = 0) -> tuple:
+    """Phase 6's pool size (or ``pages``) and (len(lens_np), nb) table:
+    shuffled pages, rows 5 and 6 sharing row 4's first 768 tokens where
+    there are such rows, the trash page (0) past each length."""
+    b, nb = len(lens_np), max_len // PAGE
+    P = pages or 1 + -(-3 * b * nb // 2)
+    tbl = np.random.default_rng(PAGE).permutation(np.arange(1, P))[: b * nb].reshape(b, nb)
+    if b > 6:
+        tbl[5:7, : 768 // PAGE] = tbl[4, : 768 // PAGE]
     used = -(-np.asarray(lens_np) // PAGE)
     tbl[np.arange(nb)[None, :] >= used[:, None]] = 0
     return P, torch.as_tensor(tbl, dtype=torch.int32, device="cuda")
@@ -148,14 +156,14 @@ def measure() -> dict:
     # phase 6's draws, in its order: decode lengths, split-K lengths, cache
     # lengths, split-K lengths at head_dim 80
     rng = np.random.default_rng(2)
-    rng.integers(16, 1024 + 1, B)
+    single_np = rng.integers(16, 1024 + 1, B)
     lens_np = rng.integers(16, 2033, B)
     cl_np = rng.integers(0, W - Q + 1, B)
     lens80_np = rng.integers(16, 2033, B)
     cl = torch.as_tensor(cl_np, dtype=torch.int32, device="cuda")
     lens80 = torch.as_tensor(lens80_np, dtype=torch.int32, device="cuda")
     out = {"cache_lens": cl_np.tolist(), "lengths": lens_np.tolist(),
-           "lengths_d80": lens80_np.tolist()}
+           "lengths_d80": lens80_np.tolist(), "single_stage_lengths": single_np.tolist()}
 
     qm = _rand(gen, (B, Q, HKV * G, D))
     caches = [(_rand(gen, (B, S_MAX, HKV, D))[:, :W], _rand(gen, (B, S_MAX, HKV, D))[:, :W])
@@ -249,6 +257,56 @@ def measure() -> dict:
         out[name] = _three_ways(
             [functools.partial(ssd_kernel.ssd_cuda, *args) for args in sets], 50)
         del sets
+
+    # the single-stage decode at phase 6's shape (a 1024-row cache, or 64
+    # columns of 16 over a 769-page pool) in both dtypes, and at the
+    # recovery tier's (B=3, 2 kv heads of 32, 34 columns over a 205-page
+    # pool) in fp32
+    out.update(_single_stage(gen, kernel, single_np))
+    return out
+
+
+def _single_stage(gen, kernel, lens_np) -> dict:
+    out = {}
+    S = 1024
+    lens = torch.as_tensor(lens_np, dtype=torch.int32, device="cuda")
+    _, tbl = _table(lens_np, S)
+    P = 1 + -(-3 * B * (S // PAGE) // 2)
+    for dt, tag in ((torch.bfloat16, ""), (torch.float32, "_fp32")):
+        def rand(shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+        q = rand((B, HKV * G, D))
+        caches = [(rand((B, S, HKV, D)), rand((B, S, HKV, D))) for _ in range(RING)]
+        out["decode" + tag] = _three_ways(
+            [functools.partial(kernel.decode_attention_cuda, q, k, v, lens) for k, v in caches],
+            200)
+        if dt == torch.bfloat16:
+            mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+            out["decode_sdpa"] = _three_ways(
+                [functools.partial(_sdpa, q[:, None], k, v, mask) for k, v in caches], 50)
+        del caches
+        pools = [(rand((P, PAGE, HKV, D)), rand((P, PAGE, HKV, D))) for _ in range(RING)]
+        out["decode_paged" + tag] = _three_ways(
+            [functools.partial(kernel.decode_attention_paged_cuda, q, kp, vp, tbl, lens)
+             for kp, vp in pools], 200)
+        del pools
+    Bt, St = 3, 544
+    tier_np = np.random.default_rng(21).integers(512, St + 1, Bt)
+    Pt = 1 + 2 * Bt * (St // PAGE)
+    _, ttbl = _table(tier_np, St, Pt)
+    tlens = torch.as_tensor(tier_np, dtype=torch.int32, device="cuda")
+    Ht, Dt = 2, 32
+
+    def rand32(shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    q = rand32((Bt, Ht * G, Dt))
+    pools = [(rand32((Pt, PAGE, Ht, Dt)), rand32((Pt, PAGE, Ht, Dt))) for _ in range(RING)]
+    out["decode_paged_tier_fp32"] = _three_ways(
+        [functools.partial(kernel.decode_attention_paged_cuda, q, kp, vp, ttbl, tlens)
+         for kp, vp in pools], 200)
+    out["tier_lengths"] = tier_np.tolist()
     return out
 
 

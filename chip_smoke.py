@@ -10,11 +10,16 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. card: name and power limit from nvidia-smi;
 2. build: nvcc builds every kernel source of the path, one process per
-   source, all at once (printing ptxas -v); the bf16 tensor-core kernels'
+   source, all at once (printing ptxas -v); the redesigned kernels'
    registers, spills and static shared memory on a line of their own
    (flash, mixed step and split-K partial: 11 instantiations; the WKV6
-   chunk kernel: 6; the SSD chunk kernel: 9), and no instantiation may
-   spill;
+   chunk kernel: 6; the SSD chunk kernel: 9; the single-stage decode's
+   cluster kernels: 4 bf16, 8 fp32), and no instantiation may spill;
+   the single-stage decode's dynamic shared memory and how many of its
+   clusters the card holds at once (cudaOccupancyMaxActiveClusters), for
+   each dtype, head dim and cluster size C the chooser can return (at
+   least one each; at C = 1, the SMs times the CTAs an SM holds that
+   ``kernel.CLUSTER_CTAS_PER_SM`` gives the chooser);
 3. kernels: each CUDA kernel against its plain PyTorch version at the
    serving shapes, in bf16 (atol 2e-2, and each output row's largest error
    within a tenth of that row's RMS) and fp32 (atol 2e-5, rtol 1e-3); the
@@ -50,6 +55,12 @@ Phases (any failure exits non-zero; nothing is caught):
    4b's pool) leave the output finite and bit-equal to the clean run's;
    the bf16 paged split-K also at page sizes 5 and 12 (the kernel's
    division path); every empty split chunk is the identity state exactly;
+   the single-stage decode (one launch split over a thread-block cluster)
+   at the recovery tier's shape (B=3, max_len 544, qwen3-0.6b reduced as
+   the JAX fleet serves it: 2 kv heads of 32, G 2; paged and contiguous,
+   lengths at its chunk edges) in both dtypes, and with NaN past every
+   length (qwen3's and zamba2's heads) and in every pool row of the
+   tier's pool not held;
 4. serve: EngineClient serves full-width qwen3-0.6b (28 layers, bf16,
    seeded random weights) at the default EngineConfig: 16 requests,
    prompts 16..2000 tokens, 32 new tokens each; launch counters are
@@ -67,6 +78,12 @@ Phases (any failure exits non-zero; nothing is caught):
    hits run Model.prefill_paged, repeats hit with copy-on-write; every page
    released after the drain;
 4e. generate: ServingEngine.generate at B=8, prompt 512, 32 steps;
+4j. serve below the split-K threshold: phase 4's model at
+   EngineConfig(max_len=1536), mixed admission, 8 requests (prompts
+   16..1400, 32 new tokens): every decode step runs the bf16 single-stage
+   cluster kernel, its launches held to layers x decode steps exactly, and
+   no kernel but it and the mixed step may launch;
+4k. the same over the paged pool (the paged single-stage decode);
 4f. serve rwkv6-7b: EngineClient serves full-width rwkv6-7b (32 layers,
    d 4096, 64 heads of 64, d_ff 14336, vocab 65536, bf16, seeded random
    weights, 15.2 GB) at the default EngineConfig, which falls to legacy
@@ -87,7 +104,8 @@ Phases (any failure exits non-zero; nothing is caught):
 5. card vs CPU: the same kind of traffic at fp32 (full width, 4 layers,
    max_len 1024, prompts up to 900) on the card and on the CPU (plain
    versions); greedy streams must agree token for token, or each first
-   divergence must be a near-tie, printed with its logit margin;
+   divergence must be a near-tie, printed with its logit margin; the
+   single-stage decode's launches are held to layers x decode steps;
 5b. card vs CPU, paged: the same check over paged_kv=True with
    shared-prefix traffic (single-stage paged decode: 64 pages of 16);
 5c. legacy vs mixed on the card: phases 5 and 5b's traffic at fp32 through
@@ -108,8 +126,12 @@ Phases (any failure exits non-zero; nothing is caught):
    host's call rate), the attention kernels also at head_dim 80, WKV6
    also at phase 4g's shape (B=8, S=512) and SSD at phase 4i's (B=8,
    S=512), the bf16 WKV6 and SSD kernels at each slice width
-   (``ms_by_cols``, ``ms_by_rows``); bounds from the bytes and operations
-   of the inputs timed (the bf16 scans' flops at the 3xTF32 rate).
+   (``ms_by_cols``, ``ms_by_rows``), the single-stage decode also in
+   bf16 (beside SDPA) and in fp32 at the recovery tier's shape (B=3, 2
+   kv heads of 32, paged, max_len 544), each at every cluster size
+   (``ms_by_cluster``); bounds
+   from the bytes and operations of the inputs timed (the bf16 scans'
+   flops at the 3xTF32 rate).
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout
@@ -191,7 +213,8 @@ def read_launches() -> dict:
 
 
 def mma_build_report(logs: dict) -> list:
-    """The tensor-core kernels' ptxas -v lines, per instantiation:
+    """The redesigned kernels' ptxas -v lines, per instantiation (the
+    tensor-core kernels and the fp32 single-stage cluster kernel):
     registers, spill stores and loads, static shared memory (their rings
     are dynamic shared memory, sized in each source's header note)."""
     import re
@@ -199,8 +222,8 @@ def mma_build_report(logs: dict) -> list:
     rows, cur = [], None
     for log in logs.values():
         for line in log.splitlines():
-            m = re.search(r"Compiling entry function '.*?\d+((?:[a-z_]|wkv6)+_(?:mma|chunk)_kernel)"
-                          r"ILi(\d+)E(?:Li(\d+)E)?", line)
+            m = re.search(r"Compiling entry function '.*?\d+((?:[a-z_]|wkv6)+_(?:mma|chunk)_kernel"
+                          r"|cluster_f32_kernel)ILi(\d+)E(?:Li(\d+)E)?", line)
             if m:
                 args = ", ".join(a for a in m.group(2, 3) if a)
                 cur = dict(kernel=f"{m.group(1)}<{args}>")
@@ -405,7 +428,65 @@ def phase_kernels() -> dict:
             errs[name][dt] = max(errs[name].get(dt, 0.0), err)
     errs["ssd"] = ssd_kernel_checks(gen)
     errs.update(rmsnorm_kernel_checks(gen))
+    # a generator of its own, so the checks before it keep their inputs
+    for name, e in single_stage_checks(torch.Generator("cuda").manual_seed(7)).items():
+        for dt, err in e.items():
+            errs[name][dt] = max(errs[name].get(dt, 0.0), err)
     torch.cuda.synchronize()
+    return errs
+
+
+# the recovery fleet's tier (the JAX package's fleet/runtime.py:
+# build_recovery_fleet, whose engines serve get_config(arch).reduce(),
+# :578; the port has no fleet): 3 slots, max_len 544, paged, qwen3-0.6b
+# reduced to fp32 with 2 kv heads of 32 and G 2: clusters of 4 CTAs
+TIER_B, TIER_S = 3, 544
+TIER_HKV, TIER_G, TIER_D = 2, 2, 32
+
+
+def tier_inputs(gen, lens_np, dtype):
+    """The tier's pool (1 + 2·B·nb pages of 16, as the recovery fleet sizes
+    it) and (B, nb) tables of shuffled pages, the trash page past each length."""
+    nb = TIER_S // PAGE
+    P = 1 + 2 * TIER_B * nb
+    kp, vp = (_rand(gen, (P, PAGE, TIER_HKV, TIER_D), dtype) for _ in range(2))
+    tbl = np.random.default_rng(TIER_S).permutation(np.arange(1, P))[: TIER_B * nb]
+    tbl = tbl.reshape(TIER_B, nb)
+    tbl[np.arange(nb)[None, :] >= -(-np.asarray(lens_np) // PAGE)[:, None]] = 0
+    return kp, vp, torch.as_tensor(tbl, dtype=torch.int32, device="cuda")
+
+
+def single_stage_checks(gen) -> dict:
+    """The single-stage decode at the recovery tier's shape (B=3, 2 kv
+    heads of 32, G 2, max_len 544: clusters of 4 CTAs over 128, 128, 128
+    and 160 keys), paged and contiguous, in its fp32 and in bf16, at
+    lengths on each side of every chunk edge; its poison checks are in
+    poison_checks."""
+    from repro_torch.kernels.decode_attention import kernel, ref
+
+    errs = {"decode_attention": {}, "decode_attention_paged": {}}
+    for dt in (torch.bfloat16, torch.float32):
+        C = kernel.cluster_split(TIER_S, TIER_B * TIER_HKV,
+                                 kernel.CLUSTER_CTAS_PER_SM[dt][TIER_D])
+        check(C == 4, f"the tier's cluster is {C} CTAs, not 4 ({dt})")
+    edges = [1, 127, 128, 129, 255, 256, 257, 383, 384, 385, 543, 544]
+    for dtype in (torch.bfloat16, torch.float32):
+        for i in range(0, len(edges), TIER_B):
+            lens_np = np.array(edges[i:i + TIER_B])
+            lens = torch.as_tensor(lens_np, dtype=torch.int32, device="cuda")
+            q = _rand(gen, (TIER_B, TIER_HKV * TIER_G, TIER_D), dtype)
+            kp, vp, tbl = tier_inputs(gen, lens_np, dtype)
+            err = _close(f"decode_attention_paged tier lengths={lens_np.tolist()}",
+                         kernel.decode_attention_paged_cuda(q, kp, vp, tbl, lens),
+                         ref.decode_attention_paged(q, kp, vp, tbl, lens), dtype)
+            errs["decode_attention_paged"][str(dtype)] = max(
+                errs["decode_attention_paged"].get(str(dtype), 0.0), err)
+            k, v = (_rand(gen, (TIER_B, TIER_S, TIER_HKV, TIER_D), dtype) for _ in range(2))
+            err = _close(f"decode_attention tier lengths={lens_np.tolist()}",
+                         kernel.decode_attention_cuda(q, k, v, lens),
+                         ref.decode_attention(q, k, v, lens), dtype)
+            errs["decode_attention"][str(dtype)] = max(
+                errs["decode_attention"].get(str(dtype), 0.0), err)
     return errs
 
 
@@ -771,6 +852,34 @@ def poison_checks(gen) -> list:
                lambda k_, v_: kernel.decode_attention_paged_splitk_cuda(q, k_, v_, tbl, lens,
                                                                         k_splits=K),
                _nan_rows(kp, ~live), _nan_rows(vp, ~live), kp, vp)
+
+    # the single-stage decode, both dtypes: NaN past every length of the
+    # cache (qwen3's heads over 1024 keys, zamba2's over 512) and in every
+    # row of the recovery tier's pool not held below a length
+    for dtype in (torch.bfloat16, torch.float32):
+        for hkv, g, d, s_ in ((HKV, G, D, 1024), (Z_H, 1, Z_D, 512)):
+            lens1 = torch.as_tensor([1, 127, 128, 129, 300, 511, 512, s_][:B], dtype=torch.int32,
+                                    device="cuda")
+            k, v = _rand(gen, (B, s_, hkv, d), dtype), _rand(gen, (B, s_, hkv, d), dtype)
+            q = _rand(gen, (B, hkv * g, d), dtype)
+            dead1 = (torch.arange(s_, device="cuda")[None, :] >= lens1[:, None]).reshape(-1)
+            same(f"decode_attention B={B} S={s_} Hkv={hkv} G={g} D={d} {dtype}",
+                 kernel.decode_attention_cuda(q, _nan_rows(k, dead1), _nan_rows(v, dead1), lens1),
+                 kernel.decode_attention_cuda(q, k, v, lens1))
+            del k, v
+        tier_np = np.array([129, 384, 543])
+        kp, vp, tbl = tier_inputs(gen, tier_np, dtype)
+        live = torch.zeros(kp.shape[0] * PAGE, dtype=torch.bool, device="cuda")
+        for b, n in enumerate(tier_np):
+            pos = torch.arange(int(n), device="cuda")
+            live[tbl[b, pos // PAGE].long() * PAGE + pos % PAGE] = True
+        check(not bool(live[:PAGE].any()), "poison: the trash page holds live keys")
+        q = _rand(gen, (TIER_B, TIER_HKV * TIER_G, TIER_D), dtype)
+        lens1 = torch.as_tensor(tier_np, dtype=torch.int32, device="cuda")
+        same(f"decode_attention_paged tier pool={kp.shape[0]}x{PAGE} {dtype}",
+             kernel.decode_attention_paged_cuda(q, _nan_rows(kp, ~live), _nan_rows(vp, ~live),
+                                                tbl, lens1),
+             kernel.decode_attention_paged_cuda(q, kp, vp, tbl, lens1))
     return done
 
 
@@ -963,6 +1072,60 @@ def phase_serve(name_line: str, model, *, paged: bool, legacy: bool = False) -> 
     return out
 
 
+# a served max_len below ops' split-K threshold (2048 keys): every decode
+# step of every layer runs the single-stage cluster kernel
+SINGLE_MAX_LEN = 1536
+
+
+def check_decode_launches(launches: dict, engine, layers: int, name: str, label: str) -> None:
+    """One ``name`` launch per layer per decode step: the engine's decode
+    chunks times ``decode_chunk`` steps each."""
+    steps = engine.telemetry.chunks * max(1, engine.cfg.decode_chunk)
+    check(launches[name] == layers * steps,
+          f"{label}: {launches[name]} {name} launches for {steps} decode steps of "
+          f"{layers} layers")
+
+
+def phase_serve_single(name_line: str, model, *, paged: bool) -> dict:
+    """Phase 4j (contiguous) or 4k (paged): the full-width bf16 model at
+    EngineConfig(max_len=1536), mixed admission: 8 requests, prompts
+    16..1400 tokens, 32 new tokens each.  Prefill runs the mixed step;
+    every decode step of every layer runs the single-stage decode, whose
+    launches are held to their exact number; no other kernel may launch."""
+    from repro_torch.serving import EngineConfig
+
+    cfg = model.cfg
+    dev = model.device
+    ecfg = EngineConfig(max_len=SINGLE_MAX_LEN, paged_kv=paged)
+    label = "serve single-stage" + (" paged" if paged else "")
+    rng = np.random.default_rng(2)
+    serve(model, ecfg, prompts_for(rng, 2, 16, 64, cfg.vocab_size), 4, dev)   # warm-up
+    free_memory()
+    prompts = prompts_for(rng, 8, 16, 1400, cfg.vocab_size)
+    max_new = 32
+    reset_launches()
+    handles, wall, engine = serve(model, ecfg, prompts, max_new, dev)
+    launches = read_launches()
+    check_handles(handles, engine, max_new, cfg.vocab_size, label)
+    decode, mixed = (("decode_attention_paged", "mixed_attention_paged") if paged
+                     else ("decode_attention", "mixed_attention"))
+    check_decode_launches(launches, engine, cfg.n_layers, decode, label)
+    check(launches[mixed] > 0, f"{label}: kernel {mixed} never launched on the main path")
+    for k_, n in launches.items():
+        check(k_ in (decode, mixed) or n == 0, f"{label}: kernel {k_} launched {n} times")
+    tel = engine.telemetry
+    if paged:
+        al = handles[0]._client.session.allocator
+        check(al.live_pages == 0, f"{label}: {al.live_pages} pages still live after the drain")
+    return dict(requests=len(handles), layers=cfg.n_layers, dtype=cfg.dtype,
+                max_len=ecfg.max_len, max_new=max_new,
+                prompt_tokens=int(sum(len(p) for p in prompts)),
+                generated_tokens=int(sum(len(h.result()) for h in handles)),
+                wall_s=wall, tokens_per_s=sum(len(h.result()) for h in handles) / wall,
+                mixed_steps=tel.mixed_steps, decode_chunks=tel.chunks,
+                decode_chunk=ecfg.decode_chunk, launches=launches, card=name_line)
+
+
 def phase_generate(name_line: str, model) -> dict:
     """Phase 4e: ServingEngine.generate at B=8, prompt 512, 32 steps."""
     from repro_torch.serving import EngineConfig
@@ -1024,6 +1187,8 @@ def phase_card_vs_cpu(cpu_model, card_model, *, paged: bool) -> tuple:
     for k_ in (("decode_attention_paged", "mixed_attention_paged") if paged
                else ("decode_attention", "mixed_attention")):
         check(launches[k_] > 0, f"{label}: kernel {k_} never launched")
+    check_decode_launches(launches, card_eng, cfg.n_layers,
+                          "decode_attention_paged" if paged else "decode_attention", label)
     cpu_h, cpu_wall, cpu_eng = serve(cpu_model, ecfg, prompts, max_new, torch.device("cpu"))
     check_handles(card_h, card_eng, max_new, cfg.vocab_size, f"{label} card fp32")
     check_handles(cpu_h, cpu_eng, max_new, cfg.vocab_size, f"{label} cpu fp32")
@@ -1326,13 +1491,15 @@ def phase_timing() -> dict:
         """The int32 table entries of the pages that hold keys below each length."""
         return 4 * int((-(-np.asarray(lengths) // ps)).sum())
 
-    # single-stage decode, contiguous and paged: their main path is the fp32
-    # max_len=1024 serving run (64 columns of 16 over a 769-page pool)
+    # single-stage decode, contiguous and paged: the fp32 max_len=1024
+    # serving run of phases 5 and 5b (64 columns of 16 over a 769-page
+    # pool); the bf16 rows and each cluster size are timed at the end
     dt, S = torch.float32, 1024
     es = torch.finfo(dt).bits // 8
     k, v = _rand(gen, (B, S, HKV, D), dt), _rand(gen, (B, S, HKV, D), dt)
     q = _rand(gen, (B, HKV * G, D), dt)
     lens_np = rng.integers(16, S + 1, B)
+    single_np = lens_np
     lens = torch.as_tensor(lens_np, dtype=torch.int32, device="cuda")
     mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
     keys = int(lens_np.sum())
@@ -1591,7 +1758,83 @@ def phase_timing() -> dict:
           time_ms(lambda: ref.splitk_combine(m, l, acc, dt), 50),
           part_bytes + B * Hq * Dz * es, B * Hk * K * (3 * Dz + 4),
           None, f"fp32 partials B={B} Hkv={Hk} K={K} G=1 D={Dz} -> bf16")
+    del k, v
+
+    single_stage_timing(out, single_np, table_bytes)
     return out
+
+
+def single_stage_timing(out: dict, lens_np, table_bytes) -> None:
+    """The single-stage decode in bf16 at phase 6's shape (B=8, S=1024,
+    the fp32 rows' lengths; beside SDPA) and in fp32 at the recovery
+    tier's (B=3, 2 kv heads of 32, G 2, paged, max_len 544, lengths
+    512-544), each at every cluster size the chooser can return
+    (``ms_by_cluster``, with ``cluster`` the one it picks); the fp32 rows
+    at every cluster size too.  A generator of its own, so the rows before
+    keep their inputs."""
+    from repro_torch.kernels.decode_attention import kernel, ref
+
+    gen = torch.Generator("cuda").manual_seed(8)
+    sizes = (1, 2, 4, 8)
+    no_call = "none (no one call reads a block table)"
+    S = 1024
+    lens = torch.as_tensor(lens_np, dtype=torch.int32, device="cuda")
+    keys = int(np.asarray(lens_np).sum())
+    mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    for dt in (torch.bfloat16, torch.float32):
+        es = torch.finfo(dt).bits // 8
+        k, v = _rand(gen, (B, S, HKV, D), dt), _rand(gen, (B, S, HKV, D), dt)
+        q = _rand(gen, (B, HKV * G, D), dt)
+        kp, vp, tbl = paged_inputs(gen, lens_np, PAGE, dt, S)
+        nbytes = 2 * keys * HKV * D * es + 2 * B * HKV * G * D * es + 4 * B
+        by = {name: {c: time_ms(lambda c=c: call(cluster=c), 200) for c in sizes}
+              for name, call in (
+                  ("decode_attention", lambda **kw: kernel.decode_attention_cuda(
+                      q, k, v, lens, **kw)),
+                  ("decode_attention_paged", lambda **kw: kernel.decode_attention_paged_cuda(
+                      q, kp, vp, tbl, lens, **kw)))}
+        picked = kernel.cluster_split(S, B * HKV, kernel.CLUSTER_CTAS_PER_SM[dt][D])
+        if dt == torch.float32:
+            for name in by:
+                out[name].update(ms_by_cluster=by[name], cluster=picked)
+            continue
+        for name, ms, plain, extra, lib in (
+                ("decode_attention", time_ms(lambda: kernel.decode_attention_cuda(q, k, v, lens),
+                                             200),
+                 time_ms(lambda: ref.decode_attention(q, k, v, lens), 20), 0,
+                 time_ms(lambda: _sdpa(q[:, None], k, v, mask), 50)),
+                ("decode_attention_paged", time_ms(
+                    lambda: kernel.decode_attention_paged_cuda(q, kp, vp, tbl, lens), 200),
+                 time_ms(lambda: ref.decode_attention_paged(q, kp, vp, tbl, lens), 20),
+                 table_bytes(lens_np), None)):
+            b_ms, bound_by = bound_ms(nbytes + extra, 4 * keys * HKV * G * D, dt)
+            out[name]["bf16"] = dict(
+                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=bound_by, library_ms=lib,
+                ms_by_cluster=by[name], cluster=picked,
+                shape=f"bf16 B={B} S={S} Hkv={HKV} G={G} D={D} lengths={list(map(int, lens_np))}"
+                      + ("" if lib is not None else f"; pool {kp.shape[0]}x{PAGE} tables "
+                         f"({B},{tbl.shape[1]}); library: {no_call}"))
+        del k, v, kp, vp
+
+    # the recovery tier: B=3, paged, max_len 544 (clusters of 4), fp32
+    dt, es = torch.float32, 4
+    hk, g, d = TIER_HKV, TIER_G, TIER_D
+    tier_np = np.random.default_rng(21).integers(512, TIER_S + 1, TIER_B)
+    tlens = torch.as_tensor(tier_np, dtype=torch.int32, device="cuda")
+    kp, vp, tbl = tier_inputs(gen, tier_np, dt)
+    q = _rand(gen, (TIER_B, hk * g, d), dt)
+    tkeys = int(tier_np.sum())
+    b_ms, bound_by = bound_ms(2 * tkeys * hk * d * es + 2 * TIER_B * hk * g * d * es
+                              + 4 * TIER_B + table_bytes(tier_np), 4 * tkeys * hk * g * d, dt)
+    out["decode_attention_paged"]["phase_tier_shape"] = dict(
+        ms=time_ms(lambda: kernel.decode_attention_paged_cuda(q, kp, vp, tbl, tlens), 200),
+        plain_ms=time_ms(lambda: ref.decode_attention_paged(q, kp, vp, tbl, tlens), 20),
+        bound_ms=b_ms, bound_by=bound_by, library_ms=None,
+        ms_by_cluster={c: time_ms(lambda c=c: kernel.decode_attention_paged_cuda(
+            q, kp, vp, tbl, tlens, cluster=c), 200) for c in sizes},
+        cluster=kernel.cluster_split(TIER_S, TIER_B * hk, kernel.CLUSTER_CTAS_PER_SM[dt][d]),
+        shape=f"fp32 B={TIER_B} pool {kp.shape[0]}x{PAGE} tables ({TIER_B},{tbl.shape[1]}) "
+              f"Hkv={hk} G={g} D={d} lengths={tier_np.tolist()}; library: {no_call}")
 
 
 # --------------------------------------------------------------------------
@@ -1615,13 +1858,13 @@ REPLACES = {
 ZAMBA2_PHASES = ("serve_zamba2", "generate_zamba2")
 LAUNCH_PHASES = {
     "flash_attention": ("serve_legacy", "serve_legacy_paged", "generate") + ZAMBA2_PHASES,
-    "decode_attention": ("card_vs_cpu",),
+    "decode_attention": ("serve_single", "card_vs_cpu", "zamba2_card_vs_cpu"),
     "decode_attention_splitk_partial": ("serve",) + ZAMBA2_PHASES,
     "decode_attention_splitk_combine": ("serve", "serve_paged") + ZAMBA2_PHASES,
-    "mixed_attention": ("serve",),
-    "decode_attention_paged": ("card_vs_cpu_paged",),
+    "mixed_attention": ("serve", "serve_single"),
+    "decode_attention_paged": ("serve_single_paged", "card_vs_cpu_paged"),
     "decode_attention_paged_splitk_partial": ("serve_paged",),
-    "mixed_attention_paged": ("serve_paged", "serve_legacy_paged"),
+    "mixed_attention_paged": ("serve_paged", "serve_legacy_paged", "serve_single_paged"),
     "wkv6": ("serve_rwkv", "generate_rwkv"),
     "ssd": ZAMBA2_PHASES,
     "rmsnorm": ZAMBA2_PHASES,
@@ -1662,9 +1905,24 @@ def main() -> int:
                 print("    " + line.strip())
     mma = mma_build_report(logs)
     print("  tensor-core kernels (ptxas -v): " + json.dumps(mma), flush=True)
-    check(len(mma) == 26, f"expected 26 tensor-core kernel instantiations, found {len(mma)}")
+    check(len(mma) == 38, f"expected 38 redesigned kernel instantiations, found {len(mma)}")
     for r in mma:
         check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0, f"ptxas spills: {r}")
+    occ = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dt in (torch.bfloat16, torch.float32):
+        for d in kernel.HEAD_DIMS:
+            for c in (1, 2, 4, 8):
+                n, smem = kernel.cluster_occupancy(dt, d, 1 if d == Z_D else G, c)
+                check(n >= 1, f"no cluster of {c} single-stage CTAs ({dt}, D={d}) fits the card")
+                occ[f"{str(dt)[6:]} D={d} C={c}"] = dict(clusters=n, dynamic_smem_bytes=smem)
+                # the chooser's budget: CLUSTER_CTAS_PER_SM CTAs on each SM
+                per_sm = kernel.CLUSTER_CTAS_PER_SM[dt][d]
+                check(c > 1 or n == sms * per_sm,
+                      f"{n} single-stage CTAs ({dt}, D={d}) fit {sms} SMs at once, "
+                      f"not the {per_sm} an SM that cluster_split assumes")
+    print("  single-stage decode clusters resident at once (G=1 at D=80, else 2): "
+          + json.dumps(occ), flush=True)
 
     t0 = time.perf_counter()
     errs = phase_kernels()
@@ -1691,6 +1949,14 @@ def main() -> int:
     free_memory()
     print(f"[4e/6] generate at full width in {time.perf_counter() - t0:.1f} s: "
           + json.dumps(runs["generate"]), flush=True)
+    for key, tag, paged in (("serve_single", "4j", False), ("serve_single_paged", "4k", True)):
+        t0 = time.perf_counter()
+        runs[key] = phase_serve_single(name_line, model, paged=paged)
+        free_memory()
+        print(f"[{tag}/6] served full-width qwen3-0.6b at max_len {SINGLE_MAX_LEN} "
+              f"({'paged ' if paged else ''}single-stage decode) in "
+              f"{time.perf_counter() - t0:.1f} s on {name_line}: " + json.dumps(runs[key]),
+              flush=True)
     del model
     free_memory()
 
@@ -1780,7 +2046,8 @@ def main() -> int:
             library_ms=t["library_ms"], shape=t["shape"],
             **({"head_dim_80": t["d80"]} if "d80" in t else {}),
             **{k: v for k, v in t.items()
-               if k.startswith("phase_") or k in ("ms_by_cols", "ms_by_rows")}))
+               if k.startswith("phase_") or k in ("ms_by_cols", "ms_by_rows", "ms_by_cluster",
+                                                  "cluster", "bf16")}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(name_line)
     print(json.dumps({"kernels": rows}))

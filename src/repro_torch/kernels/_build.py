@@ -15,14 +15,24 @@ tests import every module of the port on a machine without ``nvcc``.
 ``build`` starts one ``nvcc`` per source, all at once, and returns each
 compiler log (``-Xptxas -v``: registers, shared memory and spills per
 kernel).  ``load`` builds if needed and returns the ``ctypes.CDLL``.
+
+    python -m repro_torch.kernels._build SOURCE.cu [SOURCE.cu ...]
+
+compiles each source alone, one after another, with the headers of its own
+tree and nothing cached, and prints one JSON line of the seconds each
+``nvcc`` took (to compare what two versions of a source cost to build).
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
+import sys
+import tempfile
+import time
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -102,3 +112,25 @@ def load(source: Path) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(target_of(source)))
         _LIBS[source] = lib
     return lib
+
+
+def time_builds(sources: Iterable[Path]) -> Dict[str, float]:
+    """Seconds of one ``nvcc`` per source, run alone and in turn, into a
+    scratch directory; a source's ``-I`` is ``kernels/include`` of its own
+    tree, so another checkout's source builds against its own headers."""
+    nvcc = nvcc_path()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, src in enumerate(sources):
+            src = Path(src).resolve()
+            flags = list(NVCC_FLAGS)
+            flags[flags.index("-I") + 1] = str(src.parents[2] / "include")
+            t0 = time.perf_counter()
+            subprocess.run([nvcc, *flags, "-o", str(Path(tmp) / f"{i}.so"), str(src)],
+                           check=True, capture_output=True)
+            out[str(src)] = time.perf_counter() - t0
+    return out
+
+
+if __name__ == "__main__":
+    print(json.dumps(time_builds(sys.argv[1:])))

@@ -1,7 +1,11 @@
 // Flash-decoding attention kernels for Hopper (sm_90a), plain C interface.
 //
 // Replaces the Pallas TPU kernels of repro/kernels/decode_attention/kernel.py:
-//   * decode_attention_pallas  (_decode_kernel)          -> flash_rows, Q=1, add=0, splits=1
+//   * decode_attention_pallas  (_decode_kernel)          -> flash_rows, Q=1, add=0, splits=1:
+//                                                           one cluster launch (G <= 16):
+//                                                           cluster_mma_kernel in bf16,
+//                                                           cluster_f32_kernel in fp32;
+//                                                           flash_rows_kernel otherwise
 //   * decode_attention_splitk  (_splitk_partial_kernel)  -> flash_rows, Q=1, add=0, splits=K,
 //                                                           partial state out:
 //                                                           splitk_mma_kernel in bf16 (G <= 16),
@@ -10,7 +14,8 @@
 //   * mixed_attention_pallas   (_mixed_kernel)           -> flash_rows, add=1, splits=1:
 //                                                           mixed_mma_kernel in bf16,
 //                                                           flash_rows_kernel in fp32
-//   * decode_attention_paged   (_paged_decode_kernel)    -> flash_rows, tbl, Q=1, add=0, splits=1
+//   * decode_attention_paged   (_paged_decode_kernel)    -> flash_rows, tbl, Q=1, add=0, splits=1:
+//                                                           the same cluster kernels
 //   * decode_attention_paged_splitk
 //                              (_paged_splitk_partial_kernel) -> flash_rows, tbl, Q=1, add=0,
 //                                                           splits=K, partial state out:
@@ -42,10 +47,12 @@
 // two CTAs per (b, kv head) at Q=8; the second reads KV mostly from L2.
 // The KV operands are addressed through a batch stride, so an attention
 // window view k[:, :W] of a larger cache is read in place.  This is
-// fp32 CUDA-core math, far over a bytes bound; it serves fp32, the
-// single-stage decode and split-K groups of more than 16 heads.  The bf16
-// mixed step and the bf16 split-K partial run on the tensor cores
-// (mixed_mma_kernel and splitk_mma_kernel, below).
+// fp32 CUDA-core math, far over a bytes bound; it serves the fp32 mixed
+// step and split-K partial, and groups of more than 16 heads per kv head.
+// The bf16 mixed step and the bf16 split-K partial run on the tensor
+// cores (mixed_mma_kernel and splitk_mma_kernel, below), the single-stage
+// decode in both dtypes on a thread-block cluster (cluster_mma_kernel,
+// cluster_f32_kernel, below).
 //
 // Head dims 32, 64, 80 and 128.  At D = 80 (zamba2's shared attention) a
 // bf16 tile is 320 16-byte packs for 128 threads, so each thread makes 3
@@ -122,6 +129,66 @@
 // bound; the pair 0.0251 against SDPA's 0.0610), 0.0443 at D = 80 (1.5x),
 // 0.0205 paged.
 //
+// The single-stage decode: cluster_mma_kernel (bf16) and cluster_f32_kernel
+// (fp32).  Below the split-K threshold (2048 keys, ops.py) every decode
+// step of every layer runs it: in the port, a served max_len under 2048
+// (chip_smoke.py's bf16 phases 4j and 4k at 1536) and the fp32
+// card-vs-CPU runs (5, 5b, 5e).  The port has no fleet; the JAX fleet's
+// tiers (max_len 64 by default, the recovery drill's 544) serve reduced
+// fp32 models (2 kv heads of 32) below it as well.  Bound: bytes.
+// At qwen3-0.6b's B=8, Hkv=8, D=128 a step reads 2*L*8*128*es bytes of K
+// and V per sequence at length L; the ~1 flop a byte is far under either
+// unit's rate.  flash_rows_kernel gave each (sequence, kv head) one CTA of
+// 8 rows of which G (2 for qwen3, 1 for zamba2) were live: 64 CTAs on 132
+// SMs at B=8 (6 at the recovery tier's B=3 of 2 kv heads), each walking its sequence's
+// keys alone, a 32-key tile at a time with four barriers a tile: 0.0956
+// ms fp32 at phase 6's shape against a bound of 0.0084.  Now one launch of
+// grid (C, Hkv, B) in clusters of (C, 1, 1) splits each (sequence, kv
+// head)'s keys over C CTAs, C from kernel.py's cluster_split (the largest
+// power of two <= 8 with C * B * Hkv within one wave, 132 SMs times the
+// CTAs an SM holds (CLUSTER_CTAS_PER_SM), and no more CTAs than 128-key
+// tiles: at qwen3's B=8, 2 in bf16 and 4 in fp32; 4 at the tier; 1 at
+// zamba2's B=8 of 32 kv heads in bf16 and at max_len 64), chosen on the
+// host from shapes alone, never from the
+// lengths (no host sync).  CTA c walks whole 128-key tiles
+// [floor(c*tiles/C), floor((c+1)*tiles/C)) cut at the length; a chunk
+// wholly past it keeps the identity state and copies nothing.  Each CTA
+// merges its warps into one (m, l, acc) in its own shared memory; after
+// cluster.sync() the CTAs read each other's states through distributed
+// shared memory (map_shared_rank), merge them in rank order 0..C-1 with
+// the log-sum-exp rescale, and each normalises and stores every C-th
+// 8-dim unit of the output; a second cluster.sync() keeps every CTA alive
+// until the others have read it.  No workspace, no atomic, no second
+// launch, and the result does not depend on scheduling; static shapes, so
+// it captures into a CUDA graph as it is.
+// bf16: the split partial's tensor-core walk (MmaChunk, shared with
+// splitk_mma_kernel), the CTA's warps merged by merge_warps into its state
+// instead of into global partials.  fp32: CUDA-core math (no TF32: the
+// fp32 streams are held token-exact with the CPU), K/V by 16-byte cp.async
+// straight into a 3-stage fp32 ring of 32-key tiles (64 at D = 64, 128 at
+// D = 32: ~32 KB a stage), one barrier a tile; a key row is read by a
+// group of D/4 lanes (32 at D = 80, 20 live), 4 dims a lane, so a warp
+// takes 32/(D/4) keys at once; each lane group keeps its own online
+// softmax for R rows (1 at G = 1, else 2; a wider group, which no model
+// here has, walks the chunk once per pair of rows), the score reduced
+// over the group by xor-shuffles, the P V update lane-local; the groups
+// merge by shuffles, the warps through merge_warps.
+// Shared memory (dynamic; ring, row offsets, the CTA's state): bf16
+// 153,984 bytes at D = 128, 100,224 at D = 80, 82,304 at D = 64, 46,464 at
+// D = 32 (CTAs an SM holds: 1, 2, 2, 4); fp32 107,392, 67,456, 104,064,
+// 103,552 (2, 3, 2, 2), kernel.py's CLUSTER_CTAS_PER_SM.  ptxas (sm_90a),
+// no spills: bf16 165 registers at D = 128, 121 at 80, 100 at 64, 64 at
+// 32; fp32 64 (R = 1) and 80 (R = 2), 78 at D = 80.  The fp32 kernel's R
+// is 1 or 2 only: R = 4, 8 and 16 (80-255 registers) served no model and
+// took 8.7 of this file's 24.6 s build alone (15.9 s now, 10.2 without the
+// cluster kernels; python -m repro_torch.kernels._build).  Clusters
+// resident at once (cudaOccupancyMaxActiveClusters, D = 128, C =
+// 1/2/4/8): bf16 132, 66, 30, 15; fp32 264, 132, 62, 30.  NVIDIA H100
+// 80GB HBM3, 700.00 W, phase 6's shape, queued (attention_timing.py):
+// bf16 0.0123 ms at C = 2 (the parent's flash_rows_kernel 0.0774, SDPA
+// 0.0210), paged 0.0125; fp32 0.0193 at C = 4 (0.0949), paged 0.0193
+// (0.1199).
+//
 // Numerics match the TPU kernels: fp32 scores and softmax state, masking
 // with -1e30 (not -inf: a fully masked row stays finite), p rounded to V's
 // dtype before the PV product, output divided by max(l, 1e-30).  A split
@@ -134,7 +201,11 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include <cooperative_groups.h>
+
 #include "attention_mma.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -580,48 +651,153 @@ template <int D> struct SplitSmem {
                 "the epilogue's floats fit in the ring");
 };
 
+// Where the key rows of one chunk [lo, end) of a sequence's keys live.
+// Thread j < kKeys writes the offset of key lo + tile * kKeys + j into a
+// shared ring of row offsets a stage ahead of the copies that read it,
+// from a table entry read a further tile ahead: through a block table, key
+// pos is row pos % ps of page tbl[pos / ps] (shifts for a power-of-two page
+// size, division otherwise); -1 marks a key at or past hi, zero-filled.
+// Entries are read only below the chunk's end (<= S, so never past the
+// table's row), and the first tiles' before the length is known, so that
+// load and the length's overlap.
+template <int kKeys, int kStages>
+struct KeyRows {
+  const int* tbl;
+  int ps, shift, lo, end;
+  bool pow2;
+  long long kv_row;                              // elements between key rows
+
+  __device__ __forceinline__ KeyRows(const RowsParams& p, int b, int D, int lo_, int end_) {
+    tbl = p.tbl != nullptr ? p.tbl + (long long)b * p.tbl_sb : nullptr;
+    ps = p.ps;
+    shift = __ffs(p.ps) - 1;
+    lo = lo_;
+    end = end_;
+    pow2 = (p.ps & (p.ps - 1)) == 0;
+    kv_row = (long long)p.Hkv * D;
+  }
+
+  __device__ __forceinline__ int page_of(int tile) const {
+    const int pos = lo + tile * kKeys + threadIdx.x;
+    return tbl != nullptr && threadIdx.x < kKeys && pos < end
+        ? tbl[pow2 ? pos >> shift : pos / ps] : 0;
+  }
+  __device__ __forceinline__ void resolve(long long* offs, int tile, int page, int hi) const {
+    const int pos = lo + tile * kKeys + threadIdx.x;
+    if (threadIdx.x >= kKeys) return;
+    long long row = pos;                         // contiguous: the key's own row
+    if (tbl != nullptr)
+      row = pow2 ? ((long long)page << shift) + (pos & (ps - 1))
+                 : (long long)page * ps + pos % ps;
+    offs[tile % kStages * kKeys + threadIdx.x] = pos < hi ? row * kv_row : -1;
+  }
+};
+
+// The tensor-core walk of one chunk of keys, shared by the split-K partial
+// and the single-stage cluster kernel: the G query rows of head group h
+// (padded with zero rows to one m16 tile) over keys [lo, hi), the 8 warps
+// taking 16 keys each of every staged 128-key tile.  The constructor reads
+// the first tiles' table entries (before the caller reads the length);
+// run() stages K/V through the cp.async ring with the row offsets of
+// KeyRows and leaves the warps' states in t, cp.async drained and the CTA
+// synchronised, so the ring is free for the epilogue.
+template <int D>
+struct MmaChunk {
+  KeyRows<kMmaKeys, kSplitStages> rows;
+  int pages[kSplitStages + 1];
+
+  __device__ __forceinline__ MmaChunk(const RowsParams& p, int b, int lo, int end)
+      : rows(p, b, D, lo, end) {
+#pragma unroll
+    for (int g = 0; g <= kSplitStages; ++g) pages[g] = rows.page_of(g);
+  }
+
+  __device__ __forceinline__ void run(const RowsParams& p, int b, int h, int hi, uint4* smem,
+                                      attn_mma::WarpTile<D>& t) {
+    using namespace attn_mma;
+    using Smem = SplitSmem<D>;
+    constexpr int SR = Tile<D>::kStride;
+    constexpr int TS = kMmaKeys * SR;              // one K or V tile, in bf16
+    constexpr int C = Tile<D>::kChunks;
+    constexpr int U = kMmaKeys * C / kMmaThreads;  // 16-byte K (and V) copies per thread
+    static_assert(U * kMmaThreads == kMmaKeys * C, "a tile splits evenly over the threads");
+    bf16* qs = reinterpret_cast<bf16*>(smem);      // [kWarpRows][stride]
+    bf16* ring = qs + Smem::kQ;                    // [kSplitStages][K, V][kMmaKeys][stride]
+    long long* offs = reinterpret_cast<long long*>(
+        reinterpret_cast<char*>(smem) + Smem::kOffs);   // [kSplitStages][kMmaKeys]
+
+    const int G = p.Hq / p.Hkv;
+    const int lo = rows.lo;
+    const int koff = threadIdx.x / 32 * (kMmaKeys / 8);
+    const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + (long long)h * D;
+    const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + (long long)h * D;
+    const int ntiles = (hi - lo + kMmaKeys - 1) / kMmaKeys;
+
+    auto stage_kv = [&](int tile) {
+      bf16* ks = ring + (tile % kSplitStages) * 2 * TS;
+      const long long* ro = offs + tile % kSplitStages * kMmaKeys;
+#pragma unroll
+      for (int i = 0; i < U; ++i) {
+        const int u = threadIdx.x + i * kMmaThreads, j = u / C, cc = (u % C) * 8;
+        const long long off = ro[j];
+        const bool ok = off >= 0;
+        cp_async16(ks + j * SR + cc, k + (ok ? off + cc : 0), ok);
+        cp_async16(ks + TS + j * SR + cc, v + (ok ? off + cc : 0), ok);
+      }
+    };
+    // prologue: row offsets of tiles 0 .. kSplitStages - 1, copies of tiles
+    // 0 .. kSplitStages - 2 (group g holds tile g)
+#pragma unroll
+    for (int g = 0; g < kSplitStages; ++g) rows.resolve(offs, g, pages[g], hi);
+    int page = pages[kSplitStages];
+    __syncthreads();
+    for (int g = 0; g < kSplitStages - 1; ++g) {
+      if (g < ntiles) stage_kv(g);
+      cp_async_commit();
+    }
+
+    // Q with plain loads while the first tiles are in flight: q may be any
+    // view with dense (Hq, D) (the decode step passes q[:, 0] of the
+    // projection), so no alignment is assumed; rows G.. are zero
+    const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + (long long)h * G * D;
+#pragma unroll
+    for (int i = 0; i < kWarpRows * D / kMmaThreads; ++i) {
+      const int e = threadIdx.x + i * kMmaThreads, r = e / D, d = e % D;
+      qs[r * SR + d] = r < G ? q[r * D + d] : __float2bfloat16(0.f);
+    }
+
+    t.init(lo, hi, lo, hi);
+    for (int it = 0; it < ntiles; ++it) {
+      cp_async_wait<kSplitStages - 2>();           // tile it has landed
+      __syncthreads();                             // ... for all; tile it - 1 is consumed
+      if (it == 0) t.load_q(qs);
+      if (it + kSplitStages - 1 < ntiles) {
+        stage_kv(it + kSplitStages - 1);           // offsets resolved an iteration ago
+        rows.resolve(offs, it + kSplitStages, page, hi);  // into the slot tile it's copies read
+        page = rows.page_of(it + kSplitStages + 1);
+      }
+      cp_async_commit();
+      const bf16* ks = ring + (it % kSplitStages) * 2 * TS + koff * SR;
+      t.template step<kMmaKeys / 8>(ks, ks + TS, lo + it * kMmaKeys + koff, p.scale);
+    }
+    cp_async_wait<0>();
+    __syncthreads();                               // the ring is free for the epilogue
+  }
+};
+
 // One CTA per (kv head h, sequence b, chunk c): the G query rows of head
-// group h (padded with zero rows to one m16 tile) over keys [c * ck,
-// min((c + 1) * ck, lens[b])), ck = S / splits; the 8 warps take 16 keys
-// each of every staged 128-key tile.  Writes the chunk's unnormalised
-// (m, l, acc) to the (B, Hkv, splits, G[, D]) partials.
+// group h over keys [c * ck, min((c + 1) * ck, lens[b])), ck = S / splits
+// (MmaChunk).  Writes the chunk's unnormalised (m, l, acc) to the (B, Hkv,
+// splits, G[, D]) partials.
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads) splitk_mma_kernel(RowsParams p) {
-  using namespace attn_mma;
-  using Smem = SplitSmem<D>;
-  constexpr int SR = Tile<D>::kStride;
-  constexpr int TS = kMmaKeys * SR;              // one K or V tile, in bf16
-  constexpr int C = Tile<D>::kChunks;
-  constexpr int U = kMmaKeys * C / kMmaThreads;  // 16-byte K (and V) copies per thread
-  static_assert(U * kMmaThreads == kMmaKeys * C, "a tile splits evenly over the threads");
   extern __shared__ uint4 smem_split[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_split);  // [kWarpRows][stride]
-  bf16* ring = qs + Smem::kQ;                      // [kSplitStages][K, V][kMmaKeys][stride]
-
   const int G = p.Hq / p.Hkv;
   const int h = blockIdx.x;
   const int b = blockIdx.y / p.splits, c = blockIdx.y % p.splits;
   const int ck = p.S / p.splits;
   const int lo = c * ck;
-  const int* tbl = p.tbl != nullptr ? p.tbl + (long long)b * p.tbl_sb : nullptr;
-
-  // Key rows resolve as in mixed_mma_kernel: thread j < kMmaKeys writes the
-  // offset of key lo + tile * kMmaKeys + j into a shared ring a stage ahead
-  // of the copies, from a table entry read a further tile ahead (shifts for
-  // a power-of-two page size, division otherwise); -1 marks a key at or
-  // past hi, zero-filled.  A chunk is whole pages, so any entry below its
-  // end may be read; the first tiles' entries are read before the length
-  // is known, so that load and the length's overlap.
-  const bool pow2 = (p.ps & (p.ps - 1)) == 0;
-  const int shift = __ffs(p.ps) - 1;
-  auto page_of = [&](int tile) {
-    const int pos = lo + tile * kMmaKeys + threadIdx.x;
-    return tbl != nullptr && threadIdx.x < kMmaKeys && pos < lo + ck
-        ? tbl[pow2 ? pos >> shift : pos / p.ps] : 0;
-  };
-  int pages[kSplitStages + 1];
-#pragma unroll
-  for (int g = 0; g <= kSplitStages; ++g) pages[g] = page_of(g);
+  MmaChunk<D> walk(p, b, lo, lo + ck);
 
   const int hi = min(lo + ck, min(p.S, p.lens[b]));
   const long long cell = ((long long)(b * p.Hkv + h) * p.splits + c) * G;
@@ -633,78 +809,12 @@ __global__ void __launch_bounds__(kMmaThreads) splitk_mma_kernel(RowsParams p) {
     }
     return;
   }
-
-  const int warp = threadIdx.x / 32;
-  const int koff = warp * (kMmaKeys / 8);
-  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + (long long)h * D;
-  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + (long long)h * D;
-  const long long kv_row = (long long)p.Hkv * D;  // elements between key rows
-  const int ntiles = (hi - lo + kMmaKeys - 1) / kMmaKeys;
-
-  long long* offs = reinterpret_cast<long long*>(
-      reinterpret_cast<char*>(smem_split) + Smem::kOffs);   // [kSplitStages][kMmaKeys]
-  auto resolve = [&](int tile, int page) {
-    const int pos = lo + tile * kMmaKeys + threadIdx.x;
-    if (threadIdx.x >= kMmaKeys) return;
-    long long row = pos;                         // contiguous: the key's own row
-    if (tbl != nullptr)
-      row = pow2 ? ((long long)page << shift) + (pos & (p.ps - 1))
-                 : (long long)page * p.ps + pos % p.ps;
-    offs[tile % kSplitStages * kMmaKeys + threadIdx.x] = pos < hi ? row * kv_row : -1;
-  };
-  auto stage_kv = [&](int tile) {
-    bf16* ks = ring + (tile % kSplitStages) * 2 * TS;
-    const long long* ro = offs + tile % kSplitStages * kMmaKeys;
-#pragma unroll
-    for (int i = 0; i < U; ++i) {
-      const int u = threadIdx.x + i * kMmaThreads, j = u / C, cc = (u % C) * 8;
-      const long long off = ro[j];
-      const bool ok = off >= 0;
-      cp_async16(ks + j * SR + cc, k + (ok ? off + cc : 0), ok);
-      cp_async16(ks + TS + j * SR + cc, v + (ok ? off + cc : 0), ok);
-    }
-  };
-  // prologue: row offsets of tiles 0 .. kSplitStages - 1, copies of tiles
-  // 0 .. kSplitStages - 2 (group g holds tile g)
-#pragma unroll
-  for (int g = 0; g < kSplitStages; ++g) resolve(g, pages[g]);
-  int page = pages[kSplitStages];
-  __syncthreads();
-  for (int g = 0; g < kSplitStages - 1; ++g) {
-    if (g < ntiles) stage_kv(g);
-    cp_async_commit();
-  }
-
-  // Q with plain loads while the first tiles are in flight: q may be any
-  // view with dense (Hq, D) (the decode step passes q[:, 0] of the
-  // projection), so no alignment is assumed; rows G.. are zero
-  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + (long long)h * G * D;
-#pragma unroll
-  for (int i = 0; i < kWarpRows * D / kMmaThreads; ++i) {
-    const int e = threadIdx.x + i * kMmaThreads, r = e / D, d = e % D;
-    qs[r * SR + d] = r < G ? q[r * D + d] : __float2bfloat16(0.f);
-  }
-
-  WarpTile<D> t;
-  t.init(lo, hi, lo, hi);
-  for (int it = 0; it < ntiles; ++it) {
-    cp_async_wait<kSplitStages - 2>();           // tile it has landed
-    __syncthreads();                             // ... for all; tile it - 1 is consumed
-    if (it == 0) t.load_q(qs);
-    if (it + kSplitStages - 1 < ntiles) {
-      stage_kv(it + kSplitStages - 1);           // offsets resolved an iteration ago
-      resolve(it + kSplitStages, page);          // into the slot tile it's copies read
-      page = page_of(it + kSplitStages + 1);
-    }
-    cp_async_commit();
-    const bf16* ks = ring + (it % kSplitStages) * 2 * TS + koff * SR;
-    t.template step<kMmaKeys / 8>(ks, ks + TS, lo + it * kMmaKeys + koff, p.scale);
-  }
-  cp_async_wait<0>();
-  __syncthreads();                               // the ring is free for the epilogue
-
-  finish_partial<D, kMmaThreads>(t, reinterpret_cast<float*>(ring), G, p.m_out + cell,
-                                 p.l_out + cell, p.acc_out + cell * D);
+  attn_mma::WarpTile<D> t;
+  walk.run(p, b, h, hi, smem_split, t);
+  float* red = reinterpret_cast<float*>(reinterpret_cast<attn_mma::bf16*>(smem_split)
+                                        + SplitSmem<D>::kQ);
+  attn_mma::finish_partial<D, kMmaThreads>(t, red, G, p.m_out + cell, p.l_out + cell,
+                                           p.acc_out + cell * D);
 }
 
 template <int D>
@@ -728,18 +838,399 @@ int dispatch_splitk_mma(int D, const RowsParams& p, cudaStream_t stream) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// single-stage decode: one launch, keys split over a thread-block cluster
+// ---------------------------------------------------------------------------
+
+constexpr int kClusterKeys = 128;       // a CTA's chunk is whole tiles of this many keys
+constexpr int kClusterThreads = 256;    // 8 warps, both dtypes
+
+// Keys [lo, end) of CTA `rank` of a cluster of C: the S keys' 128-key
+// tiles dealt out in order, floor(c * tiles / C) onwards, so no CTA of a
+// cluster with C <= tiles is empty at the full length (kernel.py's
+// cluster_chunks is the same arithmetic).
+__device__ __forceinline__ void cluster_chunk(int S, int rank, int C, int& lo, int& end) {
+  const int tiles = (S + kClusterKeys - 1) / kClusterKeys;
+  lo = rank * tiles / C * kClusterKeys;
+  end = min((rank + 1) * tiles / C * kClusterKeys, S);
+}
+
+// A CTA's merged state, left in its own shared memory for the cluster:
+// acc [kWarpRows][D], then m [kWarpRows], then l [kWarpRows], fp32.
+template <int D> struct ClusterState {
+  static constexpr int kFloats = attn_mma::kWarpRows * (D + 2);
+  __device__ static float* m(float* s) { return s + attn_mma::kWarpRows * D; }
+  __device__ static float* l(float* s) { return s + attn_mma::kWarpRows * (D + 1); }
+  // a chunk wholly past the length: m = -1e30, l = 0, acc = 0
+  __device__ static void identity(float* s, int G) {
+    for (int e = threadIdx.x; e < G * D; e += kClusterThreads) s[e] = 0.f;
+    if (threadIdx.x < G) {
+      m(s)[threadIdx.x] = attn_mma::kNegInf;
+      l(s)[threadIdx.x] = 0.f;
+    }
+  }
+};
+
+__device__ __forceinline__ void store8(float* dst, const float (&o)[8], float den) {
+  *reinterpret_cast<float4*>(dst) = make_float4(o[0] / den, o[1] / den, o[2] / den, o[3] / den);
+  *reinterpret_cast<float4*>(dst + 4) =
+      make_float4(o[4] / den, o[5] / den, o[6] / den, o[7] / den);
+}
+__device__ __forceinline__ void store8(attn_mma::bf16* dst, const float (&o)[8], float den) {
+  using attn_mma::pack_bf16;
+  *reinterpret_cast<uint4*>(dst) = make_uint4(pack_bf16(o[0] / den, o[1] / den),
+                                              pack_bf16(o[2] / den, o[3] / den),
+                                              pack_bf16(o[4] / den, o[5] / den),
+                                              pack_bf16(o[6] / den, o[7] / den));
+}
+
+// The cluster's merge.  Every CTA has left its chunk's merged (m, l, acc)
+// of rows [0, G) in its `state` and passed cluster.sync().  Unit u (a row
+// and 8 of its dims) belongs to CTA u % C, which reads that unit of all C
+// states through distributed shared memory, merges them in rank order
+// 0..C-1 with the log-sum-exp rescale, divides by max(l, 1e-30) and stores
+// it to out (the group's first output row, rows D apart).  The result does
+// not depend on which CTA ran when.
+template <typename T, int D>
+__device__ __forceinline__ void merge_cluster(cg::cluster_group& cluster, float* state, int G,
+                                              T* out) {
+  using S = ClusterState<D>;
+  constexpr int U = D / 8;
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  for (int u = threadIdx.x * C + rank; u < G * U; u += kClusterThreads * C) {
+    const int row = u / U, d0 = (u % U) * 8;
+    float m_star = attn_mma::kNegInf;
+    for (int r = 0; r < C; ++r) m_star = fmaxf(m_star, S::m(cluster.map_shared_rank(state, r))[row]);
+    float l_star = 0.f, o[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int r = 0; r < C; ++r) {
+      float* s = cluster.map_shared_rank(state, r);
+      const float a = expf(S::m(s)[row] - m_star);
+      l_star += S::l(s)[row] * a;
+      const float4 x = *reinterpret_cast<const float4*>(s + row * D + d0);
+      const float4 y = *reinterpret_cast<const float4*>(s + row * D + d0 + 4);
+      o[0] += x.x * a; o[1] += x.y * a; o[2] += x.z * a; o[3] += x.w * a;
+      o[4] += y.x * a; o[5] += y.y * a; o[6] += y.z * a; o[7] += y.w * a;
+    }
+    store8(out + row * D + d0, o, fmaxf(l_star, 1e-30f));
+  }
+}
+
+// bf16: the split partial's tensor-core walk (MmaChunk) over the CTA's
+// chunk, its warps merged into the CTA's state (merge_warps), then the
+// cluster's merge.  Grid (C, Hkv, B), clusters of (C, 1, 1).
+template <int D> struct ClusterMmaSmem {
+  static constexpr int kState = SplitSmem<D>::kBytes;   // byte offset of the CTA's state
+  static constexpr int kBytes = kState + ClusterState<D>::kFloats * 4;
+  static_assert(kState % 16 == 0, "the state is read as float4");
+};
+
+template <int D>
+__global__ void __launch_bounds__(kClusterThreads) cluster_mma_kernel(RowsParams p) {
+  static_assert(kClusterThreads == kMmaThreads, "the walk is the split partial's");
+  extern __shared__ uint4 smem_cmma[];
+  cg::cluster_group cluster = cg::this_cluster();
+  float* state = reinterpret_cast<float*>(reinterpret_cast<char*>(smem_cmma)
+                                          + ClusterMmaSmem<D>::kState);
+  const int G = p.Hq / p.Hkv;
+  const int h = blockIdx.y, b = blockIdx.z;
+  int lo, end;
+  cluster_chunk(p.S, static_cast<int>(cluster.block_rank()),
+                static_cast<int>(cluster.num_blocks()), lo, end);
+  MmaChunk<D> walk(p, b, lo, end);
+
+  const int hi = min(end, p.lens[b]);
+  if (hi > lo) {
+    attn_mma::WarpTile<D> t;
+    walk.run(p, b, h, hi, smem_cmma, t);
+    float* red = reinterpret_cast<float*>(reinterpret_cast<attn_mma::bf16*>(smem_cmma)
+                                          + SplitSmem<D>::kQ);
+    attn_mma::finish_partial<D, kClusterThreads>(t, red, G, ClusterState<D>::m(state),
+                                                 ClusterState<D>::l(state), state);
+  } else {
+    ClusterState<D>::identity(state, G);
+  }
+  cluster.sync();                                // every CTA's state is complete
+  merge_cluster<attn_mma::bf16, D>(cluster, state, G,
+                                   static_cast<attn_mma::bf16*>(p.out)
+                                       + ((long long)b * p.Hq + h * G) * D);
+  cluster.sync();                                // ... and read: now a CTA may exit
+}
+
+// fp32: CUDA-core math.  K/V tiles come by 16-byte cp.async straight into
+// a 3-stage fp32 ring (no conversion), with the row offsets of KeyRows.  A
+// key row is read by a group of kLanes lanes, 4 dims each (D = 80: 20 of
+// 32 lanes live), so a warp takes kGroups keys at once; each lane group
+// keeps its own online-softmax state for R rows (1 at G = 1, else 2: a
+// wider group is walked two rows a pass), every lane holding those rows'
+// state for its dims: the score reduces over the group by xor-shuffles and
+// the P V update is lane-local.  Keys past hi are skipped (uniform per
+// group).  One barrier per tile.
+template <int D> struct F32Tile {
+  static constexpr int kKeys = D > 64 ? 32 : 4096 / D;   // ~32 KB of K and V per stage
+  static constexpr int kLanes = D > 64 ? 32 : D / 4;
+  static constexpr int kGroups = 32 / kLanes;
+  static constexpr int kStages = 3;
+  static constexpr int kWarpKeys = kKeys / (kClusterThreads / 32);   // keys per warp per tile
+  static constexpr int kRing = kStages * 2 * kKeys * D;              // floats
+  static constexpr int kOffs = kRing * 4;                            // byte offset of the row ring
+  static constexpr int kState = kOffs + kStages * kKeys * 8;         // ... and of the state
+  static constexpr int kBytes = kState + ClusterState<D>::kFloats * 4;
+  static_assert(kClusterKeys % kKeys == 0 && kWarpKeys % kGroups == 0, "whole tiles and steps");
+  static_assert(kClusterThreads / 32 * attn_mma::Reduce<D>::kFloats <= kRing,
+                "the epilogue's floats fit in the ring");
+};
+
+template <int D, int R>
+__global__ void __launch_bounds__(kClusterThreads) cluster_f32_kernel(RowsParams p) {
+  using F = F32Tile<D>;
+  using attn_mma::kWarpRows;
+  constexpr int CH = D / 4;                       // 16-byte chunks per row
+  constexpr int UNITS = F::kKeys * CH;            // per K (and V) tile
+  constexpr int RS = attn_mma::Reduce<D>::kStride;
+  extern __shared__ uint4 smem_cf32[];
+  float* ring = reinterpret_cast<float*>(smem_cf32);            // [kStages][K, V][kKeys][D]
+  long long* offs = reinterpret_cast<long long*>(
+      reinterpret_cast<char*>(smem_cf32) + F::kOffs);           // [kStages][kKeys]
+  float* state = reinterpret_cast<float*>(reinterpret_cast<char*>(smem_cf32) + F::kState);
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int G = p.Hq / p.Hkv;
+  const int h = blockIdx.y, b = blockIdx.z;
+  int lo, end;
+  cluster_chunk(p.S, static_cast<int>(cluster.block_rank()),
+                static_cast<int>(cluster.num_blocks()), lo, end);
+  KeyRows<F::kKeys, F::kStages> rows(p, b, D, lo, end);
+  int pages[F::kStages + 1];
+#pragma unroll
+  for (int g = 0; g <= F::kStages; ++g) pages[g] = rows.page_of(g);
+
+  const int hi = min(end, p.lens[b]);
+  if (hi > lo) {
+    const float* k = static_cast<const float*>(p.k) + b * p.k_sb + (long long)h * D;
+    const float* v = static_cast<const float*>(p.v) + b * p.v_sb + (long long)h * D;
+    const int ntiles = (hi - lo + F::kKeys - 1) / F::kKeys;
+    auto stage_kv = [&](int tile) {
+      float* ks = ring + (tile % F::kStages) * 2 * F::kKeys * D;
+      const long long* ro = offs + tile % F::kStages * F::kKeys;
+#pragma unroll
+      for (int i = 0; i < (UNITS + kClusterThreads - 1) / kClusterThreads; ++i) {
+        const int u = threadIdx.x + i * kClusterThreads, j = u / CH, c = (u % CH) * 4;
+        if (UNITS % kClusterThreads != 0 && u >= UNITS) break;
+        const long long off = ro[j];
+        const bool ok = off >= 0;
+        attn_mma::cp_async16(ks + j * D + c, k + (ok ? off + c : 0), ok);
+        attn_mma::cp_async16(ks + F::kKeys * D + j * D + c, v + (ok ? off + c : 0), ok);
+      }
+    };
+    // the G rows R at a time: one pass over the chunk at G <= 2, G / 2
+    // passes (the chunk re-read from L2 each) for the wider groups no
+    // model here has
+    for (int r0 = 0; r0 < G; r0 += R) {
+      if (r0 > 0) {
+#pragma unroll
+        for (int g = 0; g <= F::kStages; ++g) pages[g] = rows.page_of(g);
+      }
+#pragma unroll
+      for (int g = 0; g < F::kStages; ++g) rows.resolve(offs, g, pages[g], hi);
+      int page = pages[F::kStages];
+      __syncthreads();
+#pragma unroll
+      for (int g = 0; g < F::kStages - 1; ++g) {
+        if (g < ntiles) stage_kv(g);
+        attn_mma::cp_async_commit();
+      }
+
+      // q rows [r0, r0 + R) of head group h with plain loads (any view with
+      // dense (Hq, D)), 4 dims a lane; rows G.. and dims past D are zero
+      const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+      const int gi = lane / F::kLanes, li = lane % F::kLanes;
+      const bool live = li < CH;
+      const float* q =
+          static_cast<const float*>(p.q) + b * p.q_sb + (long long)(h * G + r0) * D + 4 * li;
+      float4 qr[R], acc[R];
+      float m[R], l[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const bool ok = live && r < G - r0;
+        qr[r] = make_float4(ok ? q[r * D] : 0.f, ok ? q[r * D + 1] : 0.f, ok ? q[r * D + 2] : 0.f,
+                            ok ? q[r * D + 3] : 0.f);
+        acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+        m[r] = kNegInf;
+        l[r] = 0.f;
+      }
+
+      for (int it = 0; it < ntiles; ++it) {
+        attn_mma::cp_async_wait<F::kStages - 2>();  // tile it has landed
+        __syncthreads();                            // ... for all; tile it - 1 is consumed
+        if (it + F::kStages - 1 < ntiles) {
+          stage_kv(it + F::kStages - 1);            // offsets resolved an iteration ago
+          rows.resolve(offs, it + F::kStages, page, hi);
+          page = rows.page_of(it + F::kStages + 1);
+        }
+        attn_mma::cp_async_commit();
+        const float* ks = ring + (it % F::kStages) * 2 * F::kKeys * D;
+        const float* vs = ks + F::kKeys * D;
+#pragma unroll
+        for (int st = 0; st < F::kWarpKeys / F::kGroups; ++st) {
+          const int j = warp * F::kWarpKeys + st * F::kGroups + gi;
+          float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
+          if (live) {
+            kk = *reinterpret_cast<const float4*>(ks + j * D + 4 * li);
+            vv = *reinterpret_cast<const float4*>(vs + j * D + 4 * li);
+          }
+          float s[R];
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            float x = qr[r].x * kk.x;
+            x = fmaf(qr[r].y, kk.y, x);
+            x = fmaf(qr[r].z, kk.z, x);
+            s[r] = fmaf(qr[r].w, kk.w, x);
+          }
+#pragma unroll
+          for (int o = F::kLanes / 2; o > 0; o >>= 1)
+#pragma unroll
+            for (int r = 0; r < R; ++r) s[r] += __shfl_xor_sync(0xffffffffu, s[r], o);
+          if (lo + it * F::kKeys + j < hi) {
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              const float x = s[r] * p.scale;
+              const float m_new = fmaxf(m[r], x);
+              const float corr = expf(m[r] - m_new), pr = expf(x - m_new);
+              m[r] = m_new;
+              l[r] = fmaf(l[r], corr, pr);
+              acc[r] = make_float4(
+                  fmaf(acc[r].x, corr, pr * vv.x), fmaf(acc[r].y, corr, pr * vv.y),
+                  fmaf(acc[r].z, corr, pr * vv.z), fmaf(acc[r].w, corr, pr * vv.w));
+            }
+          }
+        }
+      }
+      attn_mma::cp_async_wait<0>();
+      __syncthreads();                              // the ring is free for the epilogue
+
+      // the warp's lane groups merged by xor-shuffles, then the warps' states
+      // (Reduce layout, aliasing the ring) merged into rows [r0, r0 + R) of
+      // the CTA's state
+#pragma unroll
+      for (int o = F::kLanes; o < 32; o <<= 1)
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float mo = __shfl_xor_sync(0xffffffffu, m[r], o);
+          const float lz = __shfl_xor_sync(0xffffffffu, l[r], o);
+          const float4 ao = make_float4(__shfl_xor_sync(0xffffffffu, acc[r].x, o),
+                                        __shfl_xor_sync(0xffffffffu, acc[r].y, o),
+                                        __shfl_xor_sync(0xffffffffu, acc[r].z, o),
+                                        __shfl_xor_sync(0xffffffffu, acc[r].w, o));
+          const float m_new = fmaxf(m[r], mo);
+          const float wa = expf(m[r] - m_new), wo = expf(mo - m_new);
+          m[r] = m_new;
+          l[r] = l[r] * wa + lz * wo;
+          acc[r] = make_float4(acc[r].x * wa + ao.x * wo, acc[r].y * wa + ao.y * wo,
+                               acc[r].z * wa + ao.z * wo, acc[r].w * wa + ao.w * wo);
+        }
+      float* mine = ring + warp * attn_mma::Reduce<D>::kFloats;
+      if (gi == 0 && live) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          *reinterpret_cast<float4*>(mine + r * RS + 4 * li) = acc[r];
+          if (li == 0) {
+            mine[kWarpRows * RS + r] = m[r];
+            mine[kWarpRows * RS + kWarpRows + r] = l[r];
+          }
+        }
+      }
+      __syncthreads();
+      attn_mma::merge_warps<D, kClusterThreads>(ring, min(R, G - r0),
+                                                ClusterState<D>::m(state) + r0,
+                                                ClusterState<D>::l(state) + r0, state + r0 * D);
+    }
+  } else {
+    ClusterState<D>::identity(state, G);
+  }
+  cluster.sync();                                 // every CTA's state is complete
+  merge_cluster<float, D>(cluster, state, G,
+                          static_cast<float*>(p.out) + ((long long)b * p.Hq + h * G) * D);
+  cluster.sync();                                 // ... and read: now a CTA may exit
+}
+
+// Launch (or, with max_clusters, ask the occupancy and the dynamic shared
+// memory of) a single-stage kernel: grid (C, Hkv, B) in clusters of (C, 1,
+// 1), C <= 8 (the portable limit), through cudaLaunchKernelEx.  A
+// cluster's CTAs run at once on the SMs of one GPC, so their shared memory
+// must fit there together.
+template <auto kKernel, int kBytes>
+int launch_cluster(const RowsParams& p, int C, cudaStream_t stream, int* max_clusters) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);   // above 48 KB: opt in once
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  cudaLaunchAttribute cl[1];
+  cl[0].id = cudaLaunchAttributeClusterDimension;
+  cl[0].val.clusterDim.x = C;
+  cl[0].val.clusterDim.y = 1;
+  cl[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, p.Hkv, p.B);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = kBytes;
+  cfg.stream = stream;
+  cfg.attrs = cl;
+  cfg.numAttrs = 1;
+  if (max_clusters != nullptr) {
+    max_clusters[1] = kBytes;
+    return static_cast<int>(cudaOccupancyMaxActiveClusters(max_clusters, kKernel, &cfg));
+  }
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kKernel, p);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <int D>
+int dispatch_cluster_f32(int G, const RowsParams& p, int C, cudaStream_t s, int* occ) {
+  constexpr int bytes = F32Tile<D>::kBytes;
+  if (G <= 1) return launch_cluster<cluster_f32_kernel<D, 1>, bytes>(p, C, s, occ);
+  return launch_cluster<cluster_f32_kernel<D, 2>, bytes>(p, C, s, occ);
+}
+
+// dtype 0 = float32, 1 = bfloat16; G <= 16, 1 <= C <= 8.
+int dispatch_cluster(int dtype, int D, const RowsParams& p, int C, cudaStream_t s, int* occ) {
+  const int G = p.Hq / p.Hkv;
+  if (C < 1 || C > 8 || G > attn_mma::kWarpRows) return -1;
+  if (dtype == 1) {
+    switch (D) {
+      case 32: return launch_cluster<cluster_mma_kernel<32>, ClusterMmaSmem<32>::kBytes>(p, C, s, occ);
+      case 64: return launch_cluster<cluster_mma_kernel<64>, ClusterMmaSmem<64>::kBytes>(p, C, s, occ);
+      case 80: return launch_cluster<cluster_mma_kernel<80>, ClusterMmaSmem<80>::kBytes>(p, C, s, occ);
+      case 128:
+        return launch_cluster<cluster_mma_kernel<128>, ClusterMmaSmem<128>::kBytes>(p, C, s, occ);
+      default: return -1;
+    }
+  }
+  if (dtype == 0) {
+    switch (D) {
+      case 32: return dispatch_cluster_f32<32>(G, p, C, s, occ);
+      case 64: return dispatch_cluster_f32<64>(G, p, C, s, occ);
+      case 80: return dispatch_cluster_f32<80>(G, p, C, s, occ);
+      case 128: return dispatch_cluster_f32<128>(G, p, C, s, occ);
+      default: return -1;
+    }
+  }
+  return -1;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  tbl: nullptr for a contiguous cache,
 // else the (B, nb) int32 block tables with row stride tbl_sb and S = nb*ps.
-// Returns 0 on a launch cudaGetLastError accepted, the CUDA error code
-// otherwise, -1 for an unsupported dtype/D.
+// cluster: the single-stage decode's CTAs per (sequence, kv head), 1-8
+// (kernel.py's cluster_split); the other calls ignore it.  Returns 0 on a
+// launch cudaGetLastError accepted, the CUDA error code otherwise, -1 for
+// an unsupported dtype/D/cluster.
 extern "C" int flash_rows(int dtype, int D, const void* q, const void* k, const void* v,
                           const void* tbl, const void* lens, void* out, void* m_out,
                           void* l_out, void* acc_out,
                           int B, int Q, int Hq, int Hkv, int S, int splits, int add, int ps,
                           long long q_sb, long long q_sq, long long k_sb, long long v_sb,
-                          long long tbl_sb, float scale, void* stream) {
+                          long long tbl_sb, float scale, int cluster, void* stream) {
   RowsParams p{q, k, v, static_cast<const int*>(tbl), static_cast<const int*>(lens), out,
                static_cast<float*>(m_out), static_cast<float*>(l_out),
                static_cast<float*>(acc_out),
@@ -751,9 +1242,26 @@ extern "C" int flash_rows(int dtype, int D, const void* q, const void* k, const 
   // the bf16 split-K partial (contiguous or paged) too, for up to one m16 tile of rows
   if (dtype == 1 && add == 0 && Q == 1 && m_out != nullptr && Hq / Hkv <= attn_mma::kWarpRows)
     return dispatch_splitk_mma(D, p, s);
+  // the single-stage decode (contiguous or paged, both dtypes): one cluster launch
+  if (add == 0 && Q == 1 && splits == 1 && m_out == nullptr && Hq / Hkv <= attn_mma::kWarpRows)
+    return dispatch_cluster(dtype, D, p, cluster, s, nullptr);
   if (dtype == 0) return dispatch_rows<float>(D, p, s);
   if (dtype == 1) return dispatch_rows<__nv_bfloat16>(D, p, s);
   return -1;
+}
+
+// out[0]: how many clusters of C CTAs of the single-stage decode kernel
+// for (dtype, D, G) can be resident on the card at once
+// (cudaOccupancyMaxActiveClusters); out[1]: a CTA's dynamic shared memory
+// in bytes.  Returns 0 on success, as flash_rows.
+extern "C" int decode_cluster_occupancy(int dtype, int D, int G, int C, int* out) {
+  RowsParams p{};
+  p.B = 1;
+  p.Q = 1;
+  p.Hkv = 1;
+  p.Hq = G;
+  out[0] = out[1] = 0;
+  return dispatch_cluster(dtype, D, p, C, nullptr, out);
 }
 
 extern "C" int splitk_combine(int dtype, const void* m, const void* l, const void* acc, void* out,

@@ -5,15 +5,21 @@ outputs with ``torch.empty``, launches on PyTorch's current stream without
 synchronising, raises if the launch was refused, and adds one to its entry
 of ``LAUNCHES``:
 
-* ``decode_attention_cuda`` — replaces ``decode_attention_pallas``;
+* ``decode_attention_cuda`` — replaces ``decode_attention_pallas``: one
+  launch whose keys are split over a thread-block cluster of
+  ``cluster_split`` CTAs per (sequence, kv head), merged in the cluster's
+  shared memory (bf16 on the tensor cores through ``cluster_mma_kernel``,
+  fp32 on the CUDA cores through ``cluster_f32_kernel``; groups of more
+  than 16 heads per kv head through ``flash_rows_kernel``);
 * ``splitk_partial_cuda`` / ``splitk_combine_cuda`` — the two stages of
   ``decode_attention_splitk`` (the bf16 partial of up to 16 heads per kv
   head on the tensor cores through ``splitk_mma_kernel``; fp32 and wider
   groups through ``flash_rows_kernel``);
 * ``mixed_attention_cuda`` — replaces ``mixed_attention_pallas`` (bf16 on
-  the tensor cores through ``mixed_mma_kernel``; fp32 and the single-stage
-  decode wrappers through ``flash_rows_kernel`` on the CUDA cores);
-* ``decode_attention_paged_cuda`` — replaces ``decode_attention_paged``;
+  the tensor cores through ``mixed_mma_kernel``; fp32 through
+  ``flash_rows_kernel`` on the CUDA cores);
+* ``decode_attention_paged_cuda`` — replaces ``decode_attention_paged`` (as
+  ``decode_attention_cuda``, through the block tables);
 * ``paged_splitk_partial_cuda`` — stage 1 of ``decode_attention_paged_splitk``
   (as ``splitk_partial_cuda``, through the block tables; its stage 2 is
   the shared ``splitk_combine_cuda``);
@@ -26,7 +32,7 @@ int32 block tables (a row stride is allowed, so a column slice
 mixed step copies q's rows with 16-byte cp.async, so its q must be 16-byte
 aligned with 16-byte batch and sequence strides; the split-K partial loads
 q with plain loads, so any view with dense (Hq, D) works there (the decode
-step's ``q[:, 0]``).
+step's ``q[:, 0]``), as it does for the single-stage decode.
 
 The library is built on the first call (``kernels._build``).  These take
 CUDA tensors only; ``ops`` sends CPU tensors to ``ref``.
@@ -46,6 +52,40 @@ from repro_torch.kernels import _build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 HEAD_DIMS = (32, 64, 80, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# the single-stage decode's cluster split (csrc: kClusterKeys, cluster_chunk)
+CLUSTER_KEYS = 128     # a CTA's chunk is whole tiles of this many keys
+CLUSTER_MAX = 8        # the portable cluster size
+CLUSTER_SMS = 132      # SMs of an H100 SXM
+# CTAs of the single-stage decode kernel one SM holds at once, by dtype and
+# head dim (their dynamic shared memory decides it; chip_smoke.py phase 2
+# holds this table to cudaOccupancyMaxActiveClusters at C = 1 over 132 SMs)
+CLUSTER_CTAS_PER_SM = {
+    torch.bfloat16: {32: 4, 64: 2, 80: 2, 128: 1},
+    torch.float32: {32: 2, 64: 2, 80: 3, 128: 2},
+}
+
+
+def cluster_split(S: int, bh: int, per_sm: int) -> int:
+    """CTAs per (sequence, kv head) of the single-stage decode over a cache
+    of S keys with ``bh`` = B·Hkv (sequence, kv head) pairs, when an SM
+    holds ``per_sm`` of its CTAs (``CLUSTER_CTAS_PER_SM``): the largest
+    power of two C <= 8 with C·bh <= 132·per_sm CTAs (one wave) and no
+    more CTAs than the cache has 128-key tiles, at least 1.  From the
+    shapes alone, never the lengths (they live on the card)."""
+    tiles = -(-S // CLUSTER_KEYS)
+    C = 1
+    while 2 * C <= min(CLUSTER_MAX, tiles) and 2 * C * bh <= CLUSTER_SMS * per_sm:
+        C *= 2
+    return C
+
+
+def cluster_chunks(S: int, C: int) -> list:
+    """Keys [lo, end) of each CTA of a cluster of C, in rank order: the S
+    keys' 128-key tiles dealt out in order, CTA c from tile floor(c·tiles/C)."""
+    tiles = -(-S // CLUSTER_KEYS)
+    return [(c * tiles // C * CLUSTER_KEYS, min((c + 1) * tiles // C * CLUSTER_KEYS, S))
+            for c in range(C)]
 
 # launches per kernel, counted where each wrapper launches and nowhere else
 LAUNCHES = {
@@ -74,9 +114,11 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     lib.flash_rows.argtypes = [
         _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL, _F, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL, _F, _I, _P,
     ]
     lib.flash_rows.restype = _I
+    lib.decode_cluster_occupancy.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
+    lib.decode_cluster_occupancy.restype = _I
     lib.splitk_combine.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
     lib.splitk_combine.restype = _I
     return lib
@@ -163,9 +205,10 @@ def _check_q_staging(q: torch.Tensor) -> None:
 def _rows(q4: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lens: torch.Tensor,
           *, add: int, splits: int, out: Optional[torch.Tensor],
           partial: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
-          name: str, tables: Optional[torch.Tensor] = None) -> None:
+          name: str, tables: Optional[torch.Tensor] = None, cluster: int = 1) -> None:
     """Launch ``flash_rows``: contiguous K/V (B, S, Hkv, D), or with
-    ``tables`` the pool (P, ps, Hkv, D) read at S = n_blocks·ps."""
+    ``tables`` the pool (P, ps, Hkv, D) read at S = n_blocks·ps; ``cluster``
+    is the single-stage decode's CTAs per (sequence, kv head)."""
     B, Q, Hq, D = q4.shape
     if tables is None:
         _, S, Hkv, _ = k.shape
@@ -182,22 +225,45 @@ def _rows(q4: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lens: torch.Tensor
         l.data_ptr() if l is not None else None,
         acc.data_ptr() if acc is not None else None,
         B, Q, Hq, Hkv, S, splits, add, ps,
-        q4.stride(0), q4.stride(1), k_sb, v_sb, tbl_sb, 1.0 / math.sqrt(D), _stream(q4),
+        q4.stride(0), q4.stride(1), k_sb, v_sb, tbl_sb, 1.0 / math.sqrt(D), cluster,
+        _stream(q4),
     )
     _check_launch(rc, name)
     LAUNCHES[name] += 1
 
 
+def _cluster(cluster: Optional[int], S: int, bh: int, dtype: torch.dtype, D: int) -> int:
+    if cluster is None:
+        return cluster_split(S, bh, CLUSTER_CTAS_PER_SM[dtype][D])
+    if cluster not in (1, 2, 4, 8):
+        raise ValueError(f"cluster must be 1, 2, 4 or 8: {cluster}")
+    return cluster
+
+
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                          lengths: torch.Tensor) -> torch.Tensor:
-    """Single-stage flash decoding: q (B, Hq, D) vs K/V (B, S, Hkv, D)."""
+                          lengths: torch.Tensor, *, cluster: Optional[int] = None
+                          ) -> torch.Tensor:
+    """Single-stage flash decoding: q (B, Hq, D) vs K/V (B, S, Hkv, D), in
+    clusters of ``cluster`` CTAs per (sequence, kv head) (``cluster_split``'s
+    by default)."""
     _check_kv(q, k_cache, v_cache, lengths)
-    B, Hq, D = q.shape
-    q4 = q.unsqueeze(1)
+    B, S, Hkv, _ = k_cache.shape
+    Hq, D = q.shape[1:]
     out = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=q.device)
-    _rows(q4, k_cache, v_cache, lengths, add=0, splits=1, out=out, partial=None,
-          name="decode_attention")
+    _rows(q.unsqueeze(1), k_cache, v_cache, lengths, add=0, splits=1, out=out, partial=None,
+          name="decode_attention", cluster=_cluster(cluster, S, B * Hkv, q.dtype, D))
     return out[:, 0]
+
+
+def cluster_occupancy(dtype: torch.dtype, D: int, G: int, C: int) -> Tuple[int, int]:
+    """The single-stage decode kernel of (dtype, head dim D, G heads per kv
+    head) in clusters of C CTAs: how many clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``), and a CTA's dynamic shared memory
+    in bytes."""
+    out = (_I * 2)()
+    _check_launch(_lib().decode_cluster_occupancy(_DTYPES[dtype], D, G, C, out),
+                  "decode_cluster_occupancy")
+    return out[0], out[1]
 
 
 def splitk_partial_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -256,14 +322,17 @@ def mixed_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.
 
 
 def decode_attention_paged_cuda(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
-                                block_tables: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+                                block_tables: torch.Tensor, lengths: torch.Tensor, *,
+                                cluster: Optional[int] = None) -> torch.Tensor:
     """Single-stage paged flash decoding: q (B, Hq, D) vs the pool through
-    (B, n_blocks) tables."""
+    (B, n_blocks) tables, as ``decode_attention_cuda`` at S = n_blocks·ps."""
     _check_paged(q, k_pages, v_pages, block_tables, lengths)
     B, Hq, D = q.shape
+    S = block_tables.shape[1] * k_pages.shape[1]
     out = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=q.device)
     _rows(q.unsqueeze(1), k_pages, v_pages, lengths, add=0, splits=1, out=out, partial=None,
-          name="decode_attention_paged", tables=block_tables)
+          name="decode_attention_paged", tables=block_tables,
+          cluster=_cluster(cluster, S, B * k_pages.shape[2], q.dtype, D))
     return out[:, 0]
 
 

@@ -1,7 +1,8 @@
 // A warp-level bf16 attention tile for Hopper's tensor cores (sm_90a),
 // shared by the flash-attention forward (flash_attention.cu), the
-// mixed-step q-chunk kernel and the split-K decode partial
-// (decode_attention.cu).
+// mixed-step q-chunk kernel, the split-K decode partial and the
+// single-stage cluster decode (decode_attention.cu; merge_warps also by
+// its fp32 twin).
 //
 // One warp owns 16 (query, head) rows.  Its Q rows are held as the
 // A-fragments of mma.sync.m16n8k16 (bf16 in, fp32 accumulate), loaded once
@@ -33,8 +34,10 @@
 // its unnormalised fp32 (acc, m, l); the warps that shared the rows (a key
 // split) are merged with the log-sum-exp rescale; the result is divided by
 // max(l, 1e-30), rounded to bf16 and stored 16 bytes at a time; padding
-// rows are never stored.  The split-K partial's epilogue (finish_partial)
-// merges the same way and stores the merged state unnormalised, in fp32.
+// rows are never stored.  The split-K partial's epilogue (finish_partial:
+// store_tile, then merge_warps) merges the same way and stores the merged
+// state unnormalised, in fp32, to global memory or, for the cluster
+// decode, to the CTA's shared memory.
 
 #pragma once
 
@@ -237,15 +240,11 @@ template <int D> struct Reduce {
   static constexpr int kFloats = kWarpRows * kStride + 2 * kWarpRows;  // per warp
 };
 
-// The epilogue.  Every warp of the CTA calls it with its tile; the caller
-// has drained cp.async and synchronised, so `red` may alias the K/V ring.
-// Warps w and w' with w / split == w' / split hold the same 16 rows over
-// disjoint keys and are merged; rows at or past `live` (counted from the
-// first row of the group's tile, `row0`) are not stored.  out_row(r) is
-// output row r's first element.
-template <int D, int kThreads, class OutRow>
-__device__ __forceinline__ void finish_rows(const WarpTile<D>& t, float* red, int split,
-                                            int row0, int live, OutRow out_row) {
+// Each warp's unnormalised fp32 (acc, m, l) of its 16 rows into its slot of
+// `red` (Reduce<D>::kFloats floats per warp: acc rows of stride
+// Reduce<D>::kStride, then m[16], then l[16]), l summed over the quad.
+template <int D>
+__device__ __forceinline__ void store_tile(const WarpTile<D>& t, float* red) {
   constexpr int RS = Reduce<D>::kStride;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* mine = red + warp * Reduce<D>::kFloats;
@@ -266,6 +265,20 @@ __device__ __forceinline__ void finish_rows(const WarpTile<D>& t, float* red, in
       mine[kWarpRows * RS + kWarpRows + r + 8 * h] = l;
     }
   }
+}
+
+// The epilogue.  Every warp of the CTA calls it with its tile; the caller
+// has drained cp.async and synchronised, so `red` may alias the K/V ring.
+// Warps w and w' with w / split == w' / split hold the same 16 rows over
+// disjoint keys and are merged; rows at or past `live` (counted from the
+// first row of the group's tile, `row0`) are not stored.  out_row(r) is
+// output row r's first element.
+template <int D, int kThreads, class OutRow>
+__device__ __forceinline__ void finish_rows(const WarpTile<D>& t, float* red, int split,
+                                            int row0, int live, OutRow out_row) {
+  constexpr int RS = Reduce<D>::kStride;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  store_tile(t, red);
   __syncthreads();
 
   const int first = warp / split * split;      // the group's first warp
@@ -297,41 +310,19 @@ __device__ __forceinline__ void finish_rows(const WarpTile<D>& t, float* red, in
   }
 }
 
-// The split-K epilogue: every warp of the CTA holds the same 16 rows over
-// disjoint keys of one chunk.  Their (m, l, acc) are merged with the
-// log-sum-exp rescale and rows [0, live) are stored unnormalised, in fp32:
-// m_out[r], l_out[r] and acc_out[r * D ...].  A warp that saw no key has
-// m = -1e30, l = 0, acc = 0, so it adds nothing (its weight is 0, or 1
-// when no warp saw a key, and then the rows are the identity state).  The
-// caller has drained cp.async and synchronised, so `red` may alias the
-// K/V ring.
+// Merge the kThreads / 32 warp states in `red` (as store_tile leaves them:
+// the same 16 rows over disjoint keys) with the log-sum-exp rescale and
+// store rows [0, live) unnormalised, in fp32: m_out[r], l_out[r] and
+// acc_out[r * D ...] (16-byte aligned; global or shared memory).  A warp
+// that saw no key has m = -1e30, l = 0, acc = 0, so it adds nothing (its
+// weight is 0, or 1 when no warp saw a key, and then the rows are the
+// identity state).  The caller has synchronised after the stores.
 template <int D, int kThreads>
-__device__ __forceinline__ void finish_partial(const WarpTile<D>& t, float* red, int live,
-                                               float* m_out, float* l_out, float* acc_out) {
+__device__ __forceinline__ void merge_warps(const float* red, int live, float* m_out,
+                                            float* l_out, float* acc_out) {
   constexpr int RS = Reduce<D>::kStride;
   constexpr int F = Reduce<D>::kFloats;
   constexpr int kWarps = kThreads / 32;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* mine = red + warp * F;
-  const int r = lane / 4, c = (lane % 4) * 2;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    *reinterpret_cast<float2*>(mine + r * RS + n * 8 + c) = make_float2(t.acc[n][0], t.acc[n][1]);
-    *reinterpret_cast<float2*>(mine + (r + 8) * RS + n * 8 + c) =
-        make_float2(t.acc[n][2], t.acc[n][3]);
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float l = t.l[h];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    if (lane % 4 == 0) {
-      mine[kWarpRows * RS + r + 8 * h] = t.m[h];
-      mine[kWarpRows * RS + kWarpRows + r + 8 * h] = l;
-    }
-  }
-  __syncthreads();
-
   constexpr int C = D / 8;
   for (int u = threadIdx.x; u < live * C; u += kThreads) {
     const int row = u / C, d0 = (u % C) * 8;
@@ -357,6 +348,18 @@ __device__ __forceinline__ void finish_partial(const WarpTile<D>& t, float* red,
       l_out[row] = l_star;
     }
   }
+}
+
+// The split-K epilogue: every warp of the CTA holds the same 16 rows over
+// disjoint keys of one chunk; their states are merged (merge_warps) and
+// rows [0, live) stored unnormalised.  The caller has drained cp.async and
+// synchronised, so `red` may alias the K/V ring.
+template <int D, int kThreads>
+__device__ __forceinline__ void finish_partial(const WarpTile<D>& t, float* red, int live,
+                                               float* m_out, float* l_out, float* acc_out) {
+  store_tile(t, red);
+  __syncthreads();
+  merge_warps<D, kThreads>(red, live, m_out, l_out, acc_out);
 }
 
 }  // namespace attn_mma

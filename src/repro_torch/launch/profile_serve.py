@@ -1,14 +1,17 @@
 """Profile the port's serving path on the card with ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve
-        [--arch qwen3-0.6b|rwkv6-7b|zamba2-2.7b] [--paged] [--legacy] [--out build/profile]
+        [--arch qwen3-0.6b|rwkv6-7b|zamba2-2.7b] [--paged] [--legacy]
+        [--max-len 4096] [--out build/profile]
 
 Serves a full-width model (all layers, seeded random weights, bf16;
 qwen3-0.6b by default) through ``EngineClient`` at the default
 ``EngineConfig`` (with ``--paged``, ``paged_kv=True``; with ``--legacy``,
 ``mixed_step=False``: one prefill per admission; rwkv6-7b and
 zamba2-2.7b take legacy admission either way, as they have no mixed
-step) -- 8 requests with distinct prompts of 16 to 1024 tokens, 16 new
+step; ``--max-len`` sets the cache length, which picks the decode
+attention: split-K at 2048 keys or more, the single-stage cluster kernel
+below) -- 8 requests with distinct prompts of 16 to 1024 tokens, 16 new
 tokens each -- once to warm up and once under the profiler, and prints
 one JSON line: wall time, device busy time (the union of kernel and
 memcpy intervals in the trace) and idle share, time per engine step (a
@@ -16,7 +19,8 @@ mixed step, a decode step or a prefill), the top device kernels, the
 prefill kernel's share of the device busy time (flash attention, the
 WKV6 recurrence for rwkv, or the SSD scan for the hybrid), the
 host-side calls that synchronise (``cudaStreamSynchronize``, pageable
-``cudaMemcpyAsync``), and the device kernels one decode step and one
+``cudaMemcpyAsync``), the decode-attention kernels' launches and device
+time, and the device kernels one decode step and one
 prefill launch per layer (each counted in a trace of that call alone).
 The Chrome trace goes to ``<out>/trace.json``.  Needs a CUDA card.
 """
@@ -79,12 +83,14 @@ def main(argv=None) -> int:
     ap.add_argument("--legacy", action="store_true",
                     help="legacy admission (mixed_step=False): one prefill per request")
     ap.add_argument("--arch", default="qwen3-0.6b", choices=ARCH_IDS)
+    ap.add_argument("--max-len", type=int, default=EngineConfig.max_len,
+                    help="KV cache length per slot (the engine's default: 4096)")
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     model = Model(cfg).init_(torch.Generator("cuda").manual_seed(0))
-    ecfg = EngineConfig(paged_kv=args.paged, mixed_step=not args.legacy)
+    ecfg = EngineConfig(paged_kv=args.paged, mixed_step=not args.legacy, max_len=args.max_len)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, int(n))
                for n in np.linspace(16, PROMPT_MAX, REQUESTS).round()]
@@ -102,10 +108,11 @@ def main(argv=None) -> int:
            and "dur" in e]
     busy_us = _union_us([(e["ts"], e["ts"] + e["dur"]) for e in dev])
     span_us = (max(e["ts"] + e["dur"] for e in dev) - min(e["ts"] for e in dev)) if dev else 0.0
-    kern = Counter()
+    kern, kern_n = Counter(), Counter()
     for e in dev:
         if e.get("cat") == "kernel":
             kern[e["name"][:80]] += e["dur"]
+            kern_n[e["name"][:80]] += 1
     rt = Counter(e["name"] for e in events if e.get("cat") == "cuda_runtime")
     legacy_prefills = 0 if engine.mixed else tel.prefills
     steps = tel.mixed_steps + tel.chunks * ecfg.decode_chunk + legacy_prefills
@@ -124,6 +131,7 @@ def main(argv=None) -> int:
     prefill_kernels = _kernels_in(lambda: model.prefill(prompt))
     print(json.dumps(dict(
         card=torch.cuda.get_device_name(0), arch=cfg.name, paged_kv=args.paged,
+        max_len=ecfg.max_len,
         legacy=not engine.mixed, layers=cfg.n_layers, requests=len(handles),
         prompt_tokens=int(sum(len(p) for p in prompts)), max_new=MAX_NEW,
         wall_s=wall, mixed_steps=tel.mixed_steps, decode_steps=tel.chunks * ecfg.decode_chunk,
@@ -135,9 +143,13 @@ def main(argv=None) -> int:
         decode_kernels_per_layer=decode_kernels / cfg.n_layers,
         prefill_kernels_per_layer=prefill_kernels / cfg.n_layers,
         top_kernels_ms={k: v / 1e3 for k, v in kern.most_common(12)},
+        # the decode-attention kernels: the single-stage (cluster_, or
+        # flash_rows_ for more than 16 heads per kv head) and split-K ones
+        decode_attention_kernels={k: dict(launches=kern_n[k], ms=v / 1e3) for k, v in kern.items()
+                                  if any(n in k for n in ("cluster_", "flash_rows", "splitk"))},
         syncs=dict(stream_sync=rt.get("cudaStreamSynchronize", 0),
                    memcpy_async=rt.get("cudaMemcpyAsync", 0),
-                   launches=rt.get("cudaLaunchKernel", 0)),
+                   launches=rt.get("cudaLaunchKernel", 0) + rt.get("cudaLaunchKernelExC", 0)),
         trace=str(trace),
     )))
     return 0

@@ -15,7 +15,14 @@ edges (1, 15, 16, 17, 63, 64, 65 and 2000 tokens, 64-token chunks of
 the state carried across two calls, on strided views, and which kernel
 the profiler sees (bf16: ``ssd_chunk_kernel``, fp32: ``ssd_kernel``, one
 launch per call); the RMSNorm in both forms at widths 128, 2560 and 5120
-over 1 to 2000 rows).
+over 1 to 2000 rows; the single-stage decode, one launch split over a
+thread-block cluster, in both dtypes, contiguous and paged (page sizes 5,
+12, 16, 64), at D 32-128, G 1-16 (G = 32 on ``flash_rows_kernel``), every
+cluster size at lengths 1, 127, 128, 129, each side of every chunk edge
+and S, B 1, 3 and 8, NaN past every length and in every pool row not
+held, two calls bit-equal, a strided ``q[:, 0]`` view, and which kernel
+the profiler sees (``cluster_mma_kernel`` in bf16, ``cluster_f32_kernel``
+in fp32, one per call, no memset)).
 
 Marked ``gpu``; each test asks the ``cuda`` fixture for the card, which
 skips when ``torch.cuda.is_available()`` is false.  This file imports no
@@ -61,6 +68,19 @@ TOL = {torch.float32: dict(atol=2e-5, rtol=1e-3), torch.bfloat16: dict(atol=2e-2
 BF16_ROW_FRAC = 0.1
 # the unnormalised split-K accumulator sums up to S / k_splits terms
 ACC_ATOL = {torch.float32: 8e-5, torch.bfloat16: 8e-2}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _kernels_built():
+    """Every kernel library built before any test traces one: a profiler
+    session that holds nvcc's build (~40 s for decode_attention.cu) leaves
+    later sessions in the process recording no device activity every other
+    time."""
+    if torch.cuda.is_available():
+        from repro_torch.kernels import _build
+
+        _build.build([m.SOURCE for m in (kernel, flash_kernel, wkv_kernel, ssd_kernel,
+                                         norm_kernel)])
 
 
 @pytest.fixture
@@ -1162,3 +1182,240 @@ def test_wkv6_runs_the_expected_kernel(cuda, dtype, name):
     assert next(iter(counts.values())) == 2, counts
     assert wkv_kernel.LAUNCHES == {"wkv6": 2}
     _wkv_close(*args)
+
+
+# ---------------------------------------------------------------------------
+# the single-stage decode: one launch split over a thread-block cluster
+# (cluster_mma_kernel in bf16, cluster_f32_kernel in fp32, G <= 16)
+# ---------------------------------------------------------------------------
+
+SINGLE_S = 1024
+
+
+def _single_lens(S, C):
+    """1, 127, 128, 129, each side of every chunk edge of a cluster of C,
+    and S."""
+    out = {1, 127, 128, 129, S}
+    for lo, end in kernel.cluster_chunks(S, C):
+        out |= {lo - 1, lo, lo + 1, end - 1, end, end + 1}
+    return sorted(n for n in out if 1 <= n <= S)
+
+
+def _batches(lens_l, B, S):
+    """``lens_l`` in batches of B (the last filled up with S)."""
+    for i in range(0, len(lens_l), B):
+        part = lens_l[i:i + B]
+        yield part + [S] * (B - len(part))
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("D", [32, 64, 80, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_single_stage_kernel_vs_plain(cuda, dtype, D, G):
+    """Every cluster size at lengths on each side of its chunk edges; G = 32
+    (past one m16 tile of rows) takes flash_rows_kernel."""
+    rng = np.random.default_rng(50 + D + G)
+    Hkv, B = 2, 3
+    for C in (1, 2, 4, 8):
+        for lens_l in _batches(_single_lens(SINGLE_S, C), B, SINGLE_S):
+            k, v = _kv(rng, B, SINGLE_S, Hkv, D, dtype, cuda)
+            q = _q(rng, B, Hkv * G, D, dtype, cuda)
+            lens = torch.tensor(lens_l, dtype=torch.int32, device=cuda)
+            _close(kernel.decode_attention_cuda(q, k, v, lens, cluster=C),
+                   ref.decode_attention(q, k, v, lens), dtype)
+
+
+@pytest.mark.parametrize("D,G", [(128, 2), (80, 1), (32, 16)])
+@pytest.mark.parametrize("ps", [5, 12, 16, 64])      # 5 and 12 take the division path
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_single_stage_kernel_vs_plain(cuda, dtype, ps, D, G):
+    rng = np.random.default_rng(60 + ps + D)
+    Hkv, B = 2, 3
+    nb = -(-SINGLE_S // ps)
+    S = nb * ps
+    for C in (1, 2, 4, 8):
+        for lens_l in _batches(_single_lens(S, C), B, S):
+            k, v, tbl = _paged(rng, B, nb, ps, Hkv, D, lens_l, dtype, cuda)
+            q = _q(rng, B, Hkv * G, D, dtype, cuda)
+            lens = torch.tensor(lens_l, dtype=torch.int32, device=cuda)
+            _close(kernel.decode_attention_paged_cuda(q, k, v, tbl, lens, cluster=C),
+                   ref.decode_attention_paged(q, k, v, tbl, lens), dtype)
+
+
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_single_stage_kernel_batch_sizes(cuda, dtype, B):
+    """qwen3-0.6b's heads (8 kv heads, G 2, D 128) at the chooser's cluster
+    over 1024 keys (bf16: 8, 4 and 2 CTAs at B = 1, 3, 8; fp32, two CTAs
+    an SM: 8, 8, 4) and over 544 (5 tiles: at most 4), contiguous and
+    through 16-token pages."""
+    rng = np.random.default_rng(70 + B)
+    Hkv, G, D, ps = 8, 2, 128, 16
+    for S in (SINGLE_S, 544):
+        C = kernel.cluster_split(S, B * Hkv, kernel.CLUSTER_CTAS_PER_SM[dtype][D])
+        for lens_l in _batches(_single_lens(S, C), B, S):
+            k, v = _kv(rng, B, S, Hkv, D, dtype, cuda)
+            q = _q(rng, B, Hkv * G, D, dtype, cuda)
+            lens = torch.tensor(lens_l, dtype=torch.int32, device=cuda)
+            _close(kernel.decode_attention_cuda(q, k, v, lens),
+                   ref.decode_attention(q, k, v, lens), dtype)
+            kp, vp, tbl = _paged(rng, B, S // ps, ps, Hkv, D, lens_l, dtype, cuda)
+            _close(kernel.decode_attention_paged_cuda(q, kp, vp, tbl, lens),
+                   ref.decode_attention_paged(q, kp, vp, tbl, lens), dtype)
+
+
+@pytest.mark.parametrize("D,G", [(128, 2), (80, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_single_stage_kernel_ignores_nan(cuda, dtype, D, G):
+    """NaN in every cache row at or past each length, and in the trash page
+    and every pool row no sequence holds below its length (page sizes 5 and
+    16): the output is finite and equals the clean run's, bit for bit; two
+    calls in a row are bit-equal."""
+    rng = np.random.default_rng(80 + D)
+    Hkv = 2
+    lens_l = [1, 127, 128, 129, 383, 384, 385, SINGLE_S - 5]
+    B = len(lens_l)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=cuda)
+    q = _q(rng, B, Hkv * G, D, dtype, cuda)
+    k, v = _kv(rng, B, SINGLE_S, Hkv, D, dtype, cuda)
+    dead = (torch.arange(SINGLE_S, device=cuda)[None, :] >= lens[:, None]).reshape(-1)
+    clean = kernel.decode_attention_cuda(q, k, v, lens)
+    assert torch.equal(clean, kernel.decode_attention_cuda(q, k, v, lens))
+    out = kernel.decode_attention_cuda(q, _poisoned(k, dead), _poisoned(v, dead), lens)
+    assert bool(torch.isfinite(out).all()) and torch.equal(out, clean)
+    for ps in (5, 16):
+        nb = -(-SINGLE_S // ps)
+        kp, vp, tbl = _paged(rng, B, nb, ps, Hkv, D, lens_l, dtype, cuda)
+        live = torch.zeros(kp.shape[0] * ps, dtype=torch.bool, device=cuda)
+        for b, n in enumerate(lens_l):
+            pos = torch.arange(n, device=cuda)
+            live[tbl[b, pos // ps].long() * ps + pos % ps] = True
+        assert not bool(live[:ps].any())           # nothing live on the trash page
+        clean = kernel.decode_attention_paged_cuda(q, kp, vp, tbl, lens)
+        assert torch.equal(clean, kernel.decode_attention_paged_cuda(q, kp, vp, tbl, lens))
+        out = kernel.decode_attention_paged_cuda(q, _poisoned(kp, ~live), _poisoned(vp, ~live),
+                                                 tbl, lens)
+        assert bool(torch.isfinite(out).all()) and torch.equal(out, clean)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_single_stage_kernel_reads_a_strided_q_view(cuda, dtype, offset):
+    """The decode step's q[:, 0]: a view of the fused projection (B, 1,
+    (Hq + 2 Hkv) D), here also one element past a 16-byte boundary."""
+    rng = np.random.default_rng(90 + offset)
+    Hkv, G, D = 2, 2, 128
+    lens_l = [1, 129, 600, SINGLE_S]
+    B = len(lens_l)
+    k, v = _kv(rng, B, SINGLE_S, Hkv, D, dtype, cuda)
+    width = offset + (Hkv * G + 2 * Hkv) * D
+    fused = torch.as_tensor(rng.standard_normal((B, 1, width)), dtype=torch.float32).to(cuda, dtype)
+    q = fused[:, :, offset:offset + Hkv * G * D].unflatten(-1, (Hkv * G, D))[:, 0]
+    assert not q.is_contiguous() and q.data_ptr() % 16 == offset * q.element_size()
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=cuda)
+    got = kernel.decode_attention_cuda(q, k, v, lens)
+    assert torch.equal(got, kernel.decode_attention_cuda(q.contiguous(), k, v, lens))
+    _close(got, ref.decode_attention(q.contiguous(), k, v, lens), dtype)
+
+
+_TRACE_CASES = [
+    (torch.bfloat16, 2, "cluster_mma_kernel"),
+    (torch.bfloat16, 16, "cluster_mma_kernel"),
+    (torch.bfloat16, 32, "flash_rows_kernel"),     # past one m16 tile of rows
+    (torch.float32, 2, "cluster_f32_kernel"),
+    (torch.float32, 16, "cluster_f32_kernel"),
+    (torch.float32, 32, "flash_rows_kernel"),
+]
+
+# Traced in a process of its own: late in a long pytest process a
+# torch.profiler session came back empty for every kernel (``<<<>>>``
+# launches included), while sessions in a fresh process recorded every
+# launch.
+_TRACE_SCRIPT = r"""
+import json, sys
+import numpy as np, torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.kernels.decode_attention import kernel
+
+def counts(fn, calls):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+out = {}
+for dtype, G in json.loads(sys.argv[1]):
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(95 + G)
+    B, S, Hkv, D, ps = 4, 1024, 1, 128, 16
+    k, v = (torch.as_tensor(rng.standard_normal((B, S, Hkv, D)), dtype=torch.float32).to("cuda", dt)
+            for _ in range(2))
+    P = 1 + B * (S // ps)
+    kp, vp = (torch.as_tensor(rng.standard_normal((P, ps, Hkv, D)), dtype=torch.float32).to("cuda", dt)
+              for _ in range(2))
+    tbl = torch.as_tensor(1 + rng.permutation(P - 1)[: B * (S // ps)].reshape(B, S // ps),
+                          dtype=torch.int32, device="cuda")
+    q = torch.as_tensor(rng.standard_normal((B, Hkv * G, D)), dtype=torch.float32).to("cuda", dt)
+    lens = torch.tensor([1, 129, 600, S], dtype=torch.int32, device="cuda")
+    calls = {"decode_attention": lambda: kernel.decode_attention_cuda(q, k, v, lens),
+             "decode_attention_paged": lambda: kernel.decode_attention_paged_cuda(
+                 q, kp, vp, tbl, lens)}
+    counts(lambda: [c() for c in calls.values()], 1)   # built, loaded, profiler warm
+    for name, call in calls.items():
+        for _ in range(3):                             # an empty trace is taken again
+            kernel.reset_launches()
+            c = counts(call, 2)
+            if c:
+                break
+        out[f"{dtype}-{G}-{name}"] = dict(counts=c, launches=dict(kernel.LAUNCHES))
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def single_stage_traces():
+    """Device kernels by name, and LAUNCHES, for two calls of each
+    single-stage wrapper at every case of ``_TRACE_CASES``, traced in a
+    fresh process (``_TRACE_SCRIPT``)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cases = json.dumps([[str(dt).split(".")[-1], G] for dt, G, _ in _TRACE_CASES])
+    run = subprocess.run([sys.executable, "-c", _TRACE_SCRIPT, cases], env=env,
+                         capture_output=True, text=True, timeout=600, check=True)
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("dtype,G,name", _TRACE_CASES)
+def test_single_stage_runs_the_expected_kernel(cuda, single_stage_traces, dtype, G, name):
+    """Which kernel the single-stage decode launches (contiguous and paged),
+    by the profiler's kernel names: exactly one device kernel per wrapper
+    call (two calls per traced session), no memset and no second kernel,
+    and one count per call in LAUNCHES."""
+    for wrapper in ("decode_attention", "decode_attention_paged"):
+        got = single_stage_traces[f"{str(dtype).split('.')[-1]}-{G}-{wrapper}"]
+        counts = got["counts"]
+        assert len(counts) == 1 and name in next(iter(counts)), counts
+        assert next(iter(counts.values())) == 2, counts
+        assert got["launches"][wrapper] == 2 and sum(got["launches"].values()) == 2, got
+    rng = np.random.default_rng(95 + G)
+    Hkv, D, ps = 1, 128, 16
+    lens_l = [1, 129, 600, SINGLE_S]
+    B = len(lens_l)
+    k, v = _kv(rng, B, SINGLE_S, Hkv, D, dtype, cuda)
+    kp, vp, tbl = _paged(rng, B, SINGLE_S // ps, ps, Hkv, D, lens_l, dtype, cuda)
+    q = _q(rng, B, Hkv * G, D, dtype, cuda)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=cuda)
+    _close(kernel.decode_attention_cuda(q, k, v, lens), ref.decode_attention(q, k, v, lens), dtype)
+    _close(kernel.decode_attention_paged_cuda(q, kp, vp, tbl, lens),
+           ref.decode_attention_paged(q, kp, vp, tbl, lens), dtype)
