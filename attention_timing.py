@@ -9,10 +9,12 @@ The rows are phase 6's: the mixed q-chunk step (B=8, Q=8, 8 kv heads,
 G=2, D=128, a 2048-key window of a 4096-row cache, phase 6's cache
 lengths), the same through block tables over phase 6's 3073-page pool,
 the flash forward at B=1, S=2000, causal (16 q / 8 kv heads of 128,
-and 32 / 32 heads of 80), and the split-K decode partial and its pair
-(partial + combine) at K=8 over a 4096-row cache at phase 6's lengths
-(8 kv heads, G=2, D=128; 32 kv heads of 80, G=1; and D=128 through the
-pool), each pair beside the one SDPA call with its result; the WKV6
+and 32 / 32 heads of 80), and the split-K decode (one launch whose last
+CTA per sequence and kv head merges the chunk states; in a tree before
+that, the partial and combine pair) and its partial alone at K=8 over a
+4096-row cache at phase 6's lengths (8 kv heads, G=2, D=128; 32 kv heads
+of 80, G=1; and D=128 through the pool), each beside the one SDPA call
+with its result; the WKV6
 recurrence at phase 6's shape (rwkv6-7b's prefill: B=1, S=2000, 64 heads
 of 64, bf16 r/k/v/u, fp32 logw, zero state) and at phase 4g's (B=8,
 S=512); and the SSD scan at phase 6's shape (zamba2-2.7b's prefill: B=1,
@@ -24,7 +26,8 @@ fp32, contiguous (beside SDPA in bf16) and through block tables over a
 769-page pool of 16-token pages, and in fp32 at the recovery tier's
 shape (qwen3-0.6b reduced as the JAX fleet serves it: 2 kv heads of 32,
 G=2; B=3, a 205-page pool, 34-column tables: max_len 544, lengths
-512-544).  Each is timed by
+512-544); and the split-K decode and its partial in fp32 at D=128.  Each
+is timed by
 
 - ``back_to_back``: CUDA events around ``iters`` calls made one after the
   other, after a warm-up.  For a kernel shorter than its wrapper's host
@@ -210,7 +213,7 @@ def measure() -> dict:
         out["splitk_partial" + tag] = _three_ways(
             [functools.partial(kernel.splitk_partial_cuda, q, k, v, ln, k_splits=K)
              for k, v in caches], 200)
-        out["splitk_pair" + tag] = _three_ways(
+        out["splitk" + tag] = _three_ways(
             [functools.partial(kernel.decode_attention_splitk_cuda, q, k, v, ln, k_splits=K)
              for k, v in caches], 200)
         out["splitk_sdpa" + tag] = _three_ways(
@@ -221,7 +224,7 @@ def measure() -> dict:
     out["paged_splitk_partial"] = _three_ways(
         [functools.partial(kernel.paged_splitk_partial_cuda, q, kp, vp, tbl, lens, k_splits=K)
          for kp, vp in pools], 200)
-    out["paged_splitk_pair"] = _three_ways(
+    out["paged_splitk"] = _three_ways(
         [functools.partial(kernel.decode_attention_paged_splitk_cuda, q, kp, vp, tbl, lens,
                            k_splits=K) for kp, vp in pools], 200)
     del pools
@@ -263,6 +266,18 @@ def measure() -> dict:
     # recovery tier's (B=3, 2 kv heads of 32, 34 columns over a 205-page
     # pool) in fp32
     out.update(_single_stage(gen, kernel, single_np))
+    # the split-K decode and its partial alone in fp32 (flash_rows_kernel)
+    # at phase 6's D=128 shape and lengths
+    q = torch.randn((B, HKV * G, D), generator=gen, device="cuda")
+    caches = [(torch.randn((B, S_MAX, HKV, D), generator=gen, device="cuda"),
+               torch.randn((B, S_MAX, HKV, D), generator=gen, device="cuda"))
+              for _ in range(RING)]
+    out["splitk_partial_fp32"] = _three_ways(
+        [functools.partial(kernel.splitk_partial_cuda, q, k, v, lens, k_splits=K)
+         for k, v in caches], 100)
+    out["splitk_fp32"] = _three_ways(
+        [functools.partial(kernel.decode_attention_splitk_cuda, q, k, v, lens, k_splits=K)
+         for k, v in caches], 100)
     return out
 
 

@@ -51,10 +51,15 @@ Phases (any failure exits non-zero; nothing is caught):
    step), in the trash page and every pool row a sequence does not hold
    (phase 4d's prefill_paged call), past Sq and Sk (the flash prefill at
    S=2000), and in bf16 past every length and in every pool row not held
-   for the split-K partial and pair (qwen3's and zamba2's heads, phase
+   for the split-K partial and decode (qwen3's and zamba2's heads, phase
    4b's pool) leave the output finite and bit-equal to the clean run's;
    the bf16 paged split-K also at page sizes 5 and 12 (the kernel's
    division path); every empty split chunk is the identity state exactly;
+   the split-K decode, one launch whose last CTA of each sequence and kv
+   head merges the chunk states, in both layouts and dtypes against the
+   plain merge of the partial kernel's own states, its plain version and
+   the plain decode, also with a zero-length row (exactly 0), its counters
+   0 after it and repeated launches bit-equal;
    the single-stage decode (one launch split over a thread-block cluster)
    at the recovery tier's shape (B=3, max_len 544, qwen3-0.6b reduced as
    the JAX fleet serves it: 2 kv heads of 32, G 2; paged and contiguous,
@@ -64,7 +69,8 @@ Phases (any failure exits non-zero; nothing is caught):
 4. serve: EngineClient serves full-width qwen3-0.6b (28 layers, bf16,
    seeded random weights) at the default EngineConfig: 16 requests,
    prompts 16..2000 tokens, 32 new tokens each; launch counters are
-   zeroed just before and read just after;
+   zeroed just before and read just after; 4-4d launch the split-K
+   decode exactly once per layer per decode step, the partial alone never;
 4b. serve, paged: the same model at EngineConfig(paged_kv=True): 16
    requests of 32 new tokens -- two groups of 4 sharing a 1024-token
    system prompt, 4 cold prompts, and 4 exact repeats each submitted right
@@ -97,7 +103,7 @@ Phases (any failure exits non-zero; nothing is caught):
    32000, bf16, seeded random weights, 4.84 GB) at the default
    EngineConfig (legacy admission, as rwkv6): phase 4's traffic; each
    admission is one Model.prefill (54 SSD and 9 flash launches), each
-   decode step 9 split-K pairs at head_dim 80; every norm of the hybrid
+   decode step 9 split-K launches at head_dim 80; every norm of the hybrid
    path through the RMSNorm kernel; no mixed, paged or WKV6 kernel may
    launch. The rwkv6 model is freed first;
 4i. generate on zamba2-2.7b: B=8, prompt 512, 32 steps;
@@ -129,7 +135,11 @@ Phases (any failure exits non-zero; nothing is caught):
    (``ms_by_cols``, ``ms_by_rows``), the single-stage decode also in
    bf16 (beside SDPA) and in fp32 at the recovery tier's shape (B=3, 2
    kv heads of 32, paged, max_len 544), each at every cluster size
-   (``ms_by_cluster``); bounds
+   (``ms_by_cluster``); the split-K decode also as its partial alone
+   (``partial_ms``); the fp32 routes (``flash_rows_kernel<float>`` as the
+   mixed step and split-K decode, ``flash_fwd_kernel``, ``wkv6_kernel``,
+   ``ssd_kernel``) at phase 6's shapes as an ``fp32`` sub-row with their
+   launches in phases 5-5e; bounds
    from the bytes and operations of the inputs timed (the bf16 scans'
    flops at the 3xTF32 rate).
 
@@ -313,11 +323,12 @@ def phase_kernels() -> dict:
         norm = lambda a, ll: a / ll.clamp(min=1e-30)[..., None]  # noqa: E731
         note("decode_attention_splitk_partial", _close(
             "splitk_partial (acc/l)", norm(acc, l), norm(acc_r, l_r), dtype))
-        note("decode_attention_splitk_combine", _close(
-            "splitk_combine", kernel.splitk_combine_cuda(m_r, l_r, acc_r, dtype),
-            ref.splitk_combine(m_r, l_r, acc_r, dtype), dtype))
-        _close("splitk pair", kernel.decode_attention_splitk_cuda(q, k, v, lens, k_splits=8),
-               ref.decode_attention(q, k, v, lens), dtype)
+        # the one-launch split-K decode, also with a zero-length row and
+        # lengths at each side of the 512-key chunk edges
+        for ls in (lens_list, [0, 1, 17, 511, 512, 513, 2049, 4096]):
+            lz = torch.tensor(ls, dtype=torch.int32, device="cuda")
+            note("decode_attention_splitk",
+                 fused_splitk_check(f"splitk lengths={ls}", q, k, v, lz, dtype, 8))
 
         for Q in (1, 8, 32):
             qm = _rand(gen, (B, Q, HKV * G, D), dtype)
@@ -350,8 +361,9 @@ def phase_kernels() -> dict:
             f"decode_attention_paged {tag}", kernel.decode_attention_paged_cuda(
                 q, kp, vp, tbl, lens), ref.decode_attention_paged(q, kp, vp, tbl, lens), dtype))
 
-        note("decode_attention_paged_splitk_partial",
-             paged_splitk_check(tag, q, kp, vp, tbl, lens, dtype))
+        part, fused = paged_splitk_check(tag, q, kp, vp, tbl, lens, dtype)
+        note("decode_attention_paged_splitk_partial", part)
+        note("decode_attention_paged_splitk", fused)
 
         # Q=8 through the table cut to its first 2048 keys (a column slice)
         Q, W = 8, 2048
@@ -490,9 +502,46 @@ def single_stage_checks(gen) -> dict:
     return errs
 
 
-def paged_splitk_check(tag, q, kp, vp, tbl, lens, dtype) -> float:
+def fused_splitk_check(tag, q, k, v, lens, dtype, K, tbl=None) -> float:
+    """The one-launch split-K decode over K/V (or, with ``tbl``, the pool
+    through the tables) against the plain merge of the partial kernel's
+    own chunk states, against its plain version (every row: 0 at length 0,
+    as the TPU kernels give) and against the plain single-stage decode
+    (rows of nonzero length); the split-K counters all 0 after it, and
+    three more launches bit-equal to it.  Returns the error against the
+    plain version."""
+    from repro_torch.kernels.decode_attention import kernel, ref
+
+    if tbl is None:
+        def fused():
+            return kernel.decode_attention_splitk_cuda(q, k, v, lens, k_splits=K)
+        m, l, acc = kernel.splitk_partial_cuda(q, k, v, lens, k_splits=K)
+        plain = ref.decode_attention_splitk(q, k, v, lens, k_splits=K)
+        plain_decode = ref.decode_attention(q, k, v, lens)
+    else:
+        def fused():
+            return kernel.decode_attention_paged_splitk_cuda(q, k, v, tbl, lens, k_splits=K)
+        m, l, acc = kernel.paged_splitk_partial_cuda(q, k, v, tbl, lens, k_splits=K)
+        plain = ref.decode_attention_paged_splitk(q, k, v, tbl, lens, k_splits=K)
+        plain_decode = ref.decode_attention_paged(q, k, v, tbl, lens)
+    got = fused()
+    _close(f"{tag} vs the plain merge of its partials", got, ref.splitk_combine(m, l, acc, dtype),
+           dtype)
+    err = _close(f"{tag} vs plain", got, plain, dtype)
+    live = lens > 0
+    _close(f"{tag} vs plain decode", got[live], plain_decode[live], dtype)
+    check(bool((got[~live] == 0).all()), f"{tag}: a zero-length row is not 0")
+    for _ in range(3):
+        check(torch.equal(fused(), got), f"{tag}: a repeated launch differs")
+    torch.cuda.synchronize()
+    check(not bool(kernel.split_counters(q, 0).any()), f"{tag}: split-K counters not 0 after it")
+    return err
+
+
+def paged_splitk_check(tag, q, kp, vp, tbl, lens, dtype) -> tuple:
     """The paged split-K partial (at the engine's split of this table) and
-    the pair against their plain versions; returns the partial's error."""
+    the one-launch paged split-K decode against their plain versions, the
+    latter also with row 0 at length 0; returns both errors."""
     from repro_torch.kernels.decode_attention import kernel, ops, ref
 
     ps = kp.shape[1]
@@ -512,10 +561,11 @@ def paged_splitk_check(tag, q, kp, vp, tbl, lens, dtype) -> float:
           f"paged split-K partial l differs ({tag})")
     norm = lambda a, ll: a / ll.clamp(min=1e-30)[..., None]  # noqa: E731
     err = _close(f"paged splitk_partial (acc/l) {tag}", norm(acc, l), norm(acc_r, l_r), dtype)
-    _close(f"paged splitk pair {tag}", kernel.decode_attention_paged_splitk_cuda(
-        q, kp, vp, tbl, lens, k_splits=K), ref.decode_attention_paged(q, kp, vp, tbl, lens),
-        dtype)
-    return err
+    fused = 0.0
+    for lz in (lens, torch.cat([lens.new_zeros(1), lens[1:]])):
+        fused = max(fused, fused_splitk_check(f"paged splitk {tag} lengths={lz.tolist()}",
+                                              q, kp, vp, lz, dtype, K, tbl))
+    return err, fused
 
 
 def flash_kernel_checks(gen) -> dict:
@@ -601,7 +651,7 @@ Z_H, Z_D = 32, 80
 
 def head_dim_80_checks(gen) -> dict:
     """The attention kernels at zamba2's head_dim 80, G=1: the single-stage
-    decode at phase 5e's max_len 512, the split-K pair at the default
+    decode at phase 5e's max_len 512, the one-launch split-K decode at the default
     max_len 4096 (K=8) over 8 slots, and the flash forward at the prefill
     shape (B=1, causal, q/k/v slices of one fused projection) at S 16, 700
     and 2000."""
@@ -610,7 +660,7 @@ def head_dim_80_checks(gen) -> dict:
     from repro_torch.kernels.flash_attention import ref as flash_ref
 
     errs = {name: {} for name in ("decode_attention", "decode_attention_splitk_partial",
-                                  "decode_attention_splitk_combine", "flash_attention")}
+                                  "decode_attention_splitk", "flash_attention")}
 
     def note(name, dtype, err):
         errs[name][str(dtype)] = max(errs[name].get(str(dtype), 0.0), err)
@@ -637,11 +687,9 @@ def head_dim_80_checks(gen) -> dict:
         norm = lambda a, ll: a / ll.clamp(min=1e-30)[..., None]  # noqa: E731
         note("decode_attention_splitk_partial", dtype, _close(
             "splitk_partial D=80 (acc/l)", norm(acc, l), norm(acc_r, l_r), dtype))
-        note("decode_attention_splitk_combine", dtype, _close(
-            "splitk_combine D=80", kernel.splitk_combine_cuda(m_r, l_r, acc_r, dtype),
-            ref.splitk_combine(m_r, l_r, acc_r, dtype), dtype))
-        _close("splitk pair D=80", kernel.decode_attention_splitk_cuda(q, k, v, lens, k_splits=K),
-               ref.decode_attention(q, k, v, lens), dtype)
+        for lz in (lens, torch.cat([lens.new_zeros(1), lens[1:]])):
+            note("decode_attention_splitk", dtype, fused_splitk_check(
+                f"splitk D=80 lengths={lz.tolist()}", q, k, v, lz, dtype, K))
         del k, v
         for S in (16, 700, 2000):
             fused = _rand(gen, (1, S, 3 * Z_H, Z_D), dtype)
@@ -763,7 +811,7 @@ def poison_checks(gen) -> list:
     sequence's own below its length, the trash page included (phase 4d's
     prefill_paged call), and the rows past Sq and Sk of the buffers q, k
     and v are cut from (the flash prefill at B=1, S=2000); then the bf16
-    split-K partial and pair, with NaN past every length (qwen3's and
+    split-K partial and decode, with NaN past every length (qwen3's and
     zamba2's heads) and in every pool row not held (phase 4b's pool).  The
     output must be finite and equal to the clean run's, bit for bit."""
     from repro_torch.kernels.decode_attention import kernel
@@ -817,7 +865,7 @@ def poison_checks(gen) -> list:
              flash_kernel.flash_attention_cuda(q[:, :S], k[:, :S], v[:, :S], causal=True), clean)
         del q, k, v
 
-    # the bf16 split-K partial (m, l, acc) and pair, K=8 over 4096 keys:
+    # the bf16 split-K partial (m, l, acc) and decode, K=8 over 4096 keys:
     # NaN in the cache past every length at qwen3's heads and at zamba2's
     # (32 kv heads of 80), then in every row of phase 4b's pool that no
     # sequence holds below its length, the trash page included
@@ -825,10 +873,10 @@ def poison_checks(gen) -> list:
     lens_np = np.array([1, 17, 511, 512, 513, 2049, 3000, S_MAX - 5])
     lens = torch.as_tensor(lens_np, dtype=torch.int32, device="cuda")
 
-    def same_split(tag, partial, pair, *kv):
+    def same_split(tag, partial, fused, *kv):
         for what, got, want in zip(("m", "l", "acc"), partial(*kv[:2]), partial(*kv[2:])):
             same(f"splitk_partial {what} {tag}", got, want)
-        same(f"splitk pair {tag}", pair(*kv[:2]), pair(*kv[2:]))
+        same(f"splitk {tag}", fused(*kv[:2]), fused(*kv[2:]))
 
     dead = (torch.arange(S_MAX, device="cuda")[None, :] >= lens[:, None]).reshape(-1)
     for hkv, g, d in ((HKV, G, D), (Z_H, 1, Z_D)):
@@ -1008,14 +1056,18 @@ def phase_serve(name_line: str, model, *, paged: bool, legacy: bool = False) -> 
     launches = read_launches()
     check_handles(handles, engine, max_new, cfg.vocab_size, label)
     tel = engine.telemetry
+    split = "decode_attention_paged_splitk" if paged else "decode_attention_splitk"
     if paged:
-        path = ("mixed_attention_paged", "decode_attention_paged_splitk_partial",
-                "decode_attention_splitk_combine")
-        for k_ in ("decode_attention", "decode_attention_splitk_partial", "mixed_attention"):
+        path = ("mixed_attention_paged", split)
+        for k_ in ("decode_attention", "decode_attention_splitk", "mixed_attention"):
             check(launches[k_] == 0, f"{label}: contiguous kernel {k_} launched")
     else:
-        path = ("decode_attention_splitk_partial", "decode_attention_splitk_combine")
-        path += () if legacy else ("mixed_attention",)
+        path = (split,) if legacy else (split, "mixed_attention")
+    # one split-K launch per layer per decode step, and the chunk states
+    # alone never
+    check_decode_launches(launches, engine, cfg.n_layers, split, label)
+    for k_ in ("decode_attention_splitk_partial", "decode_attention_paged_splitk_partial"):
+        check(launches[k_] == 0, f"{label}: {k_} launched on its own")
     if legacy:
         # one Model.prefill (a flash launch per layer) per prefill dispatch;
         # a paged prefix hit's prefill_paged runs the paged q-chunk kernel
@@ -1147,8 +1199,10 @@ def phase_generate(name_line: str, model) -> dict:
     check(int(engine.nonfinite) == 0, f"generate: {int(engine.nonfinite)} non-finite logits")
     check(launches["flash_attention"] == cfg.n_layers,
           f"generate: {launches['flash_attention']} flash launches, not {cfg.n_layers}")
-    for k_ in ("decode_attention_splitk_partial", "decode_attention_splitk_combine"):
-        check(launches[k_] == cfg.n_layers * steps, f"generate: {k_} {launches[k_]} launches")
+    check(launches["decode_attention_splitk"] == cfg.n_layers * steps,
+          f"generate: {launches['decode_attention_splitk']} split-K launches for {steps} steps "
+          f"of {cfg.n_layers} layers")
+    check(launches["decode_attention_splitk_partial"] == 0, "generate: a partial-only launch")
     return dict(batch=B_, prompt_len=plen, steps=steps, layers=cfg.n_layers, dtype=cfg.dtype,
                 wall_s=wall, tokens_per_s=B_ * steps / wall, launches=launches, card=name_line)
 
@@ -1251,17 +1305,19 @@ def phase_legacy_vs_mixed(cpu_model, card_model, streams) -> dict:
         exact, ties = compare_streams(prompts, [h.result() for h in handles], mixed_streams,
                                       card_model, card_model, ("legacy", "mixed"))
         out[key] = dict(requests=len(prompts), exact_streams=exact, near_ties=ties,
-                        wall_s=wall, prefills=engine.telemetry.prefills,
-                        flash_launches=launches["flash_attention"])
+                        wall_s=wall, prefills=engine.telemetry.prefills, launches=launches)
     toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (4, 64))
     gens = []
     for model in (card_model, cpu_model):
         engine = make_engine_class()(model, EngineConfig(max_len=1024), device=model.device)
+        reset_launches()
         gens.append(engine.generate({"inputs": toks}, 16, 64))
+        if model is card_model:
+            launches = read_launches()
     exact, ties = compare_streams([list(t) for t in toks], gens[0], gens[1], card_model,
                                   cpu_model, ("card", "cpu"))
     out["generate"] = dict(batch=4, prompt_len=64, steps=16, exact_streams=exact,
-                           near_ties=ties)
+                           near_ties=ties, launches=launches)
     return out
 
 
@@ -1270,8 +1326,8 @@ def expected_scan_launches(cfg, prefills: int, steps: int, max_len: int) -> dict
     B-row prefills and ``steps`` decode steps, by name (any kernel not
     named must not launch): rwkv6 one WKV6 launch per layer per prefill;
     the hybrid one SSD launch per Mamba-2 layer and one flash launch per
-    shared application per prefill, one decode launch (a split-K pair at a
-    max_len that splits) per application per step, and per forward pass
+    shared application per prefill, one decode launch (the one-launch
+    split-K decode at a max_len that splits) per application per step, and per forward pass
     two plain RMSNorms per Mamba-2 layer, the shared ln1 per application
     and one fused residual add + ln2 per application."""
     from repro_torch.kernels.decode_attention import ops
@@ -1284,8 +1340,7 @@ def expected_scan_launches(cfg, prefills: int, steps: int, max_len: int) -> dict
     out = {"ssd": L * prefills, "flash_attention": G * prefills,
            "rmsnorm": (2 * L + G) * passes, "rmsnorm_fused": G * passes}
     if ops.auto_k_splits(max_len) > 1:
-        out["decode_attention_splitk_partial"] = G * steps
-        out["decode_attention_splitk_combine"] = G * steps
+        out["decode_attention_splitk"] = G * steps
     else:
         out["decode_attention"] = G * steps
     return out
@@ -1526,26 +1581,22 @@ def phase_timing() -> dict:
     k, v = _rand(gen, (B, S, HKV, D), dt), _rand(gen, (B, S, HKV, D), dt)
     q = _rand(gen, (B, HKV * G, D), dt)
     lens_np = rng.integers(16, 2033, B)
+    split_np = lens_np
     lens = torch.as_tensor(lens_np, dtype=torch.int32, device="cuda")
     mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
     keys = int(lens_np.sum())
-    part_bytes = B * HKV * K * G * (D + 2) * 4
-    m, l, acc = kernel.splitk_partial_cuda(q, k, v, lens, k_splits=K)
-    sdpa_ms = time_ms(lambda: _sdpa(q[:, None], k, v, mask), 50)
-    row("decode_attention_splitk_partial", dt,
-        time_ms(lambda: kernel.splitk_partial_cuda(q, k, v, lens, k_splits=K), 200),
-        time_ms(lambda: ref.decode_attention_splitk_partial(q, k, v, lens, k_splits=K), 20),
-        2 * keys * HKV * D * es + B * HKV * G * D * es + 4 * B + part_bytes,
+    # the one-launch split-K decode: its bytes are q, K/V below each length,
+    # the lengths and the output (the chunk states are a workspace in L2);
+    # partial_ms is the same kernel storing the chunk states alone
+    row("decode_attention_splitk", dt,
+        time_ms(lambda: kernel.decode_attention_splitk_cuda(q, k, v, lens, k_splits=K), 200),
+        time_ms(lambda: ref.decode_attention_splitk(q, k, v, lens, k_splits=K), 20),
+        2 * keys * HKV * D * es + 2 * B * HKV * G * D * es + 4 * B,
         4 * keys * HKV * G * D,
-        sdpa_ms,
-        f"bf16 B={B} S={S} K={K} Hkv={HKV} G={G} D={D} lengths={lens_np.tolist()}; "
-        "library_ms is SDPA for the whole partial+combine pair")
-    row("decode_attention_splitk_combine", torch.float32,
-        time_ms(lambda: kernel.splitk_combine_cuda(m, l, acc, dt), 200),
-        time_ms(lambda: ref.splitk_combine(m, l, acc, dt), 50),
-        part_bytes + B * HKV * G * D * es,
-        B * HKV * K * G * (3 * D + 4),
-        None, f"fp32 partials B={B} Hkv={HKV} K={K} G={G} D={D} -> bf16")
+        time_ms(lambda: _sdpa(q[:, None], k, v, mask), 50),
+        f"bf16 B={B} S={S} K={K} Hkv={HKV} G={G} D={D} lengths={lens_np.tolist()}")
+    out["decode_attention_splitk"]["partial_ms"] = time_ms(
+        lambda: kernel.splitk_partial_cuda(q, k, v, lens, k_splits=K), 200)
 
     # mixed step: Q=8 (chunk_quantum(64) at 8 slots), a 2048-key window of the 4096 cache
     Q, W = 8, 2048
@@ -1572,14 +1623,15 @@ def phase_timing() -> dict:
     kp, vp, tbl = paged_inputs(gen, lens_np, ps, dt)
     shape = (f"bf16 B={B} pool {kp.shape[0]}x{ps} tables ({B},{tbl.shape[1]}) "
              f"Hkv={HKV} G={G} D={D}")
-    row("decode_attention_paged_splitk_partial", dt,
-        time_ms(lambda: kernel.paged_splitk_partial_cuda(q, kp, vp, tbl, lens, k_splits=K), 200),
-        time_ms(lambda: ref.decode_attention_paged_splitk_partial(q, kp, vp, tbl, lens,
-                                                                  k_splits=K), 20),
-        2 * keys * HKV * D * es + B * HKV * G * D * es + 4 * B + table_bytes(lens_np)
-        + part_bytes,
+    row("decode_attention_paged_splitk", dt,
+        time_ms(lambda: kernel.decode_attention_paged_splitk_cuda(q, kp, vp, tbl, lens,
+                                                                  k_splits=K), 200),
+        time_ms(lambda: ref.decode_attention_paged_splitk(q, kp, vp, tbl, lens, k_splits=K), 20),
+        2 * keys * HKV * D * es + 2 * B * HKV * G * D * es + 4 * B + table_bytes(lens_np),
         4 * keys * HKV * G * D, None,
         f"{shape} K={K} lengths={lens_np.tolist()}; library: {no_call}")
+    out["decode_attention_paged_splitk"]["partial_ms"] = time_ms(
+        lambda: kernel.paged_splitk_partial_cuda(q, kp, vp, tbl, lens, k_splits=K), 200)
     view = tbl[:, :W // ps]
     row("mixed_attention_paged", dt,
         time_ms(lambda: kernel.mixed_attention_paged_cuda(qm, kp, vp, view, cl), 200),
@@ -1743,25 +1795,111 @@ def phase_timing() -> dict:
     lens = torch.as_tensor(lens_np, dtype=torch.int32, device="cuda")
     mask = (torch.arange(Sc, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
     keys = int(lens_np.sum())
-    part_bytes = B * Hk * K * (Dz + 2) * 4
-    m, l, acc = kernel.splitk_partial_cuda(q, k, v, lens, k_splits=K)
-    row80("decode_attention_splitk_partial", dt,
-          time_ms(lambda: kernel.splitk_partial_cuda(q, k, v, lens, k_splits=K), 200),
-          time_ms(lambda: ref.decode_attention_splitk_partial(q, k, v, lens, k_splits=K), 20),
-          2 * keys * Hk * Dz * es + B * Hq * Dz * es + 4 * B + part_bytes,
+    row80("decode_attention_splitk", dt,
+          time_ms(lambda: kernel.decode_attention_splitk_cuda(q, k, v, lens, k_splits=K), 200),
+          time_ms(lambda: ref.decode_attention_splitk(q, k, v, lens, k_splits=K), 20),
+          2 * keys * Hk * Dz * es + 2 * B * Hq * Dz * es + 4 * B,
           4 * keys * Hq * Dz,
           time_ms(lambda: _sdpa(q[:, None], k, v, mask), 50),
-          f"bf16 B={B} S={Sc} K={K} Hkv={Hk} G=1 D={Dz} lengths={lens_np.tolist()}; "
-          "library_ms is SDPA for the whole partial+combine pair")
-    row80("decode_attention_splitk_combine", torch.float32,
-          time_ms(lambda: kernel.splitk_combine_cuda(m, l, acc, dt), 200),
-          time_ms(lambda: ref.splitk_combine(m, l, acc, dt), 50),
-          part_bytes + B * Hq * Dz * es, B * Hk * K * (3 * Dz + 4),
-          None, f"fp32 partials B={B} Hkv={Hk} K={K} G=1 D={Dz} -> bf16")
+          f"bf16 B={B} S={Sc} K={K} Hkv={Hk} G=1 D={Dz} lengths={lens_np.tolist()}")
+    out["decode_attention_splitk"]["d80"]["partial_ms"] = time_ms(
+        lambda: kernel.splitk_partial_cuda(q, k, v, lens, k_splits=K), 200)
     del k, v
+
+    fp32_timing(out, split_np, cl_np)
 
     single_stage_timing(out, single_np, table_bytes)
     return out
+
+
+def fp32_timing(out: dict, split_np, cl_np) -> None:
+    """The fp32 routes at phase 6's shapes and lengths, as an ``fp32``
+    sub-row of their kernel's row: ``flash_rows_kernel<float>`` as the mixed
+    step and as the one-launch split-K decode, ``flash_fwd_kernel``,
+    ``wkv6_kernel`` and ``ssd_kernel``, each beside its plain version and
+    its fp32 bound (the CUDA cores' 67 TFLOP/s: none uses TF32); SDPA in
+    fp32 where one call computes the same.  A generator of its own."""
+    from repro_torch.kernels.decode_attention import kernel, ref
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+    from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+
+    gen = torch.Generator("cuda").manual_seed(9)
+    dt, es = torch.float32, 4
+    F = torch.nn.functional
+
+    def sub(name, ms, plain_ms, nbytes, ops, library_ms, shape, **extra):
+        b_ms, by = bound_ms(nbytes, ops, dt)
+        out[name]["fp32"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                                 library_ms=library_ms, shape=shape, **extra)
+
+    K, S = 8, S_MAX
+    k, v = _rand(gen, (B, S, HKV, D), dt), _rand(gen, (B, S, HKV, D), dt)
+    q = _rand(gen, (B, HKV * G, D), dt)
+    lens = torch.as_tensor(split_np, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    keys = int(np.asarray(split_np).sum())
+    sub("decode_attention_splitk",
+        time_ms(lambda: kernel.decode_attention_splitk_cuda(q, k, v, lens, k_splits=K), 200),
+        time_ms(lambda: ref.decode_attention_splitk(q, k, v, lens, k_splits=K), 20),
+        2 * keys * HKV * D * es + 2 * B * HKV * G * D * es + 4 * B, 4 * keys * HKV * G * D,
+        time_ms(lambda: _sdpa(q[:, None], k, v, mask), 50),
+        f"fp32 B={B} S={S} K={K} Hkv={HKV} G={G} D={D} lengths={list(map(int, split_np))}",
+        partial_ms=time_ms(lambda: kernel.splitk_partial_cuda(q, k, v, lens, k_splits=K), 200))
+
+    Q, W = 8, 2048
+    qm = _rand(gen, (B, Q, HKV * G, D), dt)
+    cl = torch.as_tensor(cl_np, dtype=torch.int32, device="cuda")
+    kw, vw = k[:, :W], v[:, :W]
+    qpos = cl[:, None] + torch.arange(Q, device="cuda")[None, :]
+    mmask = (torch.arange(W, device="cuda")[None, None, :] <= qpos[:, :, None])[:, None]
+    seen = int(np.minimum(np.asarray(cl_np) + Q, W).sum())
+    pairs = int(sum((c + i + 1) for c in cl_np for i in range(Q)))
+    sub("mixed_attention",
+        time_ms(lambda: kernel.mixed_attention_cuda(qm, kw, vw, cl), 200),
+        time_ms(lambda: ref.mixed_attention(qm, kw, vw, cl), 20),
+        2 * seen * HKV * D * es + 2 * B * Q * HKV * G * D * es + 4 * B, 4 * pairs * HKV * G * D,
+        time_ms(lambda: _sdpa(qm, kw, vw, mmask), 50),
+        f"fp32 B={B} Q={Q} window={W} of S={S} Hkv={HKV} G={G} D={D} "
+        f"cache_lens={list(map(int, cl_np))}")
+    del k, v, kw, vw
+
+    S = 2000
+    q = _rand(gen, (1, S, HKV * G, D), dt)
+    k, v = _rand(gen, (1, S, HKV, D), dt), _rand(gen, (1, S, HKV, D), dt)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sub("flash_attention",
+        time_ms(lambda: flash_kernel.flash_attention_cuda(q, k, v, causal=True), 20),
+        time_ms(lambda: flash_ref.flash_attention(q, k, v, causal=True), 5),
+        (2 * S * HKV * G * D + 2 * S * HKV * D) * es, 4 * D * HKV * G * S * (S + 1) // 2,
+        time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                       enable_gqa=True), 20),
+        f"fp32 B=1 Sq=Sk={S} Hq={HKV * G} Hkv={HKV} D={D} causal")
+    del q, k, v, qt, kt, vt
+
+    H, N = 64, 64
+    r, k, v, logw, u, _ = wkv_inputs(gen, 1, S, H, N, dt, state=False)
+    zeros = torch.zeros((1, H, N, N), device="cuda")
+    sub("wkv6",
+        time_ms(lambda: wkv_kernel.wkv6_cuda(r, k, v, logw, u), 20),
+        time_ms(lambda: wkv_ref.wkv6_chunked(r, k, v, logw, u, zeros), 5),
+        (5 * S * H * N + H * N + H * N * N) * es, 5 * N * N * S * H, None,
+        f"fp32 r/k/v/u/logw, B=1 S={S} H={H} N={N}, zero state; "
+        "library: none (no one call computes the WKV6 recurrence)")
+    del r, k, v, logw, u
+
+    H, P, N = 80, 64, 64
+    x, dt_, A, Bm, Cm, _ = ssd_inputs(gen, 1, S, H, P, N, dt, state=False)
+    zeros = torch.zeros((1, H, P, N), device="cuda")
+    sub("ssd",
+        time_ms(lambda: ssd_kernel.ssd_cuda(x, dt_, A, Bm, Cm), 20),
+        time_ms(lambda: ssd_ref.ssd_chunked(x, dt_, A, Bm, Cm, zeros), 5),
+        (2 * S * H * P + 2 * S * N + S * H + H + H * P * N) * es, 5 * P * N * S * H, None,
+        f"fp32 x/B/C/dt/A, B=1 S={S} H={H} P={P} N={N}, zero state; "
+        "library: none (no one call computes the SSD recurrence)")
 
 
 def single_stage_timing(out: dict, lens_np, table_bytes) -> None:
@@ -1846,30 +1984,57 @@ REPLACES = {
     "rmsnorm_fused": "src/repro/kernels/rmsnorm/kernel.py:65",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:96",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:103",
-    "decode_attention_splitk_partial": "src/repro/kernels/decode_attention/kernel.py:218",
-    "decode_attention_splitk_combine": "src/repro/kernels/decode_attention/kernel.py:272",
+    # one launch for both pallas_calls of each split-K function: the partial and the combine
+    "decode_attention_splitk": "src/repro/kernels/decode_attention/kernel.py:218 and :272",
     "mixed_attention": "src/repro/kernels/decode_attention/kernel.py:599",
     "decode_attention_paged": "src/repro/kernels/decode_attention/kernel.py:342",
-    "decode_attention_paged_splitk_partial": "src/repro/kernels/decode_attention/kernel.py:444",
+    "decode_attention_paged_splitk": "src/repro/kernels/decode_attention/kernel.py:444 and :511",
     "mixed_attention_paged": "src/repro/kernels/decode_attention/kernel.py:692",
     "wkv6": "src/repro/kernels/rwkv6_scan/kernel.py:75",
 }
-# the main-path runs whose launches each kernel reports (the combine serves both layouts)
+# the main-path runs whose launches each kernel reports
 ZAMBA2_PHASES = ("serve_zamba2", "generate_zamba2")
 LAUNCH_PHASES = {
     "flash_attention": ("serve_legacy", "serve_legacy_paged", "generate") + ZAMBA2_PHASES,
     "decode_attention": ("serve_single", "card_vs_cpu", "zamba2_card_vs_cpu"),
-    "decode_attention_splitk_partial": ("serve",) + ZAMBA2_PHASES,
-    "decode_attention_splitk_combine": ("serve", "serve_paged") + ZAMBA2_PHASES,
+    "decode_attention_splitk": ("serve",) + ZAMBA2_PHASES,
     "mixed_attention": ("serve", "serve_single"),
     "decode_attention_paged": ("serve_single_paged", "card_vs_cpu_paged"),
-    "decode_attention_paged_splitk_partial": ("serve_paged",),
+    "decode_attention_paged_splitk": ("serve_paged",),
     "mixed_attention_paged": ("serve_paged", "serve_legacy_paged", "serve_single_paged"),
     "wkv6": ("serve_rwkv", "generate_rwkv"),
     "ssd": ZAMBA2_PHASES,
     "rmsnorm": ZAMBA2_PHASES,
     "rmsnorm_fused": ZAMBA2_PHASES,
 }
+# the fp32 phases whose launches each fp32 route reports: by kernel row,
+# (the run, the counter read) for phases 5, 5b, 5c (its legacy runs and its
+# card generate), 5d and 5e
+_VS = ("legacy_vs_mixed",)
+FP32_PHASES = {
+    "mixed_attention": ((("card_vs_cpu",), "mixed_attention"),
+                        (("card_vs_cpu_paged",), "mixed_attention_paged"),
+                        (_VS + ("paged",), "mixed_attention_paged")),
+    "decode_attention_splitk": tuple(
+        ((ph,), name) for ph in ("card_vs_cpu", "card_vs_cpu_paged", "zamba2_card_vs_cpu")
+        for name in ("decode_attention_splitk", "decode_attention_paged_splitk")),
+    "flash_attention": tuple((_VS + (key,), "flash_attention")
+                             for key in ("contiguous", "paged", "generate"))
+    + ((("zamba2_card_vs_cpu",), "flash_attention"),),
+    "wkv6": ((("rwkv_card_vs_cpu",), "wkv6"),),
+    "ssd": ((("zamba2_card_vs_cpu",), "ssd"),),
+}
+
+
+def fp32_launches(runs: dict, name: str) -> dict:
+    """The fp32 route's launches in the fp32 phases, by "run/counter"."""
+    out = {}
+    for path, counter in FP32_PHASES[name]:
+        run = runs
+        for key in path:
+            run = run[key]
+        out["/".join(path + (counter,))] = run["launches"][counter]
+    return out
 
 
 def main() -> int:
@@ -2045,9 +2210,11 @@ def main() -> int:
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], shape=t["shape"],
             **({"head_dim_80": t["d80"]} if "d80" in t else {}),
+            **({"fp32": dict(t["fp32"], launches_by_phase=fp32_launches(runs, name))}
+               if "fp32" in t else {}),
             **{k: v for k, v in t.items()
                if k.startswith("phase_") or k in ("ms_by_cols", "ms_by_rows", "ms_by_cluster",
-                                                  "cluster", "bf16")}))
+                                                  "cluster", "bf16", "partial_ms")}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(name_line)
     print(json.dumps({"kernels": rows}))

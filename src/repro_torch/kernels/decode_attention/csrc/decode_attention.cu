@@ -6,22 +6,22 @@
 //                                                           cluster_mma_kernel in bf16,
 //                                                           cluster_f32_kernel in fp32;
 //                                                           flash_rows_kernel otherwise
-//   * decode_attention_splitk  (_splitk_partial_kernel)  -> flash_rows, Q=1, add=0, splits=K,
-//                                                           partial state out:
+//   * decode_attention_splitk  (_splitk_partial_kernel   -> flash_rows, Q=1, add=0, splits=K,
+//                               + _splitk_combine_kernel)   counters: one launch, the chunk states
+//                                                           merged by the last CTA to finish
+//                                                           (count_in_and_merge):
 //                                                           splitk_mma_kernel in bf16 (G <= 16),
-//                                                           flash_rows_kernel otherwise
-//                              (_splitk_combine_kernel)  -> splitk_combine
+//                                                           flash_rows_kernel otherwise; without
+//                                                           counters the partial states alone
 //   * mixed_attention_pallas   (_mixed_kernel)           -> flash_rows, add=1, splits=1:
 //                                                           mixed_mma_kernel in bf16,
 //                                                           flash_rows_kernel in fp32
 //   * decode_attention_paged   (_paged_decode_kernel)    -> flash_rows, tbl, Q=1, add=0, splits=1:
 //                                                           the same cluster kernels
 //   * decode_attention_paged_splitk
-//                              (_paged_splitk_partial_kernel) -> flash_rows, tbl, Q=1, add=0,
-//                                                           splits=K, partial state out:
-//                                                           splitk_mma_kernel in bf16 (G <= 16),
-//                                                           flash_rows_kernel otherwise
-//                              (combine: the same splitk_combine)
+//                              (_paged_splitk_partial_kernel -> flash_rows, tbl, Q=1, add=0,
+//                               + the same combine)         splits=K, counters: as the contiguous
+//                                                           split-K, through the block tables
 //   * mixed_attention_paged    (_mixed_paged_kernel)     -> flash_rows, tbl, add=1, splits=1:
 //                                                           mixed_mma_kernel in bf16,
 //                                                           flash_rows_kernel in fp32
@@ -53,6 +53,27 @@
 // cores (mixed_mma_kernel and splitk_mma_kernel, below), the single-stage
 // decode in both dtypes on a thread-block cluster (cluster_mma_kernel,
 // cluster_f32_kernel, below).
+//
+// The split-K merge, in the partial's own launch.  The TPU runs split-K
+// decoding as two pallas_calls: the chunk states, then a combine over them.
+// Here the combine was its own launch too (splitk_combine_kernel, 0.0033
+// ms a launch against a bytes bound of 0.00017 at phase 6's shape), with
+// a second wrapper call on the host and the states' round trip through
+// device memory.  Now each CTA of the split-K launch, once its chunk's
+// state is stored, counts the chunk in (count_in_and_merge): the CTA that
+// completes a (sequence, kv head)'s count (a row block's, in
+// flash_rows_kernel) reads the chunk states back through L2, merges them
+// in chunk order and writes the output.  A chunk wholly past the length
+// would add exact zeros, so its CTA exits at once and the count waits for
+// the live chunks only (live_chunks): a first version that counted every
+// chunk, and had the merge wait on L2 once per chunk, took 0.0265 ms at
+// phase 6's D = 128 shape against the pair's 0.0258.  A cluster of K CTAs
+// (as the single-stage decode merges) does not suit this launch: at K = 8
+// the split CTA's 145,664 bytes of shared memory leave 15 clusters
+// resident on 132 SMs, and a chunk wholly past the length would hold its
+// SM at cluster.sync() until its siblings finish.  The counters are an
+// int32 buffer of the wrapper's, zeroed once per device and stream; each
+// count wraps to 0 at the merge (atom.inc), so no launch needs a memset.
 //
 // Head dims 32, 64, 80 and 128.  At D = 80 (zamba2's shared attention) a
 // bf16 tile is 320 16-byte packs for 128 threads, so each thread makes 3
@@ -111,23 +132,28 @@
 // with zeros to one m16 tile, all 8 warps hold those 16 rows and take 16
 // keys each of every 128-key tile (the tensor cores are far from the limit
 // on this bytes-bound call), and their (m, l, acc) merge in finish_partial,
-// which writes the chunk's unnormalised state for splitk_combine.  The
+// which writes the chunk's unnormalised state (and, in the split-K
+// decode, counts it in for the merge, count_in_and_merge).  The
 // chunk's keys [c * ck, min((c + 1) * ck, lens[b])) are the tile's row
 // interval; K/V come through the mixed kernel's cp.async ring with its row
 // offsets (zero-fill past the length; shifts or division for the page).  A
-// chunk wholly past the length writes the identity state and exits before
-// any copy: at phase 6's lengths, 42 of each head's 64 chunks.  Q arrives
+// chunk wholly past the length writes the identity state before any copy
+// (the partial alone) or exits at once (the split-K decode): at phase 6's
+// lengths, 42 of each head's 64 chunks.  Q arrives
 // with plain loads while the first tile is in flight, so q may be any view
 // with dense heads (the decode step's q[:, 0] of the projection).  Ring:
 // 2 stages (shared memory 145,664 bytes at D = 128, 94,976 at D = 80,
 // 78,080 at D = 64, 44,288 at D = 32).  A third stage took the same time
 // at D = 128 (one CTA per SM either way) and 12% longer at D = 80, where
-// it leaves one CTA per SM instead of two.  ptxas (sm_90a): 173
-// registers per thread at D = 128, 120 at D = 80, 114 at D = 64, 57 at
-// D = 32, no spills.  NVIDIA H100 80GB HBM3, 700.00 W, phase 6's shapes,
-// queued and warm (attention_timing.py): 0.0208 ms at D = 128 (1.8x its
-// bound; the pair 0.0251 against SDPA's 0.0610), 0.0443 at D = 80 (1.5x),
-// 0.0205 paged.
+// it leaves one CTA per SM instead of two.  ptxas (sm_90a), with the
+// merge: 173 registers per thread at D = 128, 122 at D = 80, 114 at D = 64,
+// 80 at D = 32, no spills (flash_rows_kernel, which the merge also joins,
+// spills 8 bytes at bf16 D = 64 and 4 at fp32 D = 80).  NVIDIA H100 80GB
+// HBM3, 700.00 W, phase 6's shapes, queued and warm (attention_timing.py):
+// the partial alone 0.0207 ms at D = 128 (1.8x its bound), 0.0453 at D = 80,
+// 0.0214 paged; the one-launch split-K decode 0.0235 at D = 128 (the
+// partial + combine pair before it 0.0254; SDPA 0.0616), 0.0476 at D = 80
+// (0.0496), 0.0235 paged (0.0255).
 //
 // The single-stage decode: cluster_mma_kernel (bf16) and cluster_f32_kernel
 // (fp32).  Below the split-K threshold (2048 keys, ops.py) every decode
@@ -193,7 +219,7 @@
 // with -1e30 (not -inf: a fully masked row stays finite), p rounded to V's
 // dtype before the PV product, output divided by max(l, 1e-30).  A split
 // chunk wholly past the length emits the identity state (m=-1e30, l=0,
-// acc=0), which the combine's rescale zeroes.
+// acc=0), which the merge's rescale zeroes; a sequence of length 0 gives 0.
 //
 // Every entry point returns cudaGetLastError() after its launch (or -1 for
 // an unsupported dtype/head_dim), so a refused launch is reported.
@@ -249,11 +275,99 @@ struct RowsParams {
   float* m_out;       // (B, Hkv, splits, R) partial state, else nullptr
   float* l_out;
   float* acc_out;     // (B, Hkv, splits, R, D)
+  int* counters;      // split-K: (B, Hkv, row blocks) arrival counts, all 0
+                      // between launches; the merged rows go to out.  nullptr:
+                      // the partial state alone
   int B, Q, Hq, Hkv, S, splits, add;
   long long q_sb, q_sq, k_sb, v_sb, tbl_sb;
   int ps;             // page size (paged only)
   float scale;
 };
+
+// The split-K merge in the partial's launch.  A chunk wholly past the
+// length adds exact zeros to the merge (its weight exp(-1e30 - m*) is 0),
+// so it takes no part: its CTA exits before storing anything, and the
+// count waits for the live chunks only, live_chunks of them (chunk 0 is
+// live at length 0 too, and its identity state merges to 0).
+__device__ __forceinline__ int live_chunks(const RowsParams& p, int b) {
+  const int ck = p.S / p.splits;
+  const int len = min(p.S, p.lens[b]);
+  return max(1, min(p.splits, (len + ck - 1) / ck));
+}
+
+constexpr int kMergeBatch = 8;   // chunk states a thread loads at once (auto_k_splits <= 8)
+
+// Every thread of a CTA that has stored its chunk's (m, l, acc) for rows
+// [r0, r0 + nr) of (b, h) calls it.  The CTA synchronises, so thread 0 has
+// observed every thread's stores; thread 0 then counts the chunk in on
+// counter `ctr` with one atom.acq_rel.gpu.inc wrapping at live - 1: its
+// release makes those stores visible at device scope before the count
+// (cumulativity, the pattern of cooperative groups' grid sync and
+// CUTLASS's split-K semaphore, without a separate fence in every thread;
+// 1.5% faster at phase 6's shape), and the CTA that completes the count
+// reads live - 1, acquires every other CTA's stores with it, and leaves
+// the counter at 0 for the next launch.  After a second barrier that CTA
+// reads the live chunk states through L2 (__ldcg: other SMs wrote them,
+// and L1 is not coherent with their stores; the first kMergeBatch of them
+// all in flight at once, so the merge waits on L2 about once), merges
+// them in chunk order with the TPU combine's arithmetic (m* first, then
+// the alpha-weighted sums, then a divide by max(l, 1e-30)) and stores the
+// rows in T.  Which CTA merges depends on scheduling; what it computes
+// does not.
+template <typename T, int D, int kNThreads>
+__device__ __forceinline__ void count_in_and_merge(const RowsParams& p, int b, int h, int ctr,
+                                                   int r0, int nr, int live) {
+  __shared__ int last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned old;
+    asm volatile("atom.acq_rel.gpu.global.inc.u32 %0, [%1], %2;"
+                 : "=r"(old) : "l"(reinterpret_cast<unsigned*>(p.counters) + ctr), "r"(live - 1)
+                 : "memory");
+    last = old == static_cast<unsigned>(live - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  const int G = p.Hq / p.Hkv;
+  const long long cell0 = (long long)(b * p.Hkv + h) * p.splits * G;   // chunk 0, row 0
+  const float* m = p.m_out + cell0;
+  const float* l = p.l_out + cell0;
+  const float* acc = p.acc_out + cell0 * D;
+  T* out = static_cast<T*>(p.out) + ((long long)b * p.Hq + h * G) * D;
+  for (int e = threadIdx.x; e < nr * D; e += kNThreads) {
+    const int r = r0 + e / D, d = e % D;
+    float mc[kMergeBatch], lc[kMergeBatch], ac[kMergeBatch];
+#pragma unroll
+    for (int c = 0; c < kMergeBatch; ++c) {
+      if (c < live) {
+        mc[c] = __ldcg(m + c * G + r);
+        lc[c] = __ldcg(l + c * G + r);
+        ac[c] = __ldcg(acc + (long long)(c * G + r) * D + d);
+      }
+    }
+    float m_star = kNegInf;
+#pragma unroll
+    for (int c = 0; c < kMergeBatch; ++c)
+      if (c < live) m_star = fmaxf(m_star, mc[c]);
+    for (int c = kMergeBatch; c < live; ++c) m_star = fmaxf(m_star, __ldcg(m + c * G + r));
+    float l_star = 0.f, o = 0.f;
+#pragma unroll
+    for (int c = 0; c < kMergeBatch; ++c) {
+      if (c < live) {
+        const float alpha = expf(mc[c] - m_star);
+        l_star += lc[c] * alpha;
+        o += ac[c] * alpha;
+      }
+    }
+    for (int c = kMergeBatch; c < live; ++c) {
+      const int cell = c * G + r;
+      const float alpha = expf(__ldcg(m + cell) - m_star);
+      l_star += __ldcg(l + cell) * alpha;
+      o += __ldcg(acc + (long long)cell * D + d) * alpha;
+    }
+    out[r * D + d] = from_f<T>(o / fmaxf(l_star, 1e-30f));
+  }
+}
 
 // Row r of a CTA's (b, h) group is chunk query r / G, head h*G + r % G; it
 // sees keys at positions < lens[b] + r / G + add (add=0: decode length,
@@ -270,6 +384,8 @@ __global__ void __launch_bounds__(kThreads) flash_rows_kernel(RowsParams p) {
   const int c_lo = c * ck;
   const int nr = min(kRows, R - r0);          // live rows in this CTA
   const int base = p.lens[b];
+  // split-K: a chunk wholly past the length takes no part in the merge
+  if (p.counters != nullptr && c >= live_chunks(p, b)) return;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
 
@@ -409,6 +525,9 @@ __global__ void __launch_bounds__(kThreads) flash_rows_kernel(RowsParams p) {
       const int e = tid + i * kThreads, rr = e / D, d = e % D;
       if (rr < nr) p.acc_out[(cell + r0 + rr) * D + d] = acc[i];
     }
+    if (p.counters != nullptr)     // split-K: one counter per (b, h, row block)
+      count_in_and_merge<T, D, kThreads>(p, b, h, (b * p.Hkv + h) * gridDim.x + blockIdx.x,
+                                         r0, nr, live_chunks(p, b));
   } else {
     T* __restrict__ out = static_cast<T*>(p.out);
 #pragma unroll
@@ -420,28 +539,6 @@ __global__ void __launch_bounds__(kThreads) flash_rows_kernel(RowsParams p) {
         out[o] = from_f<T>(acc[i] / fmaxf(l_s[rr], 1e-30f));
       }
     }
-  }
-}
-
-// Merge K partial (m, l, acc) states of one (b, kv head) with the
-// log-sum-exp rescale.  Grid (B * Hkv); reads K*G*(D+2) fp32 per CTA.
-template <typename T>
-__global__ void splitk_combine_kernel(const float* __restrict__ m, const float* __restrict__ l,
-                                      const float* __restrict__ acc, T* __restrict__ out,
-                                      int G, int K, int D) {
-  const long long bh = blockIdx.x;
-  for (int e = threadIdx.x; e < G * D; e += blockDim.x) {
-    const int g = e / D, d = e % D;
-    float m_star = kNegInf;
-    for (int kc = 0; kc < K; ++kc) m_star = fmaxf(m_star, m[(bh * K + kc) * G + g]);
-    float l_star = 0.f, o = 0.f;
-    for (int kc = 0; kc < K; ++kc) {
-      const long long cell = (bh * K + kc) * G + g;
-      const float alpha = expf(m[cell] - m_star);
-      l_star += l[cell] * alpha;
-      o += acc[cell * D + d] * alpha;
-    }
-    out[(bh * G + g) * D + d] = from_f<T>(o / fmaxf(l_star, 1e-30f));
   }
 }
 
@@ -788,7 +885,8 @@ struct MmaChunk {
 // One CTA per (kv head h, sequence b, chunk c): the G query rows of head
 // group h over keys [c * ck, min((c + 1) * ck, lens[b])), ck = S / splits
 // (MmaChunk).  Writes the chunk's unnormalised (m, l, acc) to the (B, Hkv,
-// splits, G[, D]) partials.
+// splits, G[, D]) partials; with counters, the last of (b, h)'s chunks
+// merges them into out (count_in_and_merge).
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads) splitk_mma_kernel(RowsParams p) {
   extern __shared__ uint4 smem_split[];
@@ -800,6 +898,8 @@ __global__ void __launch_bounds__(kMmaThreads) splitk_mma_kernel(RowsParams p) {
   MmaChunk<D> walk(p, b, lo, lo + ck);
 
   const int hi = min(lo + ck, min(p.S, p.lens[b]));
+  const int live = live_chunks(p, b);
+  if (p.counters != nullptr && c >= live) return;   // split-K: no part in the merge
   const long long cell = ((long long)(b * p.Hkv + h) * p.splits + c) * G;
   if (hi <= lo) {                                // wholly past the length: the identity
     for (int e = threadIdx.x; e < G * D; e += kMmaThreads) p.acc_out[cell * D + e] = 0.f;
@@ -807,14 +907,16 @@ __global__ void __launch_bounds__(kMmaThreads) splitk_mma_kernel(RowsParams p) {
       p.m_out[cell + threadIdx.x] = attn_mma::kNegInf;
       p.l_out[cell + threadIdx.x] = 0.f;
     }
-    return;
+  } else {
+    attn_mma::WarpTile<D> t;
+    walk.run(p, b, h, hi, smem_split, t);
+    float* red = reinterpret_cast<float*>(reinterpret_cast<attn_mma::bf16*>(smem_split)
+                                          + SplitSmem<D>::kQ);
+    attn_mma::finish_partial<D, kMmaThreads>(t, red, G, p.m_out + cell, p.l_out + cell,
+                                             p.acc_out + cell * D);
   }
-  attn_mma::WarpTile<D> t;
-  walk.run(p, b, h, hi, smem_split, t);
-  float* red = reinterpret_cast<float*>(reinterpret_cast<attn_mma::bf16*>(smem_split)
-                                        + SplitSmem<D>::kQ);
-  attn_mma::finish_partial<D, kMmaThreads>(t, red, G, p.m_out + cell, p.l_out + cell,
-                                           p.acc_out + cell * D);
+  if (p.counters != nullptr)                     // split-K: one counter per (b, h)
+    count_in_and_merge<attn_mma::bf16, D, kMmaThreads>(p, b, h, b * p.Hkv + h, 0, G, live);
 }
 
 template <int D>
@@ -1221,19 +1323,22 @@ int dispatch_cluster(int dtype, int D, const RowsParams& p, int C, cudaStream_t 
 
 // dtype: 0 = float32, 1 = bfloat16.  tbl: nullptr for a contiguous cache,
 // else the (B, nb) int32 block tables with row stride tbl_sb and S = nb*ps.
+// m_out, l_out, acc_out: the split-K partial states; with counters (at
+// least B * Hkv * ceil(G / 8) int32, all 0) the split-K decode's merged
+// output goes to out in the same launch, the states being its workspace.
 // cluster: the single-stage decode's CTAs per (sequence, kv head), 1-8
 // (kernel.py's cluster_split); the other calls ignore it.  Returns 0 on a
 // launch cudaGetLastError accepted, the CUDA error code otherwise, -1 for
 // an unsupported dtype/D/cluster.
 extern "C" int flash_rows(int dtype, int D, const void* q, const void* k, const void* v,
                           const void* tbl, const void* lens, void* out, void* m_out,
-                          void* l_out, void* acc_out,
+                          void* l_out, void* acc_out, void* counters,
                           int B, int Q, int Hq, int Hkv, int S, int splits, int add, int ps,
                           long long q_sb, long long q_sq, long long k_sb, long long v_sb,
                           long long tbl_sb, float scale, int cluster, void* stream) {
   RowsParams p{q, k, v, static_cast<const int*>(tbl), static_cast<const int*>(lens), out,
                static_cast<float*>(m_out), static_cast<float*>(l_out),
-               static_cast<float*>(acc_out),
+               static_cast<float*>(acc_out), static_cast<int*>(counters),
                B, Q, Hq, Hkv, S, splits, add, q_sb, q_sq, k_sb, v_sb, tbl_sb, ps, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // the bf16 mixed step (contiguous or paged) runs on the tensor cores
@@ -1262,23 +1367,4 @@ extern "C" int decode_cluster_occupancy(int dtype, int D, int G, int C, int* out
   p.Hq = G;
   out[0] = out[1] = 0;
   return dispatch_cluster(dtype, D, p, C, nullptr, out);
-}
-
-extern "C" int splitk_combine(int dtype, const void* m, const void* l, const void* acc, void* out,
-                              int B, int Hkv, int G, int K, int D, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* mf = static_cast<const float*>(m);
-  const float* lf = static_cast<const float*>(l);
-  const float* af = static_cast<const float*>(acc);
-  const int threads = 256;
-  if (dtype == 0) {
-    splitk_combine_kernel<float><<<B * Hkv, threads, 0, s>>>(
-        mf, lf, af, static_cast<float*>(out), G, K, D);
-  } else if (dtype == 1) {
-    splitk_combine_kernel<__nv_bfloat16><<<B * Hkv, threads, 0, s>>>(
-        mf, lf, af, static_cast<__nv_bfloat16*>(out), G, K, D);
-  } else {
-    return -1;
-  }
-  return static_cast<int>(cudaGetLastError());
 }

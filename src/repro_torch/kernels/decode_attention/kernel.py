@@ -11,18 +11,23 @@ of ``LAUNCHES``:
   shared memory (bf16 on the tensor cores through ``cluster_mma_kernel``,
   fp32 on the CUDA cores through ``cluster_f32_kernel``; groups of more
   than 16 heads per kv head through ``flash_rows_kernel``);
-* ``splitk_partial_cuda`` / ``splitk_combine_cuda`` — the two stages of
-  ``decode_attention_splitk`` (the bf16 partial of up to 16 heads per kv
-  head on the tensor cores through ``splitk_mma_kernel``; fp32 and wider
-  groups through ``flash_rows_kernel``);
+* ``decode_attention_splitk_cuda`` — replaces both stages of
+  ``decode_attention_splitk`` (the partial and the combine) with one
+  launch: every CTA stores its chunk's state to a workspace, and the last
+  CTA of each (sequence, kv head) to finish merges the chunk states (bf16
+  with up to 16 heads per kv head on the tensor cores through
+  ``splitk_mma_kernel``; fp32 and wider groups through
+  ``flash_rows_kernel``, a counter per row block);
+* ``splitk_partial_cuda`` — the chunk states alone (the same kernels
+  without the merge), so that they can be held against the plain partial;
 * ``mixed_attention_cuda`` — replaces ``mixed_attention_pallas`` (bf16 on
   the tensor cores through ``mixed_mma_kernel``; fp32 through
   ``flash_rows_kernel`` on the CUDA cores);
 * ``decode_attention_paged_cuda`` — replaces ``decode_attention_paged`` (as
   ``decode_attention_cuda``, through the block tables);
-* ``paged_splitk_partial_cuda`` — stage 1 of ``decode_attention_paged_splitk``
-  (as ``splitk_partial_cuda``, through the block tables; its stage 2 is
-  the shared ``splitk_combine_cuda``);
+* ``decode_attention_paged_splitk_cuda`` / ``paged_splitk_partial_cuda`` —
+  replaces ``decode_attention_paged_splitk`` (as the two above, through the
+  block tables);
 * ``mixed_attention_paged_cuda`` — replaces ``mixed_attention_paged`` (as
   ``mixed_attention_cuda``, through the block tables).
 
@@ -33,6 +38,12 @@ mixed step copies q's rows with 16-byte cp.async, so its q must be 16-byte
 aligned with 16-byte batch and sequence strides; the split-K partial loads
 q with plain loads, so any view with dense (Hq, D) works there (the decode
 step's ``q[:, 0]``), as it does for the single-stage decode.
+
+The split-K decode counts its chunks in on an int32 buffer of the
+wrapper's (``split_counters``), one per (device, stream): zeroed when it
+is made, grown (a new zeroed buffer) when a launch needs more entries,
+never touched by the host otherwise, since the kernel leaves every count
+at 0.  A launch that fails drops it, so the next call starts from zeros.
 
 The library is built on the first call (``kernels._build``).  These take
 CUDA tensors only; ``ops`` sends CPU tensors to ``ref``.
@@ -90,13 +101,18 @@ def cluster_chunks(S: int, C: int) -> list:
 # launches per kernel, counted where each wrapper launches and nowhere else
 LAUNCHES = {
     "decode_attention": 0,
+    "decode_attention_splitk": 0,
     "decode_attention_splitk_partial": 0,
-    "decode_attention_splitk_combine": 0,
     "mixed_attention": 0,
     "decode_attention_paged": 0,
+    "decode_attention_paged_splitk": 0,
     "decode_attention_paged_splitk_partial": 0,
     "mixed_attention_paged": 0,
 }
+
+ROWS_PER_CTA = 8       # flash_rows_kernel's query rows per CTA (csrc: kRows)
+# the split-K decode's arrival counters by (device index, stream)
+_COUNTERS: dict = {}
 
 
 def reset_launches() -> None:
@@ -113,14 +129,12 @@ def _lib() -> ctypes.CDLL:
     stream as ``c_void_p``, so none is cut to 32 bits)."""
     lib = _build.load(SOURCE)
     lib.flash_rows.argtypes = [
-        _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL, _F, _I, _P,
     ]
     lib.flash_rows.restype = _I
     lib.decode_cluster_occupancy.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
     lib.decode_cluster_occupancy.restype = _I
-    lib.splitk_combine.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
-    lib.splitk_combine.restype = _I
     return lib
 
 
@@ -202,13 +216,43 @@ def _check_q_staging(q: torch.Tensor) -> None:
                          f"strides: strides {q.stride()}")
 
 
+def _counter_key(t: torch.Tensor) -> tuple:
+    return t.device.index, _stream(t)
+
+
+def split_counters(t: torch.Tensor, n: int) -> torch.Tensor:
+    """At least ``n`` int32 arrival counters of the split-K decode for the
+    current stream of ``t``'s device, all 0: made zeroed on first use and
+    kept; replaced by a larger zeroed buffer when ``n`` outgrows it."""
+    key = _counter_key(t)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[key] = torch.zeros(n, dtype=torch.int32, device=t.device)
+    return buf
+
+
+def _split_state(q: torch.Tensor, Hkv: int, k_splits: int, D: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """m, l (B, Hkv, K, G) and acc (B, Hkv, K, G, D) fp32, views of one
+    ``torch.empty`` (acc first: the kernels store it as 16-byte vectors)."""
+    B, G = q.shape[0], q.shape[1] // Hkv
+    n = B * Hkv * k_splits * G
+    buf = torch.empty(n * (D + 2), dtype=torch.float32, device=q.device)
+    return (buf[n * D:n * (D + 1)].view(B, Hkv, k_splits, G),
+            buf[n * (D + 1):].view(B, Hkv, k_splits, G),
+            buf[:n * D].view(B, Hkv, k_splits, G, D))
+
+
 def _rows(q4: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lens: torch.Tensor,
           *, add: int, splits: int, out: Optional[torch.Tensor],
           partial: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
-          name: str, tables: Optional[torch.Tensor] = None, cluster: int = 1) -> None:
+          name: str, tables: Optional[torch.Tensor] = None, cluster: int = 1,
+          counters: Optional[torch.Tensor] = None) -> None:
     """Launch ``flash_rows``: contiguous K/V (B, S, Hkv, D), or with
     ``tables`` the pool (P, ps, Hkv, D) read at S = n_blocks·ps; ``cluster``
-    is the single-stage decode's CTAs per (sequence, kv head)."""
+    is the single-stage decode's CTAs per (sequence, kv head); with
+    ``counters`` the split-K chunk states in ``partial`` are merged into
+    ``out`` in the same launch."""
     B, Q, Hq, D = q4.shape
     if tables is None:
         _, S, Hkv, _ = k.shape
@@ -224,10 +268,14 @@ def _rows(q4: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lens: torch.Tensor
         m.data_ptr() if m is not None else None,
         l.data_ptr() if l is not None else None,
         acc.data_ptr() if acc is not None else None,
+        counters.data_ptr() if counters is not None else None,
         B, Q, Hq, Hkv, S, splits, add, ps,
         q4.stride(0), q4.stride(1), k_sb, v_sb, tbl_sb, 1.0 / math.sqrt(D), cluster,
         _stream(q4),
     )
+    if rc != 0 and counters is not None:
+        # counts a failed launch may have left: the next call starts from zeros
+        _COUNTERS.pop(_counter_key(q4), None)
     _check_launch(rc, name)
     LAUNCHES[name] += 1
 
@@ -266,48 +314,51 @@ def cluster_occupancy(dtype: torch.dtype, D: int, G: int, C: int) -> Tuple[int, 
     return out[0], out[1]
 
 
+def _split_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lens: torch.Tensor,
+                k_splits: int, name: str, *, merge: bool,
+                tables: Optional[torch.Tensor] = None):
+    """The split-K launch over K/V (or the pool through ``tables``): with
+    ``merge`` the (B, Hq, D) output of the one fused launch, else the chunk
+    states m, l (B, Hkv, K, G), acc (B, Hkv, K, G, D) fp32."""
+    B, Hq, D = q.shape
+    Hkv = k.shape[2]
+    state = _split_state(q, Hkv, k_splits, D)
+    if not merge:
+        _rows(q.unsqueeze(1), k, v, lens, add=0, splits=k_splits, out=None, partial=state,
+              name=name, tables=tables)
+        return state
+    out = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=q.device)
+    counters = split_counters(q, B * Hkv * -(-(Hq // Hkv) // ROWS_PER_CTA))
+    _rows(q.unsqueeze(1), k, v, lens, add=0, splits=k_splits, out=out, partial=state,
+          name=name, tables=tables, counters=counters)
+    return out[:, 0]
+
+
+def _check_splits(n: int, k_splits: int, what: str) -> None:
+    if k_splits < 1 or n % k_splits:
+        raise ValueError(f"{what} {n} not divisible by k_splits={k_splits}")
+
+
 def splitk_partial_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                         lengths: torch.Tensor, *, k_splits: int
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Stage 1 of split-K decoding: m, l (B, Hkv, K, G), acc (B, Hkv, K, G, D) fp32."""
+    """The split-K chunk states alone: m, l (B, Hkv, K, G), acc (B, Hkv, K,
+    G, D) fp32 (what ``decode_attention_splitk_cuda`` merges in its launch)."""
     _check_kv(q, k_cache, v_cache, lengths)
-    B, S, Hkv, D = k_cache.shape
-    G = q.shape[1] // Hkv
-    if k_splits < 1 or S % k_splits:
-        raise ValueError(f"cache length {S} not divisible by k_splits={k_splits}")
-    f32 = dict(dtype=torch.float32, device=q.device)
-    m = torch.empty((B, Hkv, k_splits, G), **f32)
-    l = torch.empty((B, Hkv, k_splits, G), **f32)
-    acc = torch.empty((B, Hkv, k_splits, G, D), **f32)
-    _rows(q.unsqueeze(1), k_cache, v_cache, lengths, add=0, splits=k_splits, out=None,
-          partial=(m, l, acc), name="decode_attention_splitk_partial")
-    return m, l, acc
-
-
-def splitk_combine_cuda(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
-                        dtype: torch.dtype) -> torch.Tensor:
-    """Stage 2 of split-K decoding: LSE merge of the partials -> (B, Hq, D)."""
-    B, Hkv, K, G, D = acc.shape
-    for name, t, shape in (("m", m, (B, Hkv, K, G)), ("l", l, (B, Hkv, K, G)),
-                           ("acc", acc, (B, Hkv, K, G, D))):
-        if not t.is_cuda or t.dtype != torch.float32 or t.shape != shape or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous fp32 CUDA tensor of shape {shape}")
-    if dtype not in _DTYPES:
-        raise TypeError(f"output dtype {dtype} not in {list(_DTYPES)}")
-    out = torch.empty((B, Hkv * G, D), dtype=dtype, device=acc.device)
-    rc = _lib().splitk_combine(_DTYPES[dtype], m.data_ptr(), l.data_ptr(), acc.data_ptr(),
-                               out.data_ptr(), B, Hkv, G, K, D, _stream(acc))
-    _check_launch(rc, "decode_attention_splitk_combine")
-    LAUNCHES["decode_attention_splitk_combine"] += 1
-    return out
+    _check_splits(k_cache.shape[1], k_splits, "cache length")
+    return _split_rows(q, k_cache, v_cache, lengths, k_splits,
+                       "decode_attention_splitk_partial", merge=False)
 
 
 def decode_attention_splitk_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                                  v_cache: torch.Tensor, lengths: torch.Tensor, *,
                                  k_splits: int) -> torch.Tensor:
-    """Two-stage split-K flash decoding (partial kernel, then combine)."""
-    m, l, acc = splitk_partial_cuda(q, k_cache, v_cache, lengths, k_splits=k_splits)
-    return splitk_combine_cuda(m, l, acc, q.dtype)
+    """Split-K flash decoding in one launch: K chunks of S / K keys per
+    (sequence, kv head), merged by the last CTA of each to finish."""
+    _check_kv(q, k_cache, v_cache, lengths)
+    _check_splits(k_cache.shape[1], k_splits, "cache length")
+    return _split_rows(q, k_cache, v_cache, lengths, k_splits, "decode_attention_splitk",
+                       merge=True)
 
 
 def mixed_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -339,31 +390,25 @@ def decode_attention_paged_cuda(q: torch.Tensor, k_pages: torch.Tensor, v_pages:
 def paged_splitk_partial_cuda(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                               block_tables: torch.Tensor, lengths: torch.Tensor, *,
                               k_splits: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Stage 1 of paged split-K decoding: chunk ``kc`` walks table columns
-    [kc·nb/K, (kc+1)·nb/K).  Emits the contiguous partial layout m, l
-    (B, Hkv, K, G), acc (B, Hkv, K, G, D) fp32, for ``splitk_combine_cuda``."""
+    """The paged split-K chunk states alone: chunk ``kc`` walks table
+    columns [kc·nb/K, (kc+1)·nb/K); the contiguous layout m, l (B, Hkv, K,
+    G), acc (B, Hkv, K, G, D) fp32."""
     _check_paged(q, k_pages, v_pages, block_tables, lengths)
-    B, nb = block_tables.shape
-    Hkv, D = k_pages.shape[2], k_pages.shape[3]
-    G = q.shape[1] // Hkv
-    if k_splits < 1 or nb % k_splits:
-        raise ValueError(f"{nb} blocks not divisible by k_splits={k_splits}")
-    f32 = dict(dtype=torch.float32, device=q.device)
-    m = torch.empty((B, Hkv, k_splits, G), **f32)
-    l = torch.empty((B, Hkv, k_splits, G), **f32)
-    acc = torch.empty((B, Hkv, k_splits, G, D), **f32)
-    _rows(q.unsqueeze(1), k_pages, v_pages, lengths, add=0, splits=k_splits, out=None,
-          partial=(m, l, acc), name="decode_attention_paged_splitk_partial", tables=block_tables)
-    return m, l, acc
+    _check_splits(block_tables.shape[1], k_splits, "n_blocks")
+    return _split_rows(q, k_pages, v_pages, lengths, k_splits,
+                       "decode_attention_paged_splitk_partial", merge=False,
+                       tables=block_tables)
 
 
 def decode_attention_paged_splitk_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                                        v_pages: torch.Tensor, block_tables: torch.Tensor,
                                        lengths: torch.Tensor, *, k_splits: int) -> torch.Tensor:
-    """Two-stage paged split-K flash decoding (paged partial, shared combine)."""
-    m, l, acc = paged_splitk_partial_cuda(q, k_pages, v_pages, block_tables, lengths,
-                                          k_splits=k_splits)
-    return splitk_combine_cuda(m, l, acc, q.dtype)
+    """Paged split-K flash decoding in one launch (as
+    ``decode_attention_splitk_cuda``, through the block tables)."""
+    _check_paged(q, k_pages, v_pages, block_tables, lengths)
+    _check_splits(block_tables.shape[1], k_splits, "n_blocks")
+    return _split_rows(q, k_pages, v_pages, lengths, k_splits,
+                       "decode_attention_paged_splitk", merge=True, tables=block_tables)
 
 
 def mixed_attention_paged_cuda(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,

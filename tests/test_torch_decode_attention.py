@@ -83,6 +83,44 @@ def test_splitk_plain_vs_pallas(k_splits, S, Hkv, G, D):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+def _pool_case(rng, B, nb, ps, Hkv, D, lens):
+    """A shuffled pool of 1 + B·nb pages and (B, nb) tables, the trash page
+    (0) past each length."""
+    P = 1 + B * nb
+    k = rng.standard_normal((P, ps, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((P, ps, Hkv, D)).astype(np.float32)
+    tbl = (1 + rng.permutation(P - 1)[: B * nb]).reshape(B, nb).astype(np.int32)
+    tbl[np.arange(nb)[None, :] >= -(-lens // ps)[:, None]] = 0
+    return k, v, tbl
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("Hkv,G,D", [(2, 2, 128), (2, 1, 80)])   # qwen3-0.6b's, zamba2-2.7b's heads
+@pytest.mark.parametrize("k_splits", [2, 8])
+def test_splitk_plain_vs_pallas_at_chunk_edges(k_splits, Hkv, G, D, paged):
+    """The lengths that decide the one-launch split-K merge: 0 (every chunk
+    empty: the output is 0), one chunk exactly, one past it, and one short
+    of two chunks; the plain split-K decodes against the JAX Pallas pair."""
+    rng = np.random.default_rng(40 + k_splits + D + paged)
+    S, ps = 256, 16
+    ck = S // k_splits
+    lens = np.array([0, ck, ck + 1, 2 * ck - 1], np.int32)
+    B = len(lens)
+    q = rng.standard_normal((B, Hkv * G, D)).astype(np.float32)
+    if paged:
+        k, v, tbl = _pool_case(rng, B, S // ps, ps, Hkv, D, lens)
+        want = jkernel.decode_attention_paged_splitk(*_j(q, k, v, tbl, lens),
+                                                     k_splits=k_splits, interpret=True)
+        got = ref.decode_attention_paged_splitk(*_t(q, k, v, tbl, lens), k_splits=k_splits)
+    else:
+        _, k, v = _inputs(41 + k_splits + D, B, S, Hkv, G, D)
+        want = jkernel.decode_attention_splitk(*_j(q, k, v, lens), k_splits=k_splits,
+                                               block_k=128, interpret=True)
+        got = ref.decode_attention_splitk(*_t(q, k, v, lens), k_splits=k_splits)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert not got[0].any()
+
+
 def test_splitk_partial_empty_chunk_is_identity():
     B, S, Hkv, G, D, K = 2, 256, 2, 2, 32, 4
     q, k, v = _inputs(4, B, S, Hkv, G, D)

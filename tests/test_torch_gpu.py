@@ -22,7 +22,14 @@ cluster size at lengths 1, 127, 128, 129, each side of every chunk edge
 and S, B 1, 3 and 8, NaN past every length and in every pool row not
 held, two calls bit-equal, a strided ``q[:, 0]`` view, and which kernel
 the profiler sees (``cluster_mma_kernel`` in bf16, ``cluster_f32_kernel``
-in fp32, one per call, no memset)).
+in fp32, one per call, no memset); the split-K decode in one launch (the
+last CTA of each sequence and kv head merges the chunk states), both
+dtypes and layouts, K 2, 4 and 8, D 32-128, G 1, 2 and 20, at lengths
+4096, 2049, each side of a chunk edge, 17, 1 and 0, against the plain
+merge of its own chunk states and the plain decode, 20 launches bit-equal,
+its counters 0 after every launch, grown for a larger call and kept for a
+smaller one, one buffer per stream, dropped after a refused launch, and
+contiguous and paged calls back to back).
 
 Marked ``gpu``; each test asks the ``cuda`` fixture for the card, which
 skips when ``torch.cuda.is_available()`` is false.  This file imports no
@@ -135,12 +142,11 @@ def test_splitk_kernels_vs_plain(cuda, dtype, k_splits):
     torch.testing.assert_close(acc, acc_r, atol=ACC_ATOL[dtype], rtol=1e-3)
     empty = m_r <= -1e29
     assert bool(empty.any()) and bool((l[empty] == 0).all()) and bool((acc[empty] == 0).all())
-    # the combine on identical partials
-    _close(kernel.splitk_combine_cuda(m_r, l_r, acc_r, dtype),
-           ref.splitk_combine(m_r, l_r, acc_r, dtype), dtype)
-    # and the pair end to end
-    _close(kernel.decode_attention_splitk_cuda(q, k, v, lens, k_splits=k_splits),
-           ref.decode_attention(q, k, v, lens), dtype)
+    # the one launch: against the plain merge of the kernel's own partials,
+    # and end to end
+    out = kernel.decode_attention_splitk_cuda(q, k, v, lens, k_splits=k_splits)
+    _close(out, ref.splitk_combine(m, l, acc, dtype), dtype)
+    _close(out, ref.decode_attention(q, k, v, lens), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -257,10 +263,10 @@ def test_ops_dispatch_counts_launches(cuda):
                ref.decode_attention_paged(q, kp, vp, tbl, plens), torch.float32)
     ops.mixed_attention(q4, kp, vp, plens - 4, page_table=tbl)
     torch.cuda.synchronize()
-    assert kernel.LAUNCHES == {"decode_attention": 1, "decode_attention_splitk_partial": 1,
-                               "decode_attention_splitk_combine": 2, "mixed_attention": 1,
-                               "decode_attention_paged": 1,
-                               "decode_attention_paged_splitk_partial": 1,
+    assert kernel.LAUNCHES == {"decode_attention": 1, "decode_attention_splitk": 1,
+                               "decode_attention_splitk_partial": 0, "mixed_attention": 1,
+                               "decode_attention_paged": 1, "decode_attention_paged_splitk": 1,
+                               "decode_attention_paged_splitk_partial": 0,
                                "mixed_attention_paged": 1}
 
 
@@ -530,9 +536,9 @@ def test_splitk_kernels_vs_plain_head_dim_80(cuda, dtype):
     torch.testing.assert_close(m, m_r, atol=1e-4, rtol=1e-5)
     torch.testing.assert_close(l, l_r, atol=1e-4, rtol=1e-3)
     torch.testing.assert_close(acc, acc_r, atol=ACC_ATOL[dtype], rtol=1e-3)
-    _close(kernel.splitk_combine_cuda(m_r, l_r, acc_r, dtype),
-           ref.splitk_combine(m_r, l_r, acc_r, dtype), dtype)
-    _close(ops.decode_attention(q, k, v, lens), ref.decode_attention(q, k, v, lens), dtype)
+    out = ops.decode_attention(q, k, v, lens)
+    _close(out, ref.splitk_combine(m, l, acc, dtype), dtype)
+    _close(out, ref.decode_attention(q, k, v, lens), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1131,6 +1137,15 @@ def test_splitk_partial_runs_the_expected_kernel(cuda, dtype, G, name):
                    dtype)
     _partial_close(calls[1](), ref.decode_attention_paged_splitk_partial(
         q, kp, vp, tbl, lens, k_splits=K), dtype)
+    # the split-K decode: the same kernel, one launch a call, and nothing
+    # else (no combine, no memset of the counters)
+    fused = (lambda: kernel.decode_attention_splitk_cuda(q, k, v, lens, k_splits=K),
+             lambda: kernel.decode_attention_paged_splitk_cuda(q, kp, vp, tbl, lens, k_splits=K))
+    _device_kernels(lambda: [call() for call in fused], calls=1)
+    for call in fused:
+        counts = _device_kernel_counts(call)
+        assert len(counts) == 1 and name in next(iter(counts)), counts
+        assert next(iter(counts.values())) == 2, counts
 
 
 def _device_kernel_counts(fn, calls: int = 2) -> dict:
@@ -1419,3 +1434,153 @@ def test_single_stage_runs_the_expected_kernel(cuda, single_stage_traces, dtype,
     _close(kernel.decode_attention_cuda(q, k, v, lens), ref.decode_attention(q, k, v, lens), dtype)
     _close(kernel.decode_attention_paged_cuda(q, kp, vp, tbl, lens),
            ref.decode_attention_paged(q, kp, vp, tbl, lens), dtype)
+
+
+# ---------------------------------------------------------------------------
+# the split-K decode in one launch: the last CTA of each (sequence, kv head)
+# to finish (of each row block, in flash_rows_kernel) merges the chunk states
+# ---------------------------------------------------------------------------
+
+FUSED_S = 4096
+
+
+def _fused_lens(S, K):
+    """The whole cache, 2049, on a chunk boundary, one past it, 17, 1, 0."""
+    ck = S // K
+    return [S, 2049, ck, ck + 1, 17, 1, 0]
+
+
+def _fused_case(rng, paged, K, Hkv, G, D, lens_l, dtype, dev, ps=16):
+    """q and the four calls over a 4096-key cache (contiguous, or 16-token
+    pages through shuffled tables): the one launch, the chunk states alone,
+    the plain split-K decode and the plain single-stage decode."""
+    B = len(lens_l)
+    q = _q(rng, B, Hkv * G, D, dtype, dev)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    if paged:
+        k, v, tbl = _paged(rng, B, FUSED_S // ps, ps, Hkv, D, lens_l, dtype, dev)
+        calls = (lambda: kernel.decode_attention_paged_splitk_cuda(q, k, v, tbl, lens, k_splits=K),
+                 lambda: kernel.paged_splitk_partial_cuda(q, k, v, tbl, lens, k_splits=K),
+                 lambda: ref.decode_attention_paged_splitk(q, k, v, tbl, lens, k_splits=K),
+                 lambda: ref.decode_attention_paged(q, k, v, tbl, lens))
+    else:
+        k, v = _kv(rng, B, FUSED_S, Hkv, D, dtype, dev)
+        calls = (lambda: kernel.decode_attention_splitk_cuda(q, k, v, lens, k_splits=K),
+                 lambda: kernel.splitk_partial_cuda(q, k, v, lens, k_splits=K),
+                 lambda: ref.decode_attention_splitk(q, k, v, lens, k_splits=K),
+                 lambda: ref.decode_attention(q, k, v, lens))
+    return q, lens, calls
+
+
+def _counters_zero(q):
+    torch.cuda.synchronize()
+    assert not bool(kernel.split_counters(q, 0).any())
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("G", [1, 2, 20])
+@pytest.mark.parametrize("D", [32, 64, 80, 128])
+@pytest.mark.parametrize("K", [2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_splitk_vs_plain(cuda, dtype, K, D, G, paged):
+    """The one launch against the plain merge of the kernel's own chunk
+    states, the plain split-K decode, and the plain decode on the rows of
+    nonzero length; a zero-length row is exactly 0; the counters are all 0
+    after it.  G = 20 (three row blocks of flash_rows_kernel, a counter
+    each) takes flash_rows_kernel in bf16 too."""
+    rng = np.random.default_rng(100 + K + D + G + 7 * paged)
+    q, lens, (fused, partial, plain, plain_decode) = _fused_case(
+        rng, paged, K, 2, G, D, _fused_lens(FUSED_S, K), dtype, cuda)
+    out = fused()
+    _close(out, ref.splitk_combine(*partial(), dtype), dtype)
+    _close(out, plain(), dtype)
+    live = lens > 0
+    _close(out[live], plain_decode()[live], dtype)
+    assert bool((out[~live] == 0).all())
+    _counters_zero(q)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("dtype,G", [(torch.bfloat16, 2), (torch.float32, 2),
+                                     (torch.bfloat16, 20)])
+def test_fused_splitk_is_deterministic(cuda, dtype, G, paged):
+    """20 launches in a row give the same bits, whichever CTA merged; the
+    counters are 0 after each."""
+    rng = np.random.default_rng(130 + G + paged)
+    q, _, (fused, *_) = _fused_case(rng, paged, 8, 8, G, 128, _fused_lens(FUSED_S, 8), dtype,
+                                    cuda)
+    first = fused()
+    _counters_zero(q)
+    for _ in range(20):
+        assert torch.equal(fused(), first)
+        _counters_zero(q)
+
+
+def test_fused_splitk_counters_grow_and_stay(cuda):
+    """The counters of a stream: made zeroed on first use; a call whose
+    B·Hkv·(row blocks) exceeds the buffer gets a larger zeroed one; a call
+    that fits keeps it; another stream has its own."""
+    rng = np.random.default_rng(140)
+    kernel._COUNTERS.clear()
+    small = _fused_case(rng, False, 8, 2, 2, 128, [4096, 17], torch.bfloat16, cuda)
+    big = _fused_case(rng, True, 4, 8, 20, 64, _fused_lens(FUSED_S, 4), torch.float32, cuda)
+    for q, lens, (fused, _, plain, _) in (small, big, small):
+        before = kernel._COUNTERS.get((q.device.index, torch.cuda.current_stream().cuda_stream))
+        _close(fused(), plain(), q.dtype)
+        _counters_zero(q)
+        buf = kernel.split_counters(q, 0)
+        need = q.shape[0] * 8 * 3 if q.dtype == torch.float32 else q.shape[0] * 2
+        assert buf.numel() >= need
+        if before is not None and before.numel() >= need:
+            assert buf is before                       # kept, not remade
+    assert kernel.split_counters(big[0], 0).numel() == big[0].shape[0] * 8 * 3
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        q, _, (fused, _, plain, _) = small
+        out = fused()
+        mine = kernel.split_counters(q, 0)
+    side.synchronize()
+    assert mine is not kernel.split_counters(q, 0)
+    _close(out, plain(), q.dtype)
+    assert not bool(mine.any())
+
+
+def test_fused_splitk_layouts_back_to_back(cuda):
+    """Contiguous and paged calls of other shapes and dtypes back to back on
+    one stream, no synchronisation between them: each equals the same call
+    made alone, bit for bit, and the counters end at 0."""
+    rng = np.random.default_rng(150)
+    cases = [_fused_case(rng, False, 8, 8, 2, 128, _fused_lens(FUSED_S, 8), torch.bfloat16, cuda),
+             _fused_case(rng, True, 4, 2, 20, 80, _fused_lens(FUSED_S, 4), torch.float32, cuda),
+             _fused_case(rng, True, 8, 8, 2, 128, _fused_lens(FUSED_S, 8), torch.bfloat16, cuda),
+             _fused_case(rng, False, 2, 4, 1, 64, _fused_lens(FUSED_S, 2), torch.float32, cuda)]
+    alone = []
+    for q, _, (fused, *_) in cases:
+        alone.append(fused())
+        torch.cuda.synchronize()
+    together = [fused() for _ in range(3) for _, _, (fused, *_) in cases]
+    _counters_zero(cases[0][0])
+    for i, out in enumerate(together):
+        assert torch.equal(out, alone[i % len(cases)])
+
+
+def test_fused_splitk_failed_launch_drops_counters(cuda):
+    """A launch the library refuses (here a head dim it has no kernel for)
+    raises, and drops the stream's counters, so the next call starts from a
+    fresh zeroed buffer."""
+    rng = np.random.default_rng(160)
+    B, S, Hkv, G, D, K = 2, 256, 2, 2, 48, 2
+    k, v = _kv(rng, B, S, Hkv, D, torch.float32, cuda)
+    q = _q(rng, B, Hkv * G, D, torch.float32, cuda)
+    lens = torch.tensor([S, 3], dtype=torch.int32, device=cuda)
+    ctr = kernel.split_counters(q, B * Hkv)
+    key = (q.device.index, torch.cuda.current_stream().cuda_stream)
+    assert kernel._COUNTERS[key] is ctr
+    out = torch.empty((B, 1, Hkv * G, D), device=cuda)
+    launches = dict(kernel.LAUNCHES)
+    with pytest.raises(RuntimeError, match="decode_attention_splitk"):
+        kernel._rows(q.unsqueeze(1), k, v, lens, add=0, splits=K, out=out,
+                     partial=kernel._split_state(q, Hkv, K, D), name="decode_attention_splitk",
+                     counters=ctr)
+    assert key not in kernel._COUNTERS
+    assert kernel.LAUNCHES == launches                 # a refused launch is not counted
