@@ -26,8 +26,10 @@ fp32, contiguous (beside SDPA in bf16) and through block tables over a
 769-page pool of 16-token pages, and in fp32 at the recovery tier's
 shape (qwen3-0.6b reduced as the JAX fleet serves it: 2 kv heads of 32,
 G=2; B=3, a 205-page pool, 34-column tables: max_len 544, lengths
-512-544); and the split-K decode and its partial in fp32 at D=128.  Each
-is timed by
+512-544); the split-K decode and its partial in fp32 at D=128; and the
+fp32 mixed step at phase 6's shape (contiguous, beside SDPA, and through
+the pool) and at the recovery tier's (Q=8 over the tier's pool, cache
+lengths 512-536).  Each is timed by
 
 - ``back_to_back``: CUDA events around ``iters`` calls made one after the
   other, after a warm-up.  For a kernel shorter than its wrapper's host
@@ -278,6 +280,51 @@ def measure() -> dict:
     out["splitk_fp32"] = _three_ways(
         [functools.partial(kernel.decode_attention_splitk_cuda, q, k, v, lens, k_splits=K)
          for k, v in caches], 100)
+    del caches
+    out.update(_mixed_fp32(gen, kernel, cl_np, lens_np))
+    return out
+
+
+def _mixed_fp32(gen, kernel, cl_np, lens_np) -> dict:
+    """The fp32 mixed step at phase 6's shape (contiguous, beside SDPA, and
+    through phase 6's pool) and at the recovery tier's (B=3, 2 kv heads of
+    32, G=2, Q=8, a 205-page pool, 34-column tables, cache lengths
+    512-536)."""
+    out = {}
+    cl = torch.as_tensor(cl_np, dtype=torch.int32, device="cuda")
+
+    def rand32(shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    qm = rand32((B, Q, HKV * G, D))
+    caches = [(rand32((B, S_MAX, HKV, D))[:, :W], rand32((B, S_MAX, HKV, D))[:, :W])
+              for _ in range(RING)]
+    qpos = cl[:, None] + torch.arange(Q, device="cuda")[None, :]
+    mmask = (torch.arange(W, device="cuda")[None, None, :] <= qpos[:, :, None])[:, None]
+    out["mixed_fp32"] = _three_ways(
+        [functools.partial(kernel.mixed_attention_cuda, qm, kw, vw, cl) for kw, vw in caches],
+        100)
+    out["mixed_fp32_sdpa"] = _three_ways(
+        [functools.partial(_sdpa, qm, kw, vw, mmask) for kw, vw in caches], 50)
+    del caches
+    P, tbl = _table(lens_np)
+    view = tbl[:, :W // PAGE]
+    pools = [(rand32((P, PAGE, HKV, D)), rand32((P, PAGE, HKV, D))) for _ in range(RING)]
+    out["mixed_paged_fp32"] = _three_ways(
+        [functools.partial(kernel.mixed_attention_paged_cuda, qm, kp, vp, view, cl)
+         for kp, vp in pools], 100)
+    del pools
+    Bt, St, Ht, Dt = 3, 544, 2, 32
+    tcl_np = np.random.default_rng(25).integers(512, St - Q + 1, Bt)
+    Pt = 1 + 2 * Bt * (St // PAGE)
+    _, ttbl = _table(tcl_np + Q, St, Pt)
+    tcl = torch.as_tensor(tcl_np, dtype=torch.int32, device="cuda")
+    q = rand32((Bt, Q, Ht * G, Dt))
+    pools = [(rand32((Pt, PAGE, Ht, Dt)), rand32((Pt, PAGE, Ht, Dt))) for _ in range(RING)]
+    out["mixed_paged_tier_fp32"] = _three_ways(
+        [functools.partial(kernel.mixed_attention_paged_cuda, q, kp, vp, ttbl, tcl)
+         for kp, vp in pools], 200)
+    out["tier_cache_lens"] = tcl_np.tolist()
     return out
 
 

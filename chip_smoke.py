@@ -14,12 +14,14 @@ Phases (any failure exits non-zero; nothing is caught):
    registers, spills and static shared memory on a line of their own
    (flash, mixed step and split-K partial: 11 instantiations; the WKV6
    chunk kernel: 6; the SSD chunk kernel: 9; the single-stage decode's
-   cluster kernels: 4 bf16, 8 fp32), and no instantiation may spill;
-   the single-stage decode's dynamic shared memory and how many of its
-   clusters the card holds at once (cudaOccupancyMaxActiveClusters), for
-   each dtype, head dim and cluster size C the chooser can return (at
-   least one each; at C = 1, the SMs times the CTAs an SM holds that
-   ``kernel.CLUSTER_CTAS_PER_SM`` gives the chooser);
+   cluster kernels: 4 bf16, 8 fp32; the fp32 mixed step's cluster kernel:
+   4), and no instantiation may spill; the single-stage decode's and the
+   fp32 mixed step's dynamic shared memory and how many of their clusters
+   the card holds at once (cudaOccupancyMaxActiveClusters), for each
+   dtype, head dim and cluster size C the choosers can return (at least
+   one each; at C = 1, the SMs times the CTAs an SM holds that
+   ``kernel.CLUSTER_CTAS_PER_SM`` and ``kernel.MIXED_CTAS_PER_SM`` give
+   the choosers);
 3. kernels: each CUDA kernel against its plain PyTorch version at the
    serving shapes, in bf16 (atol 2e-2, and each output row's largest error
    within a tenth of that row's RMS) and fp32 (atol 2e-5, rtol 1e-3); the
@@ -65,7 +67,12 @@ Phases (any failure exits non-zero; nothing is caught):
    the JAX fleet serves it: 2 kv heads of 32, G 2; paged and contiguous,
    lengths at its chunk edges) in both dtypes, and with NaN past every
    length (qwen3's and zamba2's heads) and in every pool row of the
-   tier's pool not held;
+   tier's pool not held; the fp32 mixed step's cluster kernel at Q 13 x
+   G 2 = 26 rows (a full and a partial 16-row block) with cache lengths
+   putting row limits on each side of every chunk edge, at every cluster
+   size, through phase 6's window and tables cut to it, and at the
+   recovery tier's shape (Q 8), and with NaN past every cache_len + Q and
+   in every row of the tier's pool not held;
 4. serve: EngineClient serves full-width qwen3-0.6b (28 layers, bf16,
    seeded random weights) at the default EngineConfig: 16 requests,
    prompts 16..2000 tokens, 32 new tokens each; launch counters are
@@ -136,10 +143,12 @@ Phases (any failure exits non-zero; nothing is caught):
    bf16 (beside SDPA) and in fp32 at the recovery tier's shape (B=3, 2
    kv heads of 32, paged, max_len 544), each at every cluster size
    (``ms_by_cluster``); the split-K decode also as its partial alone
-   (``partial_ms``); the fp32 routes (``flash_rows_kernel<float>`` as the
-   mixed step and split-K decode, ``flash_fwd_kernel``, ``wkv6_kernel``,
-   ``ssd_kernel``) at phase 6's shapes as an ``fp32`` sub-row with their
-   launches in phases 5-5e; bounds
+   (``partial_ms``); the fp32 routes (``cluster_mixed_f32_kernel`` as the
+   mixed step, contiguous and paged, also at the recovery tier's shape,
+   each at every cluster size; ``flash_rows_kernel<float>`` as the
+   split-K decode, ``flash_fwd_kernel``, ``wkv6_kernel``, ``ssd_kernel``)
+   at phase 6's shapes as an ``fp32`` sub-row with their launches in
+   phases 5-5e; bounds
    from the bytes and operations of the inputs timed (the bf16 scans'
    flops at the 3xTF32 rate).
 
@@ -224,7 +233,8 @@ def read_launches() -> dict:
 
 def mma_build_report(logs: dict) -> list:
     """The redesigned kernels' ptxas -v lines, per instantiation (the
-    tensor-core kernels and the fp32 single-stage cluster kernel):
+    tensor-core kernels, the fp32 single-stage cluster kernel and the fp32
+    mixed step's cluster kernel):
     registers, spill stores and loads, static shared memory (their rings
     are dynamic shared memory, sized in each source's header note)."""
     import re
@@ -233,7 +243,8 @@ def mma_build_report(logs: dict) -> list:
     for log in logs.values():
         for line in log.splitlines():
             m = re.search(r"Compiling entry function '.*?\d+((?:[a-z_]|wkv6)+_(?:mma|chunk)_kernel"
-                          r"|cluster_f32_kernel)ILi(\d+)E(?:Li(\d+)E)?", line)
+                          r"|cluster_f32_kernel|cluster_mixed_f32_kernel)ILi(\d+)E(?:Li(\d+)E)?",
+                          line)
             if m:
                 args = ", ".join(a for a in m.group(2, 3) if a)
                 cur = dict(kernel=f"{m.group(1)}<{args}>")
@@ -444,7 +455,79 @@ def phase_kernels() -> dict:
     for name, e in single_stage_checks(torch.Generator("cuda").manual_seed(7)).items():
         for dt, err in e.items():
             errs[name][dt] = max(errs[name].get(dt, 0.0), err)
+    for name, err in mixed_cluster_checks(torch.Generator("cuda").manual_seed(11)).items():
+        errs[name]["torch.float32"] = max(errs[name]["torch.float32"], err)
     torch.cuda.synchronize()
+    return errs
+
+
+def _edge_cache_lens(S: int, Q: int, C: int) -> list:
+    """Cache lengths whose rows' limits (cache_len + i + 1, i < Q) lie all
+    below, on both sides of, and all above each chunk edge of a cluster of
+    C over S keys, and S - Q."""
+    from repro_torch.kernels.decode_attention import kernel
+
+    out = {S - Q}
+    for lo, end in kernel.cluster_chunks(S, C):
+        for e in (lo, end):
+            out |= {e - Q - 1, e - (Q + 1) // 2, e}
+    return sorted(n for n in out if 0 <= n <= S - Q)
+
+
+def mixed_cluster_checks(gen) -> dict:
+    """The fp32 mixed step's cluster kernel with rows that are not a
+    multiple of its 16-row blocks (Q 13 x G 2 = 26 rows: a full and a
+    partial block) and cache lengths that put row limits on each side of
+    every cluster-chunk edge, at every cluster size and the chooser's: at
+    qwen3-0.6b's heads through phase 6's 2048-key window of the 4096-row
+    cache and through tables cut to it (16-token pages), and at the
+    recovery tier's shape (2 kv heads of 32, G 2, B=3, Q 8, 34-column
+    tables over its 205-page pool; clusters of 4)."""
+    from repro_torch.kernels.decode_attention import kernel, ref
+
+    dt = torch.float32
+    errs = {"mixed_attention": 0.0, "mixed_attention_paged": 0.0}
+    Q, W = 13, 2048
+    # phase 6's Q = 8 is one block a (sequence, kv head): clusters of 2; the
+    # two blocks of Q = 13 take 1
+    check(kernel.mixed_cluster(W, B, HKV, 8, G, D) == 2 and kernel.mixed_cluster(
+        W, B, HKV, Q, G, D) == 1, "the chooser's fp32 mixed clusters at phase 6's window")
+    k, v = _rand(gen, (B, S_MAX, HKV, D), dt), _rand(gen, (B, S_MAX, HKV, D), dt)
+    for C in (1, 2, 4, 8):
+        lens = _edge_cache_lens(W, Q, C)
+        for i in range(0, len(lens), B):
+            cl_np = np.array((lens[i:i + B] + [W - Q] * B)[:B])
+            cl = torch.as_tensor(cl_np, dtype=torch.int32, device="cuda")
+            qm = _rand(gen, (B, Q, HKV * G, D), dt)
+            tag = f"Q={Q} C={C} cache_lens={cl_np.tolist()}"
+            want = ref.mixed_attention(qm, k[:, :W], v[:, :W], cl)
+            for c in (C, None):
+                errs["mixed_attention"] = max(errs["mixed_attention"], _close(
+                    f"fp32 mixed window {tag} cluster={c}",
+                    kernel._mixed(qm, k[:, :W], v[:, :W], cl, "mixed_attention", cluster=c),
+                    want, dt))
+            kp, vp, tbl = paged_inputs(gen, cl_np + Q, PAGE, dt)
+            view = tbl[:, :W // PAGE]
+            want = ref.mixed_attention_paged(qm, kp, vp, view, cl)
+            errs["mixed_attention_paged"] = max(errs["mixed_attention_paged"], _close(
+                f"fp32 mixed paged {tag}",
+                kernel._mixed(qm, kp, vp, cl, "mixed_attention_paged", view, cluster=C),
+                want, dt))
+            del kp, vp
+    del k, v
+    tq = 8
+    check(kernel.mixed_cluster(TIER_S, TIER_B, TIER_HKV, tq, TIER_G, TIER_D) == 4,
+          "the tier's fp32 mixed cluster is not 4 CTAs")
+    lens = _edge_cache_lens(TIER_S, tq, 4)
+    for i in range(0, len(lens), TIER_B):
+        cl_np = np.array((lens[i:i + TIER_B] + [TIER_S - tq] * TIER_B)[:TIER_B])
+        cl = torch.as_tensor(cl_np, dtype=torch.int32, device="cuda")
+        kp, vp, tbl = tier_inputs(gen, cl_np + tq, dt)
+        q = _rand(gen, (TIER_B, tq, TIER_HKV * TIER_G, TIER_D), dt)
+        errs["mixed_attention_paged"] = max(errs["mixed_attention_paged"], _close(
+            f"fp32 mixed paged tier cache_lens={cl_np.tolist()}",
+            kernel.mixed_attention_paged_cuda(q, kp, vp, tbl, cl),
+            ref.mixed_attention_paged(q, kp, vp, tbl, cl), dt))
     return errs
 
 
@@ -928,6 +1011,36 @@ def poison_checks(gen) -> list:
              kernel.decode_attention_paged_cuda(q, _nan_rows(kp, ~live), _nan_rows(vp, ~live),
                                                 tbl, lens1),
              kernel.decode_attention_paged_cuda(q, kp, vp, tbl, lens1))
+
+    # the fp32 mixed step's cluster kernel at Q 13 x G 2 = 26 rows (a full
+    # and a partial 16-row block), cache lengths on its chunk edges: NaN past
+    # every cache_len + Q of the cache read through the 2048-key window, and
+    # in every row of the recovery tier's pool not held below cache_len + Q
+    dtype, Q, W = torch.float32, 13, 2048
+    k, v = _rand(gen, (B, S_MAX, HKV, D), dtype), _rand(gen, (B, S_MAX, HKV, D), dtype)
+    qm = _rand(gen, (B, Q, HKV * G, D), dtype)
+    cl = torch.tensor([0, 1024 - Q - 1, 1024 - 7, 1024, 1500, 2047 - Q, 1023, W - Q],
+                      dtype=torch.int32, device="cuda")
+    dead = (torch.arange(S_MAX, device="cuda")[None, :] >= (cl[:, None] + Q)).reshape(-1)
+    kn, vn = _nan_rows(k, dead), _nan_rows(v, dead)
+    clean = kernel.mixed_attention_cuda(qm, k[:, :W], v[:, :W], cl)
+    same(f"mixed_attention fp32 B={B} Q={Q} window={W} repeat",
+         kernel.mixed_attention_cuda(qm, k[:, :W], v[:, :W], cl), clean)
+    same(f"mixed_attention fp32 B={B} Q={Q} window={W}",
+         kernel.mixed_attention_cuda(qm, kn[:, :W], vn[:, :W], cl), clean)
+    del k, v, kn, vn
+    tq, tier_np = 8, np.array([120, 255 - 8, 536])
+    kp, vp, tbl = tier_inputs(gen, tier_np + tq, dtype)
+    live = torch.zeros(kp.shape[0] * PAGE, dtype=torch.bool, device="cuda")
+    for b, n in enumerate(tier_np + tq):
+        pos = torch.arange(int(n), device="cuda")
+        live[tbl[b, pos // PAGE].long() * PAGE + pos % PAGE] = True
+    check(not bool(live[:PAGE].any()), "poison: the trash page holds live keys")
+    q = _rand(gen, (TIER_B, tq, TIER_HKV * TIER_G, TIER_D), dtype)
+    cl = torch.as_tensor(tier_np, dtype=torch.int32, device="cuda")
+    same(f"mixed_attention_paged fp32 tier pool={kp.shape[0]}x{PAGE}",
+         kernel.mixed_attention_paged_cuda(q, _nan_rows(kp, ~live), _nan_rows(vp, ~live), tbl, cl),
+         kernel.mixed_attention_paged_cuda(q, kp, vp, tbl, cl))
     return done
 
 
@@ -1814,11 +1927,13 @@ def phase_timing() -> dict:
 
 def fp32_timing(out: dict, split_np, cl_np) -> None:
     """The fp32 routes at phase 6's shapes and lengths, as an ``fp32``
-    sub-row of their kernel's row: ``flash_rows_kernel<float>`` as the mixed
-    step and as the one-launch split-K decode, ``flash_fwd_kernel``,
-    ``wkv6_kernel`` and ``ssd_kernel``, each beside its plain version and
-    its fp32 bound (the CUDA cores' 67 TFLOP/s: none uses TF32); SDPA in
-    fp32 where one call computes the same.  A generator of its own."""
+    sub-row of their kernel's row: ``cluster_mixed_f32_kernel`` as the mixed
+    step (contiguous, and paged also at the recovery tier's shape; each at
+    every cluster size, ``ms_by_cluster``), ``flash_rows_kernel<float>`` as
+    the one-launch split-K decode, ``flash_fwd_kernel``, ``wkv6_kernel`` and
+    ``ssd_kernel``, each beside its plain version and its fp32 bound (the
+    CUDA cores' 67 TFLOP/s: none uses TF32); SDPA in fp32 where one call
+    computes the same.  A generator of its own."""
     from repro_torch.kernels.decode_attention import kernel, ref
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.flash_attention import ref as flash_ref
@@ -1858,13 +1973,18 @@ def fp32_timing(out: dict, split_np, cl_np) -> None:
     mmask = (torch.arange(W, device="cuda")[None, None, :] <= qpos[:, :, None])[:, None]
     seen = int(np.minimum(np.asarray(cl_np) + Q, W).sum())
     pairs = int(sum((c + i + 1) for c in cl_np for i in range(Q)))
+    sizes = (1, 2, 4, 8)
+    mixed_kernel = f"cluster_mixed_f32_kernel<{D}>"
     sub("mixed_attention",
         time_ms(lambda: kernel.mixed_attention_cuda(qm, kw, vw, cl), 200),
         time_ms(lambda: ref.mixed_attention(qm, kw, vw, cl), 20),
         2 * seen * HKV * D * es + 2 * B * Q * HKV * G * D * es + 4 * B, 4 * pairs * HKV * G * D,
         time_ms(lambda: _sdpa(qm, kw, vw, mmask), 50),
         f"fp32 B={B} Q={Q} window={W} of S={S} Hkv={HKV} G={G} D={D} "
-        f"cache_lens={list(map(int, cl_np))}")
+        f"cache_lens={list(map(int, cl_np))}",
+        kernel=mixed_kernel, cluster=kernel.mixed_cluster(W, B, HKV, Q, G, D),
+        ms_by_cluster={c: time_ms(lambda c=c: kernel._mixed(qm, kw, vw, cl, "mixed_attention",
+                                                             cluster=c), 200) for c in sizes})
     del k, v, kw, vw
 
     S = 2000
@@ -1900,6 +2020,46 @@ def fp32_timing(out: dict, split_np, cl_np) -> None:
         (2 * S * H * P + 2 * S * N + S * H + H + H * P * N) * es, 5 * P * N * S * H, None,
         f"fp32 x/B/C/dt/A, B=1 S={S} H={H} P={P} N={N}, zero state; "
         "library: none (no one call computes the SSD recurrence)")
+    del x, dt_, A, Bm, Cm
+
+    # the paged mixed step in fp32: phase 6's pool and lengths through
+    # tables cut to the 2048-key window, and the recovery tier (B=3, 2 kv
+    # heads of 32, G 2, Q 8 over its 205-page pool, cache lengths 512-536)
+    ps, no_call = PAGE, "none (no one call reads a block table)"
+    kp, vp, tbl = paged_inputs(gen, split_np, ps, dt)
+    view = tbl[:, :W // ps]
+    table = 4 * int((-(-np.minimum(np.asarray(cl_np) + Q, W) // ps)).sum())
+    sub("mixed_attention_paged",
+        time_ms(lambda: kernel.mixed_attention_paged_cuda(qm, kp, vp, view, cl), 200),
+        time_ms(lambda: ref.mixed_attention_paged(qm, kp, vp, view, cl), 20),
+        2 * seen * HKV * D * es + 2 * B * Q * HKV * G * D * es + 4 * B + table,
+        4 * pairs * HKV * G * D, None,
+        f"fp32 B={B} pool {kp.shape[0]}x{ps} tables ({B},{tbl.shape[1]}) cut to {W // ps} "
+        f"columns, Q={Q} Hkv={HKV} G={G} D={D} cache_lens={list(map(int, cl_np))}; "
+        f"library: {no_call}",
+        kernel=mixed_kernel, cluster=kernel.mixed_cluster(W, B, HKV, Q, G, D),
+        ms_by_cluster={c: time_ms(lambda c=c: kernel._mixed(
+            qm, kp, vp, cl, "mixed_attention_paged", view, cluster=c), 200) for c in sizes})
+    del kp, vp
+    hk, g, d = TIER_HKV, TIER_G, TIER_D
+    tcl_np = np.random.default_rng(25).integers(512, TIER_S - Q + 1, TIER_B)
+    tcl = torch.as_tensor(tcl_np, dtype=torch.int32, device="cuda")
+    kp, vp, ttbl = tier_inputs(gen, tcl_np + Q, dt)
+    tq = _rand(gen, (TIER_B, Q, hk * g, d), dt)
+    tseen = int((tcl_np + Q).sum())
+    tpairs = int(sum((c + i + 1) for c in tcl_np for i in range(Q)))
+    b_ms, by = bound_ms(2 * tseen * hk * d * es + 2 * TIER_B * Q * hk * g * d * es + 4 * TIER_B
+                        + 4 * int((-(-(tcl_np + Q) // ps)).sum()), 4 * tpairs * hk * g * d, dt)
+    out["mixed_attention_paged"]["fp32"]["phase_tier_shape"] = dict(
+        ms=time_ms(lambda: kernel.mixed_attention_paged_cuda(tq, kp, vp, ttbl, tcl), 200),
+        plain_ms=time_ms(lambda: ref.mixed_attention_paged(tq, kp, vp, ttbl, tcl), 20),
+        bound_ms=b_ms, bound_by=by, library_ms=None,
+        kernel=f"cluster_mixed_f32_kernel<{d}>",
+        cluster=kernel.mixed_cluster(TIER_S, TIER_B, hk, Q, g, d),
+        ms_by_cluster={c: time_ms(lambda c=c: kernel._mixed(
+            tq, kp, vp, tcl, "mixed_attention_paged", ttbl, cluster=c), 200) for c in sizes},
+        shape=f"fp32 B={TIER_B} pool {kp.shape[0]}x{ps} tables ({TIER_B},{ttbl.shape[1]}) "
+              f"Q={Q} Hkv={hk} G={g} D={d} cache_lens={tcl_np.tolist()}; library: {no_call}")
 
 
 def single_stage_timing(out: dict, lens_np, table_bytes) -> None:
@@ -2012,9 +2172,9 @@ LAUNCH_PHASES = {
 # card generate), 5d and 5e
 _VS = ("legacy_vs_mixed",)
 FP32_PHASES = {
-    "mixed_attention": ((("card_vs_cpu",), "mixed_attention"),
-                        (("card_vs_cpu_paged",), "mixed_attention_paged"),
-                        (_VS + ("paged",), "mixed_attention_paged")),
+    "mixed_attention": ((("card_vs_cpu",), "mixed_attention"),),
+    "mixed_attention_paged": ((("card_vs_cpu_paged",), "mixed_attention_paged"),
+                              (_VS + ("paged",), "mixed_attention_paged")),
     "decode_attention_splitk": tuple(
         ((ph,), name) for ph in ("card_vs_cpu", "card_vs_cpu_paged", "zamba2_card_vs_cpu")
         for name in ("decode_attention_splitk", "decode_attention_paged_splitk")),
@@ -2070,7 +2230,7 @@ def main() -> int:
                 print("    " + line.strip())
     mma = mma_build_report(logs)
     print("  tensor-core kernels (ptxas -v): " + json.dumps(mma), flush=True)
-    check(len(mma) == 38, f"expected 38 redesigned kernel instantiations, found {len(mma)}")
+    check(len(mma) == 42, f"expected 42 redesigned kernel instantiations, found {len(mma)}")
     for r in mma:
         check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0, f"ptxas spills: {r}")
     occ = {}
@@ -2088,6 +2248,19 @@ def main() -> int:
                       f"not the {per_sm} an SM that cluster_split assumes")
     print("  single-stage decode clusters resident at once (G=1 at D=80, else 2): "
           + json.dumps(occ), flush=True)
+    mocc = {}
+    for d in kernel.HEAD_DIMS:
+        for c in (1, 2, 4, 8):
+            n, smem = kernel.mixed_occupancy(d, c)
+            check(n >= 1, f"no cluster of {c} fp32 mixed-step CTAs (D={d}) fits the card")
+            mocc[f"D={d} C={c}"] = dict(clusters=n, dynamic_smem_bytes=smem)
+            # the chooser's budget: MIXED_CTAS_PER_SM CTAs on each SM
+            per_sm = kernel.MIXED_CTAS_PER_SM[torch.float32][d]
+            check(c > 1 or n == sms * per_sm,
+                  f"{n} fp32 mixed-step CTAs (D={d}) fit {sms} SMs at once, "
+                  f"not the {per_sm} an SM that mixed_cluster assumes")
+    print("  fp32 mixed step (cluster_mixed_f32_kernel) clusters resident at once: "
+          + json.dumps(mocc), flush=True)
 
     t0 = time.perf_counter()
     errs = phase_kernels()

@@ -15,7 +15,8 @@
 //                                                           counters the partial states alone
 //   * mixed_attention_pallas   (_mixed_kernel)           -> flash_rows, add=1, splits=1:
 //                                                           mixed_mma_kernel in bf16,
-//                                                           flash_rows_kernel in fp32
+//                                                           cluster_mixed_f32_kernel in fp32
+//                                                           (G <= 16; flash_rows_kernel else)
 //   * decode_attention_paged   (_paged_decode_kernel)    -> flash_rows, tbl, Q=1, add=0, splits=1:
 //                                                           the same cluster kernels
 //   * decode_attention_paged_splitk
@@ -23,8 +24,7 @@
 //                               + the same combine)         splits=K, counters: as the contiguous
 //                                                           split-K, through the block tables
 //   * mixed_attention_paged    (_mixed_paged_kernel)     -> flash_rows, tbl, add=1, splits=1:
-//                                                           mixed_mma_kernel in bf16,
-//                                                           flash_rows_kernel in fp32
+//                                                           the same kernels
 //
 // What bounds it: memory.  Every KV byte below a sequence's length is read
 // once per (row block) and does 2 multiply-adds per element of math, far
@@ -47,12 +47,12 @@
 // two CTAs per (b, kv head) at Q=8; the second reads KV mostly from L2.
 // The KV operands are addressed through a batch stride, so an attention
 // window view k[:, :W] of a larger cache is read in place.  This is
-// fp32 CUDA-core math, far over a bytes bound; it serves the fp32 mixed
-// step and split-K partial, and groups of more than 16 heads per kv head.
-// The bf16 mixed step and the bf16 split-K partial run on the tensor
-// cores (mixed_mma_kernel and splitk_mma_kernel, below), the single-stage
-// decode in both dtypes on a thread-block cluster (cluster_mma_kernel,
-// cluster_f32_kernel, below).
+// fp32 CUDA-core math, far over a bytes bound; it serves the fp32 split-K
+// partial, and groups of more than 16 heads per kv head.  The bf16 mixed
+// step and the bf16 split-K partial run on the tensor cores
+// (mixed_mma_kernel and splitk_mma_kernel, below), the single-stage decode
+// in both dtypes and the fp32 mixed step on a thread-block cluster
+// (cluster_mma_kernel, cluster_f32_kernel, cluster_mixed_f32_kernel, below).
 //
 // The split-K merge, in the partial's own launch.  The TPU runs split-K
 // decoding as two pallas_calls: the chunk states, then a combine over them.
@@ -991,11 +991,11 @@ __device__ __forceinline__ void store8(attn_mma::bf16* dst, const float (&o)[8],
 // and 8 of its dims) belongs to CTA u % C, which reads that unit of all C
 // states through distributed shared memory, merges them in rank order
 // 0..C-1 with the log-sum-exp rescale, divides by max(l, 1e-30) and stores
-// it to out (the group's first output row, rows D apart).  The result does
-// not depend on which CTA ran when.
-template <typename T, int D>
+// it to out_row(row), the row's first output element (16-byte aligned).
+// The result does not depend on which CTA ran when.
+template <typename T, int D, class OutRow>
 __device__ __forceinline__ void merge_cluster(cg::cluster_group& cluster, float* state, int G,
-                                              T* out) {
+                                              OutRow out_row) {
   using S = ClusterState<D>;
   constexpr int U = D / 8;
   const int C = static_cast<int>(cluster.num_blocks());
@@ -1014,7 +1014,7 @@ __device__ __forceinline__ void merge_cluster(cg::cluster_group& cluster, float*
       o[0] += x.x * a; o[1] += x.y * a; o[2] += x.z * a; o[3] += x.w * a;
       o[4] += y.x * a; o[5] += y.y * a; o[6] += y.z * a; o[7] += y.w * a;
     }
-    store8(out + row * D + d0, o, fmaxf(l_star, 1e-30f));
+    store8(out_row(row) + d0, o, fmaxf(l_star, 1e-30f));
   }
 }
 
@@ -1053,9 +1053,8 @@ __global__ void __launch_bounds__(kClusterThreads) cluster_mma_kernel(RowsParams
     ClusterState<D>::identity(state, G);
   }
   cluster.sync();                                // every CTA's state is complete
-  merge_cluster<attn_mma::bf16, D>(cluster, state, G,
-                                   static_cast<attn_mma::bf16*>(p.out)
-                                       + ((long long)b * p.Hq + h * G) * D);
+  attn_mma::bf16* out = static_cast<attn_mma::bf16*>(p.out) + ((long long)b * p.Hq + h * G) * D;
+  merge_cluster<attn_mma::bf16, D>(cluster, state, G, [&](int r) { return out + r * D; });
   cluster.sync();                                // ... and read: now a CTA may exit
 }
 
@@ -1251,18 +1250,346 @@ __global__ void __launch_bounds__(kClusterThreads) cluster_f32_kernel(RowsParams
     ClusterState<D>::identity(state, G);
   }
   cluster.sync();                                 // every CTA's state is complete
-  merge_cluster<float, D>(cluster, state, G,
-                          static_cast<float*>(p.out) + ((long long)b * p.Hq + h * G) * D);
+  float* out = static_cast<float*>(p.out) + ((long long)b * p.Hq + h * G) * D;
+  merge_cluster<float, D>(cluster, state, G, [&](int r) { return out + r * D; });
   cluster.sync();                                 // ... and read: now a CTA may exit
 }
 
+// The fp32 mixed step: cluster_mixed_f32_kernel.  A CTA holds one block
+// of 16 (query, head) rows of a (sequence, kv head) -- row r of block n is
+// chunk query (16n + r) / G, head h*G + (16n + r) % G, the TPU's
+// _regroup_q_chunk order -- and walks its cluster rank's chunk of the
+// window's keys (cluster_chunk) once for all 16 rows, cut at the block's
+// widest row limit.  Exact fp32 FMAs on the CUDA cores (no TF32: the fp32
+// streams are held token-exact with the CPU).  What bounds it: each key
+// costs a CTA 16 rows x D x 2 FMAs, and a 16-byte shared load costs its
+// 32 lanes' 512 bytes of shared bandwidth even where lanes share an
+// address, so the layout keeps four FMAs per float read from shared
+// memory (a first layout at one FMA a float was bound by those bytes).
+// Per staged tile of 64 keys, three passes, a barrier after each:
+//   scores: warp w takes keys 8w .. 8w + 7; lane (g, s) holds q rows 4g ..
+//     4g + 3 over the D/8 dims {KW s + 8 KW t + e} in registers for the
+//     whole walk and reads each of its keys' dims of K once (4 rows x D/8
+//     FMAs per key); the 32 partial sums are reduced over the 8 lanes s by
+//     a butterfly reduce-scatter (3 steps, 28 shuffles), which leaves each
+//     lane 4 finished scores, stored as one 16-byte word;
+//   softmax: a half-warp per row, a lane per 4 keys: a key at or past the
+//     row's limit is skipped (its p is 0, never exp(-1e30 - m)), the tile
+//     max and sum by 4 xor-shuffles each; p goes back in place of the
+//     scores, the rescale factor into corr;
+//   P V: warp w again takes keys 8w .. 8w + 7; lane (rh, dg) holds rows
+//     8 rh .. 8 rh + 7 x the D/16 dims {VW dg + 16 VW t + e} of its warp's
+//     partial output, rescaled by corr, 8 x D/16 FMAs per key for 8 p and
+//     D/16 V floats; the 8 warps' partials (one softmax state: a plain
+//     sum) are added once, after the walk, in warp order.
+// The scores are double-buffered by tile parity, so the next tile's scores
+// never wait for this tile's P V.  K/V come as in cluster_f32_kernel: a
+// 3-stage 16-byte cp.async ring with KeyRows' offsets, keys past the
+// block's limit zero-filled.  The walk's (m, l, acc) go to the CTA's
+// ClusterState (in the drained ring), then merge_cluster merges the
+// cluster's states in rank order and stores each row through the row map.
+// A row with no key in a CTA's chunk keeps the identity state (m = -1e30,
+// l = 0, acc = 0), and a CTA whose chunk is empty for the whole block
+// writes it and still reaches both cluster.sync()s.  No atomics and no
+// workspace: repeats are bit-equal, and the static shapes capture into a
+// CUDA graph as they are.  Shared memory (dynamic; ring, scores, corr, row
+// offsets): 206,912 bytes at D = 128, 133,184 at 80, 108,608 at 64, 59,456
+// at 32; an SM holds 1, 1, 1 and 2 CTAs (kernel.py's MIXED_CTAS_PER_SM),
+// registers deciding at D = 64 (the score pass keeps q and the P V pass its
+// outputs in registers: 255 a thread at D = 128, no spills; chip_smoke.py
+// phase 2 prints each instantiation's).  It replaced
+// flash_rows_kernel<float> (8 rows a CTA, each CTA walking its sequence's
+// keys alone, 32-key tiles with four barriers, one scalar D-long dot
+// product per (row, key)), which serves fp32 groups wider than 16 heads.
+template <int D> struct MixF32 {
+  static constexpr int kKeys = 64;                   // keys per staged tile
+  static constexpr int kStages = 3;
+  static constexpr int PR = kKeys + 4;               // score row stride, floats
+  static constexpr int KW = D / 8 % 4 == 0 ? 4 : 2;  // dims a score lane reads at once
+  static constexpr int KT = D / 8 / KW;              // ... that many times per key
+  static constexpr int DV = D / 16;                  // output dims a P V lane holds
+  static constexpr int VW = DV % 4 == 0 ? 4 : DV % 2 == 0 ? 2 : 1;
+  static constexpr int kRing = kStages * 2 * kKeys * D;   // floats
+  static constexpr int kRed = 8 * attn_mma::kWarpRows * D;   // the warps' P V partials
+  static constexpr int kS = kRing;                   // float offsets of the parts
+  static constexpr int kCorr = kS + 2 * attn_mma::kWarpRows * PR;
+  static constexpr int kOffs = (kCorr + attn_mma::kWarpRows) * 4;   // bytes
+  static constexpr int kBytes = kOffs + kStages * kKeys * 8;
+  static_assert(kClusterKeys % kKeys == 0 && kKeys == 8 * (kClusterThreads / 32),
+                "whole tiles, 8 keys a warp");
+  static_assert(D % 16 == 0 && KT * KW * 8 == D, "head dim splits over 8 and 16 lanes");
+  static_assert(kKeys * (D / 4) % kClusterThreads == 0, "a tile's copies split evenly");
+  static_assert(kRed + ClusterState<D>::kFloats <= kRing && kOffs % 16 == 0,
+                "partials and state in the ring");
+};
+
+// N floats from shared memory in one load (N = 4, 2 or 1; p aligned to it)
+template <int N> __device__ __forceinline__ void lds(float* x, const float* p) {
+  if constexpr (N == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  } else if constexpr (N == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    x[0] = a.x; x[1] = a.y;
+  } else {
+    x[0] = *p;
+  }
+}
+
+// N floats to shared memory in one store (N = 4, 2 or 1; p aligned to it)
+template <int N> __device__ __forceinline__ void sts(float* p, const float* x) {
+  if constexpr (N == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  } else {
+    *p = x[0];
+  }
+}
+
+// One step of the score pass's reduce-scatter over lane bit N / 4 (N = 16,
+// 8, 4): each lane keeps the half of x[0, 2N) its bit selects and adds its
+// partner's sum of that half; the other half goes to the partner.
+template <int N> __device__ __forceinline__ void reduce_scatter_step(float (&x)[32], int lane) {
+  constexpr int o = N / 4;
+  const bool up = lane & o;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float send = up ? x[i] : x[i + N];
+    const float keep = up ? x[i + N] : x[i];
+    x[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kClusterThreads, 1) cluster_mixed_f32_kernel(RowsParams p) {
+  using M = MixF32<D>;
+  using attn_mma::kWarpRows;
+  constexpr int KK = M::kKeys, PR = M::PR, KW = M::KW, KT = M::KT, DV = M::DV, VW = M::VW;
+  constexpr int CH = D / 4;                          // 16-byte chunks per row
+  extern __shared__ uint4 smem_mix[];
+  float* ring = reinterpret_cast<float*>(smem_mix);  // [kStages][K, V][kKeys][D]
+  float* sc = ring + M::kS;                          // [2][16][PR]
+  float* corr_s = ring + M::kCorr;                   // [16]
+  long long* offs = reinterpret_cast<long long*>(
+      reinterpret_cast<char*>(smem_mix) + M::kOffs);   // [kStages][kKeys]
+  float* state = ring + M::kRed;                     // once the ring is drained
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int G = p.Hq / p.Hkv;
+  const int R = p.Q * G;
+  const int nblk = (R + kWarpRows - 1) / kWarpRows;
+  const int h = blockIdx.y / nblk, r0 = blockIdx.y % nblk * kWarpRows;
+  const int b = blockIdx.z;
+  const int nr = min(kWarpRows, R - r0);             // live rows of the block
+  int lo, end;
+  cluster_chunk(p.S, static_cast<int>(cluster.block_rank()),
+                static_cast<int>(cluster.num_blocks()), lo, end);
+  KeyRows<KK, M::kStages> rows(p, b, D, lo, end);
+  int pages[M::kStages + 1];
+#pragma unroll
+  for (int g = 0; g <= M::kStages; ++g) pages[g] = rows.page_of(g);
+
+  // row r sees keys below base + (r0 + r) / G + 1 (and S); the CTA only its
+  // chunk's, up to the widest live row's limit
+  const int base = p.lens[b];
+  const int hi = min(end, base + (r0 + nr - 1) / G + 1);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (hi > lo) {
+    const float* k = static_cast<const float*>(p.k) + b * p.k_sb + (long long)h * D;
+    const float* v = static_cast<const float*>(p.v) + b * p.v_sb + (long long)h * D;
+    const int ntiles = (hi - lo + KK - 1) / KK;
+    auto stage_kv = [&](int tile) {
+      float* ks = ring + (tile % M::kStages) * 2 * KK * D;
+      const long long* ro = offs + tile % M::kStages * KK;
+#pragma unroll
+      for (int i = 0; i < KK * CH / kClusterThreads; ++i) {
+        const int u = threadIdx.x + i * kClusterThreads, j = u / CH, c = (u % CH) * 4;
+        const long long off = ro[j];
+        const bool ok = off >= 0;
+        attn_mma::cp_async16(ks + j * D + c, k + (ok ? off + c : 0), ok);
+        attn_mma::cp_async16(ks + KK * D + j * D + c, v + (ok ? off + c : 0), ok);
+      }
+    };
+#pragma unroll
+    for (int g = 0; g < M::kStages; ++g) rows.resolve(offs, g, pages[g], hi);
+    int page = pages[M::kStages];
+    __syncthreads();
+#pragma unroll
+    for (int g = 0; g < M::kStages - 1; ++g) {
+      if (g < ntiles) stage_kv(g);
+      attn_mma::cp_async_commit();
+    }
+
+    // scores: lane (sg, ss) holds q rows 4 sg .. 4 sg + 3 over the dims
+    // KW ss + 8 KW t + e, with plain loads while the first tiles are in
+    // flight (any view with dense (Hq, D)); rows past nr are zero
+    const int sg = lane / 8, ss = lane % 8;
+    float qr[4][KT * KW];
+    {
+      const float* q = static_cast<const float*>(p.q) + b * p.q_sb;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int rl = 4 * sg + r, rg = r0 + rl;
+        const float* row = q + (long long)(rg / G) * p.q_sq + (long long)(h * G + rg % G) * D;
+#pragma unroll
+        for (int t = 0; t < KT; ++t)
+#pragma unroll
+          for (int e = 0; e < KW; ++e)
+            qr[r][t * KW + e] = rl < nr ? row[KW * ss + 8 * KW * t + e] : 0.f;
+      }
+    }
+    // softmax: half-warp lane / 16 takes row 2 warp + lane / 16, 4 keys a
+    // lane; the row's limit (0 for a padding row)
+    const int srw = 2 * warp + lane / 16, sk = 4 * (lane % 16);
+    float m = kNegInf, l = 0.f;
+    const int lim = srw < nr ? min(hi, base + (r0 + srw) / G + 1) : 0;
+    // P V: lane (rh, dg) holds rows 8 rh .. 8 rh + 7 x dims VW dg + 16 VW t + e
+    const int rh = lane / 16, dg = lane % 16;
+    float acc[8][DV];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int j = 0; j < DV; ++j) acc[r][j] = 0.f;
+
+    for (int it = 0; it < ntiles; ++it) {
+      attn_mma::cp_async_wait<M::kStages - 2>();     // tile it has landed
+      __syncthreads();                               // ... for all; tile it - 1 is consumed
+      if (it + M::kStages - 1 < ntiles) {
+        stage_kv(it + M::kStages - 1);               // offsets resolved an iteration ago
+        rows.resolve(offs, it + M::kStages, page, hi);
+        page = rows.page_of(it + M::kStages + 1);
+      }
+      attn_mma::cp_async_commit();
+      const float* ks = ring + (it % M::kStages) * 2 * KK * D + 8 * warp * D;
+      const float* vs = ks + KK * D;
+      float* st = sc + (it & 1) * kWarpRows * PR;
+      const int t0 = lo + it * KK;
+
+      {
+        // x[r * 8 + j]: row 4 sg + r, key 8 warp + j, summed over this
+        // lane's dims
+        float x[32];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) x[r * 8 + j] = 0.f;
+#pragma unroll
+          for (int t = 0; t < KT; ++t) {
+            float kv[KW];
+            lds<KW>(kv, ks + j * D + KW * ss + 8 * KW * t);
+#pragma unroll
+            for (int e = 0; e < KW; ++e)
+#pragma unroll
+              for (int r = 0; r < 4; ++r) x[r * 8 + j] = fmaf(qr[r][t * KW + e], kv[e], x[r * 8 + j]);
+          }
+        }
+        // reduce-scatter over the 8 lanes ss (bits 4, 2, 1): x[i] ends as
+        // flat index 4 ss + i, row 4 sg + ss / 2, key 8 warp + 4 (ss % 2) + i
+        reduce_scatter_step<16>(x, lane);
+        reduce_scatter_step<8>(x, lane);
+        reduce_scatter_step<4>(x, lane);
+        *reinterpret_cast<float4*>(st + (4 * sg + ss / 2) * PR + 8 * warp + 4 * (ss % 2)) =
+            make_float4(x[0] * p.scale, x[1] * p.scale, x[2] * p.scale, x[3] * p.scale);
+      }
+      __syncthreads();                               // the tile's scores are in
+
+      {
+        float* sp = st + srw * PR + sk;
+        float x[4], pr[4];
+        lds<4>(x, sp);
+        float mx = kNegInf;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (t0 + sk + e < lim) mx = fmaxf(mx, x[e]);
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float m_new = fmaxf(m, mx);
+        float sum = 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          pr[e] = t0 + sk + e < lim ? expf(x[e] - m_new) : 0.f;
+          sum += pr[e];
+        }
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        const float corr = expf(m - m_new);
+        l = l * corr + sum;
+        m = m_new;
+        *reinterpret_cast<float4*>(sp) = make_float4(pr[0], pr[1], pr[2], pr[3]);
+        if (sk == 0) corr_s[srw] = corr;
+      }
+      __syncthreads();                               // p and the rescale factors are in
+
+      {
+        float c[8];
+        lds<4>(c, corr_s + 8 * rh);
+        lds<4>(c + 4, corr_s + 8 * rh + 4);
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int j = 0; j < DV; ++j) acc[r][j] *= c[r];
+        const float* pr = st + 8 * rh * PR + 8 * warp;
+#pragma unroll
+        for (int kc = 0; kc < 8; kc += 4) {
+          float pp[8][4];
+#pragma unroll
+          for (int r = 0; r < 8; ++r) lds<4>(pp[r], pr + r * PR + kc);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            float vv[DV];
+#pragma unroll
+            for (int t = 0; t < DV / VW; ++t)
+              lds<VW>(vv + t * VW, vs + (kc + kk) * D + VW * dg + 16 * VW * t);
+#pragma unroll
+            for (int r = 0; r < 8; ++r)
+#pragma unroll
+              for (int j = 0; j < DV; ++j) acc[r][j] = fmaf(pp[r][kk], vv[j], acc[r][j]);
+          }
+        }
+      }
+    }
+    attn_mma::cp_async_wait<0>();
+    __syncthreads();                                 // the ring is free
+
+    // the warps' partials (one softmax state, so a plain sum) in warp order
+    float* red = ring + warp * kWarpRows * D + 8 * rh * D + VW * dg;
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int t = 0; t < DV / VW; ++t) sts<VW>(red + r * D + 16 * VW * t, acc[r] + t * VW);
+    using CS = ClusterState<D>;
+    if (sk == 0) {
+      CS::m(state)[srw] = m;
+      CS::l(state)[srw] = l;
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < kWarpRows * D; e += kClusterThreads) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < kClusterThreads / 32; ++w) s += ring[w * kWarpRows * D + e];
+      state[e] = s;
+    }
+  } else {
+    ClusterState<D>::identity(state, nr);
+  }
+  cluster.sync();                                    // every CTA's state is complete
+  float* out = static_cast<float*>(p.out);
+  merge_cluster<float, D>(cluster, state, nr, [&](int r) {
+    const int rg = r0 + r;
+    return out + (((long long)b * p.Q + rg / G) * p.Hq + h * G + rg % G) * D;
+  });
+  cluster.sync();                                    // ... and read: now a CTA may exit
+}
+
 // Launch (or, with max_clusters, ask the occupancy and the dynamic shared
-// memory of) a single-stage kernel: grid (C, Hkv, B) in clusters of (C, 1,
-// 1), C <= 8 (the portable limit), through cudaLaunchKernelEx.  A
-// cluster's CTAs run at once on the SMs of one GPC, so their shared memory
-// must fit there together.
+// memory of) a cluster kernel: grid (C, ny, B) in clusters of (C, 1, 1),
+// C <= 8 (the portable limit), through cudaLaunchKernelEx; ny is Hkv for
+// the single-stage decode, Hkv times the 16-row blocks for the mixed step.
+// A cluster's CTAs run at once on the SMs of one GPC, so their shared
+// memory must fit there together.
 template <auto kKernel, int kBytes>
-int launch_cluster(const RowsParams& p, int C, cudaStream_t stream, int* max_clusters) {
+int launch_cluster(const RowsParams& p, int C, int ny, cudaStream_t stream, int* max_clusters) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);   // above 48 KB: opt in once
   if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -1272,7 +1599,7 @@ int launch_cluster(const RowsParams& p, int C, cudaStream_t stream, int* max_clu
   cl[0].val.clusterDim.y = 1;
   cl[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C, p.Hkv, p.B);
+  cfg.gridDim = dim3(C, ny, p.B);
   cfg.blockDim = dim3(kClusterThreads);
   cfg.dynamicSmemBytes = kBytes;
   cfg.stream = stream;
@@ -1289,8 +1616,8 @@ int launch_cluster(const RowsParams& p, int C, cudaStream_t stream, int* max_clu
 template <int D>
 int dispatch_cluster_f32(int G, const RowsParams& p, int C, cudaStream_t s, int* occ) {
   constexpr int bytes = F32Tile<D>::kBytes;
-  if (G <= 1) return launch_cluster<cluster_f32_kernel<D, 1>, bytes>(p, C, s, occ);
-  return launch_cluster<cluster_f32_kernel<D, 2>, bytes>(p, C, s, occ);
+  if (G <= 1) return launch_cluster<cluster_f32_kernel<D, 1>, bytes>(p, C, p.Hkv, s, occ);
+  return launch_cluster<cluster_f32_kernel<D, 2>, bytes>(p, C, p.Hkv, s, occ);
 }
 
 // dtype 0 = float32, 1 = bfloat16; G <= 16, 1 <= C <= 8.
@@ -1298,12 +1625,13 @@ int dispatch_cluster(int dtype, int D, const RowsParams& p, int C, cudaStream_t 
   const int G = p.Hq / p.Hkv;
   if (C < 1 || C > 8 || G > attn_mma::kWarpRows) return -1;
   if (dtype == 1) {
+    const int H = p.Hkv;
     switch (D) {
-      case 32: return launch_cluster<cluster_mma_kernel<32>, ClusterMmaSmem<32>::kBytes>(p, C, s, occ);
-      case 64: return launch_cluster<cluster_mma_kernel<64>, ClusterMmaSmem<64>::kBytes>(p, C, s, occ);
-      case 80: return launch_cluster<cluster_mma_kernel<80>, ClusterMmaSmem<80>::kBytes>(p, C, s, occ);
+      case 32: return launch_cluster<cluster_mma_kernel<32>, ClusterMmaSmem<32>::kBytes>(p, C, H, s, occ);
+      case 64: return launch_cluster<cluster_mma_kernel<64>, ClusterMmaSmem<64>::kBytes>(p, C, H, s, occ);
+      case 80: return launch_cluster<cluster_mma_kernel<80>, ClusterMmaSmem<80>::kBytes>(p, C, H, s, occ);
       case 128:
-        return launch_cluster<cluster_mma_kernel<128>, ClusterMmaSmem<128>::kBytes>(p, C, s, occ);
+        return launch_cluster<cluster_mma_kernel<128>, ClusterMmaSmem<128>::kBytes>(p, C, H, s, occ);
       default: return -1;
     }
   }
@@ -1319,6 +1647,21 @@ int dispatch_cluster(int dtype, int D, const RowsParams& p, int C, cudaStream_t 
   return -1;
 }
 
+// The fp32 mixed step: grid (C, Hkv * ceil(Q * G / 16), B) in clusters of
+// (C, 1, 1); G <= 16, 1 <= C <= 8.
+int dispatch_mixed_f32(int D, const RowsParams& p, int C, cudaStream_t s, int* occ) {
+  if (C < 1 || C > 8 || p.Hq / p.Hkv > attn_mma::kWarpRows) return -1;
+  const int ny = p.Hkv * ((p.Q * (p.Hq / p.Hkv) + attn_mma::kWarpRows - 1) / attn_mma::kWarpRows);
+  switch (D) {
+    case 32: return launch_cluster<cluster_mixed_f32_kernel<32>, MixF32<32>::kBytes>(p, C, ny, s, occ);
+    case 64: return launch_cluster<cluster_mixed_f32_kernel<64>, MixF32<64>::kBytes>(p, C, ny, s, occ);
+    case 80: return launch_cluster<cluster_mixed_f32_kernel<80>, MixF32<80>::kBytes>(p, C, ny, s, occ);
+    case 128:
+      return launch_cluster<cluster_mixed_f32_kernel<128>, MixF32<128>::kBytes>(p, C, ny, s, occ);
+    default: return -1;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  tbl: nullptr for a contiguous cache,
@@ -1326,8 +1669,9 @@ int dispatch_cluster(int dtype, int D, const RowsParams& p, int C, cudaStream_t 
 // m_out, l_out, acc_out: the split-K partial states; with counters (at
 // least B * Hkv * ceil(G / 8) int32, all 0) the split-K decode's merged
 // output goes to out in the same launch, the states being its workspace.
-// cluster: the single-stage decode's CTAs per (sequence, kv head), 1-8
-// (kernel.py's cluster_split); the other calls ignore it.  Returns 0 on a
+// cluster: the single-stage decode's CTAs per (sequence, kv head), and the
+// fp32 mixed step's per (sequence, kv head, 16-row block), 1-8 (kernel.py's
+// cluster_split); the other calls ignore it.  Returns 0 on a
 // launch cudaGetLastError accepted, the CUDA error code otherwise, -1 for
 // an unsupported dtype/D/cluster.
 extern "C" int flash_rows(int dtype, int D, const void* q, const void* k, const void* v,
@@ -1344,6 +1688,9 @@ extern "C" int flash_rows(int dtype, int D, const void* q, const void* k, const 
   // the bf16 mixed step (contiguous or paged) runs on the tensor cores
   if (dtype == 1 && add == 1 && splits == 1 && m_out == nullptr)
     return dispatch_mixed_mma(D, p, s);
+  // the fp32 mixed step (contiguous or paged): 16-row blocks, keys split over a cluster
+  if (dtype == 0 && add == 1 && splits == 1 && m_out == nullptr && Hq / Hkv <= attn_mma::kWarpRows)
+    return dispatch_mixed_f32(D, p, cluster, s, nullptr);
   // the bf16 split-K partial (contiguous or paged) too, for up to one m16 tile of rows
   if (dtype == 1 && add == 0 && Q == 1 && m_out != nullptr && Hq / Hkv <= attn_mma::kWarpRows)
     return dispatch_splitk_mma(D, p, s);
@@ -1367,4 +1714,17 @@ extern "C" int decode_cluster_occupancy(int dtype, int D, int G, int C, int* out
   p.Hq = G;
   out[0] = out[1] = 0;
   return dispatch_cluster(dtype, D, p, C, nullptr, out);
+}
+
+// As decode_cluster_occupancy, for the fp32 mixed step's cluster kernel at
+// head dim D (one 16-row block).
+extern "C" int mixed_cluster_occupancy(int D, int C, int* out) {
+  RowsParams p{};
+  p.B = 1;
+  p.Q = 1;
+  p.Hkv = 1;
+  p.Hq = 1;
+  p.add = 1;
+  out[0] = out[1] = 0;
+  return dispatch_mixed_f32(D, p, C, nullptr, out);
 }

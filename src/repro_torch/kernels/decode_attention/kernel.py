@@ -21,8 +21,11 @@ of ``LAUNCHES``:
 * ``splitk_partial_cuda`` — the chunk states alone (the same kernels
   without the merge), so that they can be held against the plain partial;
 * ``mixed_attention_cuda`` — replaces ``mixed_attention_pallas`` (bf16 on
-  the tensor cores through ``mixed_mma_kernel``; fp32 through
-  ``flash_rows_kernel`` on the CUDA cores);
+  the tensor cores through ``mixed_mma_kernel``; fp32 on the CUDA cores
+  through ``cluster_mixed_f32_kernel``: blocks of 16 (query, head) rows
+  whose keys are split over a thread-block cluster of ``mixed_cluster``
+  CTAs, merged in the cluster's shared memory; groups of more than 16
+  heads per kv head through ``flash_rows_kernel``);
 * ``decode_attention_paged_cuda`` — replaces ``decode_attention_paged`` (as
   ``decode_attention_cuda``, through the block tables);
 * ``decode_attention_paged_splitk_cuda`` / ``paged_splitk_partial_cuda`` —
@@ -37,7 +40,8 @@ int32 block tables (a row stride is allowed, so a column slice
 mixed step copies q's rows with 16-byte cp.async, so its q must be 16-byte
 aligned with 16-byte batch and sequence strides; the split-K partial loads
 q with plain loads, so any view with dense (Hq, D) works there (the decode
-step's ``q[:, 0]``), as it does for the single-stage decode.
+step's ``q[:, 0]``), as it does for the single-stage decode and the fp32
+mixed step.
 
 The split-K decode counts its chunks in on an int32 buffer of the
 wrapper's (``split_counters``), one per (device, stream): zeroed when it
@@ -91,6 +95,32 @@ def cluster_split(S: int, bh: int, per_sm: int) -> int:
     return C
 
 
+# CTAs of the fp32 mixed step's cluster kernel one SM holds at once, by
+# head dim (its dynamic shared memory decides it; chip_smoke.py phase 2
+# holds this table to cudaOccupancyMaxActiveClusters at C = 1 over 132 SMs)
+MIXED_CTAS_PER_SM = {torch.float32: {32: 2, 64: 1, 80: 1, 128: 1}}
+MIXED_ROWS = 16        # (query, head) rows per CTA of cluster_mixed_f32_kernel
+
+
+def mixed_blocks(Q: int, G: int) -> int:
+    """16-row blocks of the fp32 mixed step per (sequence, kv head)."""
+    return -(-Q * G // MIXED_ROWS)
+
+
+def mixed_rows(Q: int, G: int, n: int) -> list:
+    """(chunk query, head within the kv head's group) of each row of block
+    ``n``: row r is query (16n + r) // G, head (16n + r) % G (the TPU's
+    ``_regroup_q_chunk`` order), up to the Q·G rows there are."""
+    return [divmod(i, G) for i in range(n * MIXED_ROWS, min((n + 1) * MIXED_ROWS, Q * G))]
+
+
+def mixed_cluster(S: int, B: int, Hkv: int, Q: int, G: int, D: int) -> int:
+    """CTAs per (sequence, kv head, 16-row block) of the fp32 mixed step
+    over a window of S keys: ``cluster_split`` over B·Hkv·``mixed_blocks``
+    blocks with ``MIXED_CTAS_PER_SM`` of them an SM, from the shapes alone."""
+    return cluster_split(S, B * Hkv * mixed_blocks(Q, G), MIXED_CTAS_PER_SM[torch.float32][D])
+
+
 def cluster_chunks(S: int, C: int) -> list:
     """Keys [lo, end) of each CTA of a cluster of C, in rank order: the S
     keys' 128-key tiles dealt out in order, CTA c from tile floor(c·tiles/C)."""
@@ -135,6 +165,8 @@ def _lib() -> ctypes.CDLL:
     lib.flash_rows.restype = _I
     lib.decode_cluster_occupancy.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
     lib.decode_cluster_occupancy.restype = _I
+    lib.mixed_cluster_occupancy.argtypes = [_I, _I, ctypes.POINTER(_I)]
+    lib.mixed_cluster_occupancy.restype = _I
     return lib
 
 
@@ -280,9 +312,11 @@ def _rows(q4: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lens: torch.Tensor
     LAUNCHES[name] += 1
 
 
-def _cluster(cluster: Optional[int], S: int, bh: int, dtype: torch.dtype, D: int) -> int:
+def _cluster(cluster: Optional[int], chosen: int) -> int:
+    """``cluster`` where the caller forces one (1, 2, 4 or 8), else the
+    chooser's ``chosen``."""
     if cluster is None:
-        return cluster_split(S, bh, CLUSTER_CTAS_PER_SM[dtype][D])
+        return chosen
     if cluster not in (1, 2, 4, 8):
         raise ValueError(f"cluster must be 1, 2, 4 or 8: {cluster}")
     return cluster
@@ -299,7 +333,8 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch
     Hq, D = q.shape[1:]
     out = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=q.device)
     _rows(q.unsqueeze(1), k_cache, v_cache, lengths, add=0, splits=1, out=out, partial=None,
-          name="decode_attention", cluster=_cluster(cluster, S, B * Hkv, q.dtype, D))
+          name="decode_attention",
+          cluster=_cluster(cluster, cluster_split(S, B * Hkv, CLUSTER_CTAS_PER_SM[q.dtype][D])))
     return out[:, 0]
 
 
@@ -311,6 +346,15 @@ def cluster_occupancy(dtype: torch.dtype, D: int, G: int, C: int) -> Tuple[int, 
     out = (_I * 2)()
     _check_launch(_lib().decode_cluster_occupancy(_DTYPES[dtype], D, G, C, out),
                   "decode_cluster_occupancy")
+    return out[0], out[1]
+
+
+def mixed_occupancy(D: int, C: int) -> Tuple[int, int]:
+    """As ``cluster_occupancy``, for the fp32 mixed step's cluster kernel at
+    head dim D: clusters of C CTAs resident at once, and a CTA's dynamic
+    shared memory in bytes."""
+    out = (_I * 2)()
+    _check_launch(_lib().mixed_cluster_occupancy(D, C, out), "mixed_cluster_occupancy")
     return out[0], out[1]
 
 
@@ -361,15 +405,30 @@ def decode_attention_splitk_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                        merge=True)
 
 
+def _mixed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache_lens: torch.Tensor,
+           name: str, tables: Optional[torch.Tensor] = None,
+           cluster: Optional[int] = None) -> torch.Tensor:
+    """The mixed-step launch over K/V (or the pool through ``tables``); the
+    fp32 kernel in clusters of ``cluster`` CTAs (``mixed_cluster``'s by
+    default; bf16 takes none)."""
+    _check_q_staging(q)
+    B, Q, Hq, D = q.shape
+    Hkv = k.shape[2]
+    S = k.shape[1] if tables is None else tables.shape[1] * k.shape[1]
+    C = 1
+    if q.dtype == torch.float32:
+        C = _cluster(cluster, mixed_cluster(S, B, Hkv, Q, Hq // Hkv, D))
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _rows(q, k, v, cache_lens, add=1, splits=1, out=out, partial=None, name=name,
+          tables=tables, cluster=C)
+    return out
+
+
 def mixed_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                          cache_lens: torch.Tensor) -> torch.Tensor:
     """q-chunk attention: q (B, Q, Hq, D); row i sees keys <= cache_lens[b] + i."""
     _check_kv(q, k_cache, v_cache, cache_lens)
-    _check_q_staging(q)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _rows(q, k_cache, v_cache, cache_lens, add=1, splits=1, out=out, partial=None,
-          name="mixed_attention")
-    return out
+    return _mixed(q, k_cache, v_cache, cache_lens, "mixed_attention")
 
 
 def decode_attention_paged_cuda(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
@@ -383,7 +442,8 @@ def decode_attention_paged_cuda(q: torch.Tensor, k_pages: torch.Tensor, v_pages:
     out = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=q.device)
     _rows(q.unsqueeze(1), k_pages, v_pages, lengths, add=0, splits=1, out=out, partial=None,
           name="decode_attention_paged", tables=block_tables,
-          cluster=_cluster(cluster, S, B * k_pages.shape[2], q.dtype, D))
+          cluster=_cluster(cluster, cluster_split(S, B * k_pages.shape[2],
+                                                  CLUSTER_CTAS_PER_SM[q.dtype][D])))
     return out[:, 0]
 
 
@@ -416,8 +476,4 @@ def mixed_attention_paged_cuda(q: torch.Tensor, k_pages: torch.Tensor, v_pages: 
     """Paged q-chunk attention: q (B, Q, Hq, D); row i sees keys <=
     cache_lens[b] + i among the first n_blocks·ps of its table."""
     _check_paged(q, k_pages, v_pages, block_tables, cache_lens)
-    _check_q_staging(q)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _rows(q, k_pages, v_pages, cache_lens, add=1, splits=1, out=out, partial=None,
-          name="mixed_attention_paged", tables=block_tables)
-    return out
+    return _mixed(q, k_pages, v_pages, cache_lens, "mixed_attention_paged", block_tables)

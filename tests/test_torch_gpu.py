@@ -29,7 +29,14 @@ dtypes and layouts, K 2, 4 and 8, D 32-128, G 1, 2 and 20, at lengths
 merge of its own chunk states and the plain decode, 20 launches bit-equal,
 its counters 0 after every launch, grown for a larger call and kept for a
 smaller one, one buffer per stream, dropped after a refused launch, and
-contiguous and paged calls back to back).
+contiguous and paged calls back to back; the fp32 mixed step, blocks of 16
+(query, head) rows split over a thread-block cluster, at D 32-128, G 1, 2
+and 4, Q 1, 8, 13, 64 and 200, every cluster size with cache lengths on
+each side of every chunk edge, through window views and column slices of
+tables (page sizes 1, 16, 48), at prefill_paged's suffix shape, NaN past
+every cache_len + Q and in every pool row not held, repeats and a strided
+q view bit-equal, and which kernel the profiler sees
+(``cluster_mixed_f32_kernel``; ``flash_rows_kernel`` at G = 32)).
 
 Marked ``gpu``; each test asks the ``cuda`` fixture for the card, which
 skips when ``torch.cuda.is_available()`` is false.  This file imports no
@@ -51,6 +58,8 @@ The RMSNorm kernel and its plain version round the same fp32 function once:
 fp32 atol 2e-5 / rtol 1e-3, bf16 within one bf16 ulp (rtol 2^-7), and the
 fused form's rounded sum bit for bit.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -1584,3 +1593,236 @@ def test_fused_splitk_failed_launch_drops_counters(cuda):
                      counters=ctr)
     assert key not in kernel._COUNTERS
     assert kernel.LAUNCHES == launches                 # a refused launch is not counted
+
+
+# ---------------------------------------------------------------------------
+# the fp32 mixed step: blocks of 16 (query, head) rows whose keys are split
+# over a thread-block cluster (cluster_mixed_f32_kernel, G <= 16)
+# ---------------------------------------------------------------------------
+
+MIXED_S = 1024
+
+
+def _mixed_cl(S, Q, C):
+    """Cache lengths (at most S - Q) whose rows' limits cache_len + i + 1
+    lie all below, on both sides of, and all above every chunk edge of a
+    cluster of C, and 0 and S - Q."""
+    out = {0, S - Q}
+    for lo, end in kernel.cluster_chunks(S, C):
+        for e in (lo, end):
+            out |= {e - Q - 1, e - (Q + 1) // 2, e}
+    return sorted(n for n in out if 0 <= n <= S - Q)
+
+
+def _f32_mixed_q(rng, B, Q, Hq, D, dev):
+    return torch.as_tensor(rng.standard_normal((B, Q, Hq, D)), dtype=torch.float32).to(dev)
+
+
+@pytest.mark.parametrize("Q", [1, 8, 13, 64, 200])
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("D", [32, 64, 80, 128])
+def test_fp32_mixed_cluster_kernel_vs_plain(cuda, D, G, Q):
+    """A window view k[:, :S] of a longer cache, every cluster size (and
+    the chooser's), cache lengths on each side of every chunk edge; rows
+    Q·G not a multiple of 16 leave a partial last block."""
+    rng = np.random.default_rng(200 + D + 10 * G + Q)
+    Hkv, B = 2, 3
+    k, v = _kv(rng, B, MIXED_S + 64, Hkv, D, torch.float32, cuda)
+    kw, vw = k[:, :MIXED_S], v[:, :MIXED_S]
+    q = _f32_mixed_q(rng, B, Q, Hkv * G, D, cuda)
+    for C in (1, 2, 4, 8):
+        for cl_l in _batches(_mixed_cl(MIXED_S, Q, C), B, MIXED_S - Q):
+            cl = torch.tensor(cl_l, dtype=torch.int32, device=cuda)
+            want = ref.mixed_attention(q, kw, vw, cl)
+            _close(kernel._mixed(q, kw, vw, cl, "mixed_attention", cluster=C), want,
+                   torch.float32)
+    _close(kernel.mixed_attention_cuda(q, kw, vw, cl), want, torch.float32)
+
+
+@pytest.mark.parametrize("Q", [1, 8, 13, 64, 200])
+@pytest.mark.parametrize("D,G", [(128, 2), (32, 2), (80, 1), (64, 4)])
+@pytest.mark.parametrize("ps", [1, 16, 48])
+def test_fp32_mixed_cluster_kernel_paged_truncated_table(cuda, ps, D, G, Q):
+    """Through a column slice tables[:, :w] of wider tables (read in place),
+    at every cluster size, cache lengths on each side of every chunk edge."""
+    rng = np.random.default_rng(300 + ps + D + Q)
+    Hkv, B = 2, 3
+    w = -(-MIXED_S // ps)
+    S = w * ps
+    for C in (1, 2, 4, 8):
+        for cl_l in _batches(_mixed_cl(S, Q, C), B, S - Q):
+            cl_np = np.array(cl_l)
+            k, v, tbl = _paged(rng, B, w + 8, ps, Hkv, D, cl_np + Q, torch.float32, cuda)
+            view = tbl[:, :w]
+            assert not view.is_contiguous()
+            q = _f32_mixed_q(rng, B, Q, Hkv * G, D, cuda)
+            cl = torch.as_tensor(cl_np, dtype=torch.int32, device=cuda)
+            want = ref.mixed_attention_paged(q, k, v, view, cl)
+            _close(kernel._mixed(q, k, v, cl, "mixed_attention_paged", view, cluster=C), want,
+                   torch.float32)
+            _close(kernel.mixed_attention_paged_cuda(q, k, v, view, cl), want, torch.float32)
+
+
+@pytest.mark.parametrize("Q", [21, 500])
+def test_fp32_mixed_cluster_kernel_prefill_paged_shape(cuda, Q):
+    """``Model.prefill_paged``'s call in fp32: B=1, a suffix of Q queries
+    after a 1024-token cached prefix, through one table row of batch stride
+    0, qwen3-0.6b's heads (8 kv heads, G 2, D 128)."""
+    rng = np.random.default_rng(400 + Q)
+    Hkv, G, D, ps, nb, start = 8, 2, 128, 16, 256, 1024
+    k, v, tbl = _paged(rng, 1, nb, ps, Hkv, D, [start + Q], torch.float32, cuda)
+    row = tbl[0].as_strided((1, nb), (0, 1))
+    q = _f32_mixed_q(rng, 1, Q, Hkv * G, D, cuda)
+    cl = torch.tensor([start], dtype=torch.int32, device=cuda)
+    # 3 blocks of 16 rows a kv head at Q = 21: clusters of 4; 63 at Q = 500: 1
+    assert kernel.mixed_cluster(nb * ps, 1, Hkv, Q, G, D) == (4 if Q == 21 else 1)
+    _close(kernel.mixed_attention_paged_cuda(q, k, v, row, cl),
+           ref.mixed_attention_paged(q, k, v, row, cl), torch.float32)
+
+
+@pytest.mark.parametrize("C", [1, 2, 4, 8])
+def test_fp32_mixed_cluster_kernel_ignores_nan(cuda, C):
+    """NaN in every cache row at or past cache_len + Q (through a window
+    view) and in the trash page and every pool row no sequence holds below
+    its cache_len + Q (page sizes 16 and 48), at Q 13, G 2 (a partial
+    block): the output is finite and equals the clean run's bit for bit,
+    and two calls in a row are bit-equal."""
+    rng = np.random.default_rng(500 + C)
+    Hkv, G, D, Q = 2, 2, 128, 13
+    cl_l = [0, 127 - Q, 128 - 7, 255, 511 - Q, MIXED_S - Q]
+    B = len(cl_l)
+    cl = torch.tensor(cl_l, dtype=torch.int32, device=cuda)
+    q = _f32_mixed_q(rng, B, Q, Hkv * G, D, cuda)
+    k, v = _kv(rng, B, MIXED_S + 32, Hkv, D, torch.float32, cuda)
+    dead = (torch.arange(MIXED_S + 32, device=cuda)[None, :] >= (cl[:, None] + Q)).reshape(-1)
+    run = functools.partial(kernel._mixed, name="mixed_attention", cluster=C)
+    clean = run(q, k[:, :MIXED_S], v[:, :MIXED_S], cl)
+    assert torch.equal(clean, run(q, k[:, :MIXED_S], v[:, :MIXED_S], cl))
+    kn, vn = _poisoned(k, dead), _poisoned(v, dead)
+    out = run(q, kn[:, :MIXED_S], vn[:, :MIXED_S], cl)
+    assert bool(torch.isfinite(out).all()) and torch.equal(out, clean)
+    _close(clean, ref.mixed_attention(q, k[:, :MIXED_S], v[:, :MIXED_S], cl), torch.float32)
+    for ps in (16, 48):
+        nb = -(-MIXED_S // ps)
+        kp, vp, tbl = _paged(rng, B, nb, ps, Hkv, D, np.array(cl_l) + Q, torch.float32, cuda)
+        live = torch.zeros(kp.shape[0] * ps, dtype=torch.bool, device=cuda)
+        for b, n in enumerate(cl_l):
+            pos = torch.arange(n + Q, device=cuda)
+            live[tbl[b, pos // ps].long() * ps + pos % ps] = True
+        assert not bool(live[:ps].any())           # nothing live on the trash page
+        prun = functools.partial(kernel._mixed, name="mixed_attention_paged", tables=tbl,
+                                 cluster=C)
+        clean = prun(q, kp, vp, cl)
+        assert torch.equal(clean, prun(q, kp, vp, cl))
+        out = prun(q, _poisoned(kp, ~live), _poisoned(vp, ~live), cl)
+        assert bool(torch.isfinite(out).all()) and torch.equal(out, clean)
+
+
+def test_fp32_mixed_cluster_kernel_repeats_bit_equal(cuda):
+    """20 launches at phase 6's shape (B=8, Q 8, 8 kv heads, G 2, D 128, a
+    2048-key window of a 4096-row cache; the chooser's C = 2) are bit-equal."""
+    rng = np.random.default_rng(600)
+    B, Hkv, G, D, Q, W = 8, 8, 2, 128, 8, 2048
+    k, v = _kv(rng, B, 4096, Hkv, D, torch.float32, cuda)
+    q = _f32_mixed_q(rng, B, Q, Hkv * G, D, cuda)
+    cl = torch.tensor([1139, 561, 410, 1341, 623, 1147, 530, 306], dtype=torch.int32,
+                      device=cuda)
+    assert kernel.mixed_cluster(W, B, Hkv, Q, G, D) == 2
+    first = kernel.mixed_attention_cuda(q, k[:, :W], v[:, :W], cl)
+    for _ in range(19):
+        assert torch.equal(kernel.mixed_attention_cuda(q, k[:, :W], v[:, :W], cl), first)
+    _close(first, ref.mixed_attention(q, k[:, :W], v[:, :W], cl), torch.float32)
+
+
+def test_fp32_mixed_kernel_reads_a_strided_q_view(cuda):
+    """q as a view of the fused projection (B, Q, (Hq + 2 Hkv) D), one
+    element past a 16-byte boundary: plain loads through q's strides."""
+    rng = np.random.default_rng(700)
+    Hkv, G, D, Q = 2, 2, 128, 13
+    cl_l = [0, 129, 600]
+    B = len(cl_l)
+    k, v = _kv(rng, B, MIXED_S, Hkv, D, torch.float32, cuda)
+    width = 1 + (Hkv * G + 2 * Hkv) * D
+    fused = _f32_mixed_q(rng, B, Q, width, 1, cuda)[..., 0]
+    q = fused[:, :, 1:1 + Hkv * G * D].unflatten(-1, (Hkv * G, D))
+    assert not q.is_contiguous() and q.data_ptr() % 16 == 4
+    cl = torch.tensor(cl_l, dtype=torch.int32, device=cuda)
+    got = kernel.mixed_attention_cuda(q, k, v, cl)
+    assert torch.equal(got, kernel.mixed_attention_cuda(q.contiguous(), k, v, cl))
+    _close(got, ref.mixed_attention(q.contiguous(), k, v, cl), torch.float32)
+
+
+_MIXED_TRACE_SCRIPT = r"""
+import json
+import numpy as np, torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.kernels.decode_attention import kernel
+
+def counts(fn, calls):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+out = {}
+for G in (1, 2, 16, 32):
+    rng = np.random.default_rng(800 + G)
+    B, S, Hkv, D, ps, Q = 3, 1024, 1, 128, 16, 13
+    f = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=torch.float32).to("cuda")
+    k, v, q = f(B, S, Hkv, D), f(B, S, Hkv, D), f(B, Q, Hkv * G, D)
+    P = 1 + B * (S // ps)
+    kp, vp = f(P, ps, Hkv, D), f(P, ps, Hkv, D)
+    tbl = torch.as_tensor(1 + rng.permutation(P - 1)[: B * (S // ps)].reshape(B, S // ps),
+                          dtype=torch.int32, device="cuda")
+    cl = torch.tensor([0, 300, S - Q], dtype=torch.int32, device="cuda")
+    calls = {"mixed_attention": lambda: kernel.mixed_attention_cuda(q, k, v, cl),
+             "mixed_attention_paged": lambda: kernel.mixed_attention_paged_cuda(
+                 q, kp, vp, tbl, cl)}
+    counts(lambda: [c() for c in calls.values()], 1)   # built, loaded, profiler warm
+    for name, call in calls.items():
+        for _ in range(3):                             # an empty trace is taken again
+            kernel.reset_launches()
+            c = counts(call, 2)
+            if c:
+                break
+        out[f"{G}-{name}"] = dict(counts=c, launches=dict(kernel.LAUNCHES))
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def fp32_mixed_traces():
+    """Device kernels by name, and LAUNCHES, for two calls of each fp32
+    mixed wrapper at G 1, 2, 16 and 32, traced in a fresh process."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    run = subprocess.run([sys.executable, "-c", _MIXED_TRACE_SCRIPT], env=env,
+                         capture_output=True, text=True, timeout=600, check=True)
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("G,name", [(1, "cluster_mixed_f32_kernel"),
+                                    (2, "cluster_mixed_f32_kernel"),
+                                    (16, "cluster_mixed_f32_kernel"),
+                                    (32, "flash_rows_kernel")])   # past 16 heads a kv head
+def test_fp32_mixed_runs_the_expected_kernel(cuda, fp32_mixed_traces, G, name):
+    """Which kernel the fp32 mixed step launches (contiguous and paged), by
+    the profiler's kernel names: exactly one device kernel per wrapper
+    call, and one count per call in LAUNCHES."""
+    for wrapper in ("mixed_attention", "mixed_attention_paged"):
+        got = fp32_mixed_traces[f"{G}-{wrapper}"]
+        counts = got["counts"]
+        assert len(counts) == 1 and name in next(iter(counts)), counts
+        assert next(iter(counts.values())) == 2, counts
+        assert got["launches"][wrapper] == 2 and sum(got["launches"].values()) == 2, got
