@@ -75,8 +75,14 @@ Phases (any failure exits non-zero; nothing is caught):
    in every row of the tier's pool not held;
 4. serve: EngineClient serves full-width qwen3-0.6b (28 layers, bf16,
    seeded random weights) at the default EngineConfig: 16 requests,
-   prompts 16..2000 tokens, 32 new tokens each; launch counters are
-   zeroed just before and read just after; 4-4d launch the split-K
+   prompts 16..2000 tokens, 32 new tokens each; the engine's steps run as
+   CUDA graphs, in every served phase (4-4k, 5-5e): the mixed-step grid
+   (10 (Q, window) buckets) and the decode chunk are captured before the
+   clock starts (``warm_mixed_traces``, ``warm_decode``; the capture time,
+   the graph count and the graph pool's memory on a line of their own),
+   ``generate``'s loop by a call of the same batch and steps; launch
+   counters are zeroed just before and read just after (a replay adds its
+   graph's launches); 4-4d launch the split-K
    decode exactly once per layer per decode step, the partial alone never;
 4b. serve, paged: the same model at EngineConfig(paged_kv=True): 16
    requests of 32 new tokens -- two groups of 4 sharing a 1024-token
@@ -131,6 +137,14 @@ Phases (any failure exits non-zero; nothing is caught):
 5e. card vs CPU on zamba2-2.7b: full width cut to 12 layers (two shared
    applications) at fp32, the same 6 requests through 2 slots and the same
    decode-after-prefill check;
+5f. captured vs eager: the card runs of 5, 5b, 5c (both layouts' legacy
+   traffic and ``generate``), 5d and 5e again with ``graphs=False``: the
+   streams must be token-exact with the captured runs' and every launch
+   count equal;
+5g. stale buffers: on phase 5's model, a captured and an eager engine
+   (both layouts) run one mixed-step bucket and the decode chunk at one
+   set of lengths, flags, chunk tokens and block tables, then at another
+   (the captured engine's replays): every output bit-equal to eager's;
 6. timing: every kernel, its plain version and the one PyTorch call with
    the same result (scaled_dot_product_attention, used only as a
    yardstick; no one call reads a block table or computes the WKV6 or SSD
@@ -1083,11 +1097,32 @@ def make_engine_class():
     return CheckedEngine
 
 
-def serve(model, ecfg, prompts, max_new, device):
-    """Serve ``prompts`` through EngineClient; returns (handles, wall_s, engine)."""
+def warm_graphs(engine, label: str) -> dict:
+    """Capture the engine's mixed-step grid and decode chunk ahead of the
+    clock, into the state its next session takes; prints the capture time,
+    the graph count and the graph pool's memory on a line of their own."""
+    t0 = time.perf_counter()
+    buckets = engine.warm_mixed_traces([engine.cfg.prefill_chunk])
+    engine.warm_decode()
+    torch.cuda.synchronize()
+    g = engine._graphs
+    out = dict(capture_s=time.perf_counter() - t0, graphs=g.captured, mixed_buckets=buckets,
+               graph_pool_gb=g.pool_bytes() / 1e9)
+    print(f"  {label}: captured {g.captured} graphs ({buckets} mixed buckets) in "
+          f"{out['capture_s']:.2f} s, graph pool {out['graph_pool_gb']:.3f} GB", flush=True)
+    return out
+
+
+def serve(model, ecfg, prompts, max_new, device, *, graphs=None, label="serve"):
+    """Serve ``prompts`` through EngineClient; returns (handles, wall_s,
+    engine).  On the card the steps run as CUDA graphs unless ``graphs`` is
+    False, captured before the clock starts (``engine.capture`` holds what
+    ``warm_graphs`` measured); launch counters are zeroed after the capture."""
     from repro_torch.serving import EngineClient, InferenceRequest
 
-    engine = make_engine_class()(model, ecfg, device=device)
+    engine = make_engine_class()(model, ecfg, device=device, graphs=graphs)
+    engine.capture = warm_graphs(engine, label) if engine.graphs else None
+    reset_launches()
     client = EngineClient(engine, device=device)
     if device.type == "cuda":
         torch.cuda.synchronize()
@@ -1139,9 +1174,11 @@ def free_memory() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_serve(name_line: str, model, *, paged: bool, legacy: bool = False) -> dict:
+def phase_serve(name_line: str, model, *, paged: bool, legacy: bool = False,
+                graphs=None) -> dict:
     """Phase 4 (contiguous) or 4b (paged) over the full-width model, or
-    with ``legacy`` 4c / 4d through the legacy (mixed_step=False) admission."""
+    with ``legacy`` 4c / 4d through the legacy (mixed_step=False) admission;
+    with ``graphs=False`` its steps run eagerly (``serve_ab.py``)."""
     from repro_torch.serving import EngineConfig
 
     cfg = model.cfg
@@ -1149,8 +1186,8 @@ def phase_serve(name_line: str, model, *, paged: bool, legacy: bool = False) -> 
     ecfg = EngineConfig(paged_kv=paged, mixed_step=not legacy)
     label = ("serve legacy" if legacy else "serve") + (" paged" if paged else "")
     rng = np.random.default_rng(0)
-    # warm-up (cuBLAS handles, allocator) outside the counted run
-    serve(model, ecfg, prompts_for(rng, 2, 16, 64, cfg.vocab_size), 4, dev)
+    # warm-up (cuBLAS handles, allocator, the eager prefill) outside the counted run
+    serve(model, ecfg, prompts_for(rng, 2, 16, 64, cfg.vocab_size), 4, dev, graphs=False)
     free_memory()
 
     if paged:
@@ -1164,8 +1201,7 @@ def phase_serve(name_line: str, model, *, paged: bool, legacy: bool = False) -> 
         prompts = prompts_for(rng, 16, 16, 2000, cfg.vocab_size)
     max_new = 32
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    handles, wall, engine = serve(model, ecfg, prompts, max_new, dev)
+    handles, wall, engine = serve(model, ecfg, prompts, max_new, dev, graphs=graphs, label=label)
     launches = read_launches()
     check_handles(handles, engine, max_new, cfg.vocab_size, label)
     tel = engine.telemetry
@@ -1208,7 +1244,7 @@ def phase_serve(name_line: str, model, *, paged: bool, legacy: bool = False) -> 
         ttft_p50_s=float(np.percentile(ttft, 50)), ttft_p99_s=float(np.percentile(ttft, 99)),
         mixed_steps=tel.mixed_steps, decode_chunks=tel.chunks, prefills=tel.prefills,
         launches=launches, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-        card=name_line,
+        capture=engine.capture, card=name_line,
     )
     if legacy and not paged:
         # the prefills alone, each timed to its end: their share of the wall
@@ -1251,12 +1287,13 @@ def check_decode_launches(launches: dict, engine, layers: int, name: str, label:
           f"{layers} layers")
 
 
-def phase_serve_single(name_line: str, model, *, paged: bool) -> dict:
+def phase_serve_single(name_line: str, model, *, paged: bool, graphs=None) -> dict:
     """Phase 4j (contiguous) or 4k (paged): the full-width bf16 model at
     EngineConfig(max_len=1536), mixed admission: 8 requests, prompts
     16..1400 tokens, 32 new tokens each.  Prefill runs the mixed step;
     every decode step of every layer runs the single-stage decode, whose
-    launches are held to their exact number; no other kernel may launch."""
+    launches are held to their exact number; no other kernel may launch.
+    With ``graphs=False`` its steps run eagerly (``serve_ab.py``)."""
     from repro_torch.serving import EngineConfig
 
     cfg = model.cfg
@@ -1264,14 +1301,15 @@ def phase_serve_single(name_line: str, model, *, paged: bool) -> dict:
     ecfg = EngineConfig(max_len=SINGLE_MAX_LEN, paged_kv=paged)
     label = "serve single-stage" + (" paged" if paged else "")
     rng = np.random.default_rng(2)
-    serve(model, ecfg, prompts_for(rng, 2, 16, 64, cfg.vocab_size), 4, dev)   # warm-up
+    serve(model, ecfg, prompts_for(rng, 2, 16, 64, cfg.vocab_size), 4, dev,   # warm-up
+          graphs=False)
     free_memory()
     prompts = prompts_for(rng, 8, 16, 1400, cfg.vocab_size)
     max_new = 32
-    reset_launches()
-    handles, wall, engine = serve(model, ecfg, prompts, max_new, dev)
+    handles, wall, engine = serve(model, ecfg, prompts, max_new, dev, graphs=graphs, label=label)
     launches = read_launches()
     check_handles(handles, engine, max_new, cfg.vocab_size, label)
+    ttft = np.array([h.record.ttft_s for h in handles])
     decode, mixed = (("decode_attention_paged", "mixed_attention_paged") if paged
                      else ("decode_attention", "mixed_attention"))
     check_decode_launches(launches, engine, cfg.n_layers, decode, label)
@@ -1287,8 +1325,11 @@ def phase_serve_single(name_line: str, model, *, paged: bool) -> dict:
                 prompt_tokens=int(sum(len(p) for p in prompts)),
                 generated_tokens=int(sum(len(h.result()) for h in handles)),
                 wall_s=wall, tokens_per_s=sum(len(h.result()) for h in handles) / wall,
+                ttft_p50_s=float(np.percentile(ttft, 50)),
+                ttft_p99_s=float(np.percentile(ttft, 99)),
                 mixed_steps=tel.mixed_steps, decode_chunks=tel.chunks,
-                decode_chunk=ecfg.decode_chunk, launches=launches, card=name_line)
+                decode_chunk=ecfg.decode_chunk, launches=launches, capture=engine.capture,
+                card=name_line)
 
 
 def phase_generate(name_line: str, model) -> dict:
@@ -1299,7 +1340,7 @@ def phase_generate(name_line: str, model) -> dict:
     B_, plen, steps = 8, 512, 32
     engine = make_engine_class()(model, EngineConfig(), device=model.device)
     rng = np.random.default_rng(4)
-    engine.generate({"inputs": rng.integers(0, cfg.vocab_size, (2, 16))}, 2, 16)   # warm-up
+    capture = warm_generate(engine, B_, steps, "generate")
     toks = rng.integers(0, cfg.vocab_size, (B_, plen))
     torch.cuda.synchronize()
     reset_launches()
@@ -1317,7 +1358,23 @@ def phase_generate(name_line: str, model) -> dict:
           f"of {cfg.n_layers} layers")
     check(launches["decode_attention_splitk_partial"] == 0, "generate: a partial-only launch")
     return dict(batch=B_, prompt_len=plen, steps=steps, layers=cfg.n_layers, dtype=cfg.dtype,
-                wall_s=wall, tokens_per_s=B_ * steps / wall, launches=launches, card=name_line)
+                wall_s=wall, tokens_per_s=B_ * steps / wall, launches=launches,
+                capture=capture, card=name_line)
+
+
+def warm_generate(engine, B_: int, steps: int, label: str) -> dict:
+    """A ``generate`` call of the timed call's batch and steps on a short
+    prompt: it captures the decode loop's graph, which the timed call
+    replays (the graph does not depend on the prompt's length)."""
+    t0 = time.perf_counter()
+    engine.generate({"inputs": np.zeros((B_, 16), np.int64)}, steps, 16)
+    torch.cuda.synchronize()
+    g = engine._graphs
+    out = dict(capture_s=time.perf_counter() - t0, graphs=g.captured,
+               graph_pool_gb=g.pool_bytes() / 1e9)
+    print(f"  {label}: captured {g.captured} graph in {out['capture_s']:.2f} s (with its "
+          f"prefill), graph pool {out['graph_pool_gb']:.3f} GB", flush=True)
+    return out
 
 
 def _margin(model, tokens, a: int, b: int) -> float:
@@ -1348,14 +1405,15 @@ def phase_card_vs_cpu(cpu_model, card_model, *, paged: bool) -> tuple:
     else:
         prompts = prompts_for(rng, 16, 16, 900, cfg.vocab_size)
     max_new = 32
-    reset_launches()
-    card_h, card_wall, card_eng = serve(card_model, ecfg, prompts, max_new, torch.device("cuda"))
+    card_h, card_wall, card_eng = serve(card_model, ecfg, prompts, max_new, torch.device("cuda"),
+                                        label=label)
     launches = read_launches()
     for k_ in (("decode_attention_paged", "mixed_attention_paged") if paged
                else ("decode_attention", "mixed_attention")):
         check(launches[k_] > 0, f"{label}: kernel {k_} never launched")
     check_decode_launches(launches, card_eng, cfg.n_layers,
                           "decode_attention_paged" if paged else "decode_attention", label)
+    eager = captured_vs_eager(label, card_model, ecfg, prompts, max_new, card_h, launches)
     cpu_h, cpu_wall, cpu_eng = serve(cpu_model, ecfg, prompts, max_new, torch.device("cpu"))
     check_handles(card_h, card_eng, max_new, cfg.vocab_size, f"{label} card fp32")
     check_handles(cpu_h, cpu_eng, max_new, cfg.vocab_size, f"{label} cpu fp32")
@@ -1364,7 +1422,7 @@ def phase_card_vs_cpu(cpu_model, card_model, *, paged: bool) -> tuple:
                                   ("card", "cpu"))
     out = dict(requests=len(prompts), exact_streams=exact, near_ties=ties, layers=cfg.n_layers,
                dtype=cfg.dtype, max_len=ecfg.max_len, launches=launches,
-               card_wall_s=card_wall, cpu_wall_s=cpu_wall)
+               card_wall_s=card_wall, cpu_wall_s=cpu_wall, eager=eager)
     if paged:
         sts = [h[0]._client.session.allocator.stats for h in (card_h, cpu_h)]
         check(sts[0] == sts[1], f"{label}: card and cpu prefix stats differ: {sts}")
@@ -1373,6 +1431,22 @@ def phase_card_vs_cpu(cpu_model, card_model, *, paged: bool) -> tuple:
         out.update(full_hits=sts[0].full_hits, prefix_hits=sts[0].prefix_hits,
                    cow_copies=sts[0].cow_copies)
     return out, prompts, [h.result() for h in card_h]
+
+
+def captured_vs_eager(label, model, ecfg, prompts, max_new, handles, launches) -> dict:
+    """Phase 5f's check of one run through captured steps (``handles``,
+    ``launches``): the same traffic on the card with ``graphs=False`` must
+    give the same streams token for token and the same launch counts."""
+    eh, wall, engine = serve(model, ecfg, prompts, max_new, torch.device("cuda"), graphs=False)
+    eager_launches = read_launches()
+    check_handles(eh, engine, max_new, model.cfg.vocab_size, f"{label} eager")
+    exact = sum(np.array_equal(a.result(), b.result()) for a, b in zip(handles, eh))
+    check(exact == len(prompts),
+          f"{label}: {len(prompts) - exact} of {len(prompts)} captured streams differ from eager")
+    check(eager_launches == launches,
+          f"{label}: launches captured {launches} differ from eager {eager_launches}")
+    return dict(requests=len(prompts), exact_streams=exact, launches_equal=True,
+                eager_wall_s=wall)
 
 
 def compare_streams(prompts, streams_a, streams_b, model_a, model_b, names) -> tuple:
@@ -1410,27 +1484,87 @@ def phase_legacy_vs_mixed(cpu_model, card_model, streams) -> dict:
     for key, paged in (("contiguous", False), ("paged", True)):
         prompts, mixed_streams = streams[paged]
         ecfg = EngineConfig(max_len=1024, paged_kv=paged, mixed_step=False)
-        reset_launches()
-        handles, wall, engine = serve(card_model, ecfg, prompts, 32, card)
+        handles, wall, engine = serve(card_model, ecfg, prompts, 32, card,
+                                      label=f"legacy vs mixed {key}")
         launches = read_launches()
         check_handles(handles, engine, 32, cfg.vocab_size, f"legacy vs mixed {key}")
         check(launches["flash_attention"] > 0, f"legacy vs mixed {key}: no flash launch")
         exact, ties = compare_streams(prompts, [h.result() for h in handles], mixed_streams,
                                       card_model, card_model, ("legacy", "mixed"))
         out[key] = dict(requests=len(prompts), exact_streams=exact, near_ties=ties,
-                        wall_s=wall, prefills=engine.telemetry.prefills, launches=launches)
+                        wall_s=wall, prefills=engine.telemetry.prefills, launches=launches,
+                        eager=captured_vs_eager(f"legacy {key}", card_model, ecfg, prompts, 32,
+                                                handles, launches))
     toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (4, 64))
-    gens = []
-    for model in (card_model, cpu_model):
-        engine = make_engine_class()(model, EngineConfig(max_len=1024), device=model.device)
+    gens, runs = [], {}
+    for model, graphs in ((card_model, True), (card_model, False), (cpu_model, False)):
+        engine = make_engine_class()(model, EngineConfig(max_len=1024), device=model.device,
+                                     graphs=graphs)
         reset_launches()
         gens.append(engine.generate({"inputs": toks}, 16, 64))
         if model is card_model:
-            launches = read_launches()
-    exact, ties = compare_streams([list(t) for t in toks], gens[0], gens[1], card_model,
+            runs[graphs] = read_launches()
+    exact, ties = compare_streams([list(t) for t in toks], gens[0], gens[2], card_model,
                                   cpu_model, ("card", "cpu"))
+    check(np.array_equal(gens[0], gens[1]), "generate: captured and eager streams differ")
+    check(runs[True] == runs[False],
+          f"generate: launches captured {runs[True]} differ from eager {runs[False]}")
     out["generate"] = dict(batch=4, prompt_len=64, steps=16, exact_streams=exact,
-                           near_ties=ties, launches=launches)
+                           near_ties=ties, launches=runs[True],
+                           eager=dict(requests=4, exact_streams=4, launches_equal=True))
+    return out
+
+
+def phase_stale_buffers(card_model) -> dict:
+    """Phase 5g: a replay reads its step buffers as they stand.  On one
+    captured and one eager (``graphs=False``) engine over the same fp32
+    model, both layouts: a mixed step of one (Q, window) bucket at one set
+    of lengths, flags, chunk tokens and block tables (the captured engine's
+    first call, then its capture), then the same bucket at another set (a
+    replay); then the decode chunk likewise.  Every replay must give the
+    eager engine's result at the new values, bit for bit."""
+    from repro_torch.serving import EngineConfig
+
+    card = torch.device("cuda")
+    cfg = card_model.cfg
+    rng = np.random.default_rng(7)
+    B, out = 4, {}
+    for paged in (False, True):
+        ecfg = EngineConfig(max_len=1024, decode_batch=B, paged_kv=paged, prefill_chunk=32)
+        engines = [make_engine_class()(card_model, ecfg, device=card, graphs=g)
+                   for g in (True, False)]
+        Q, nb = engines[0].chunk_quantum(ecfg.prefill_chunk), engines[0].max_blocks
+        calls = []
+        for _ in range(2):
+            lens = rng.integers(0, 600, B)
+            dec = rng.integers(0, 2, B)
+            new = np.where(dec == 1, 1, rng.integers(0, Q + 1, B))
+            pages = rng.permutation(np.arange(1, engines[0].num_pages))[:B * nb]
+            calls.append(dict(lens=lens, new=new, dec=dec, upd=dec | (new > 0),
+                              chunks=rng.integers(0, cfg.vocab_size, (B, Q)),
+                              tables=pages.reshape(B, nb)))
+        results = []
+        for eng in engines:
+            st, got = eng._session_state(), []
+            for c in calls:
+                st.stage(c["lens"], c["new"], c["dec"], c["upd"], c["tables"])
+                st.chunk(Q).fill(c["chunks"])
+                logits, nxt = eng._mixed_call(st, Q, ecfg.max_len)
+                got += [logits.clone(), nxt.clone()]
+            for c in calls:
+                zero = np.zeros(B)
+                st.stage(c["lens"], zero, c["dec"], zero, c["tables"])
+                got += [eng._decode_call(st, ecfg.decode_chunk).clone(), st.tok.clone()]
+            results.append(got)
+        key = "paged" if paged else "contiguous"
+        errs = [_err(a.float(), b.float()) for a, b in zip(*results)]
+        for i, (a, b) in enumerate(zip(*results)):
+            check(torch.equal(a, b), f"stale buffers {key}: output {i} of the captured engine "
+                                     f"differs from eager (max abs err {errs[i]:.3e})")
+        check(not torch.equal(results[0][0], results[0][2]),
+              f"stale buffers {key}: the two mixed steps' inputs gave one result")
+        out[key] = dict(outputs=len(errs), max_abs_err=max(errs),
+                        graphs=engines[0]._graphs.captured)
     return out
 
 
@@ -1501,13 +1635,13 @@ def phase_serve_scan(name_line: str, model) -> dict:
     ecfg = EngineConfig()
     label = f"serve {cfg.name}"
     rng = np.random.default_rng(0)
-    serve(model, ecfg, prompts_for(rng, 2, 16, 64, cfg.vocab_size), 4, dev)     # warm-up
+    serve(model, ecfg, prompts_for(rng, 2, 16, 64, cfg.vocab_size), 4, dev,     # warm-up
+          graphs=False)
     free_memory()
     prompts = prompts_for(rng, 16, 16, 2000, cfg.vocab_size)
     max_new = 32
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    handles, wall, engine = serve(model, ecfg, prompts, max_new, dev)
+    handles, wall, engine = serve(model, ecfg, prompts, max_new, dev, label=label)
     launches = read_launches()
     check_handles(handles, engine, max_new, cfg.vocab_size, label)
     tel = engine.telemetry
@@ -1527,7 +1661,7 @@ def phase_serve_scan(name_line: str, model) -> dict:
         ttft_p50_s=float(np.percentile(ttft, 50)), ttft_p99_s=float(np.percentile(ttft, 99)),
         decode_chunks=tel.chunks, decode_steps=steps, prefills=tel.prefills,
         launches=launches, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-        card=name_line)
+        capture=engine.capture, card=name_line)
     # the prefills alone, each timed to its end: their share of the wall
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1555,7 +1689,7 @@ def phase_generate_scan(name_line: str, model) -> dict:
     ecfg = EngineConfig()
     engine = make_engine_class()(model, ecfg, device=model.device)
     rng = np.random.default_rng(4)
-    engine.generate({"inputs": rng.integers(0, cfg.vocab_size, (2, 16))}, 2, 16)   # warm-up
+    capture = warm_generate(engine, B_, steps, label)
     toks = rng.integers(0, cfg.vocab_size, (B_, plen))
     torch.cuda.synchronize()
     reset_launches()
@@ -1568,7 +1702,8 @@ def phase_generate_scan(name_line: str, model) -> dict:
     check(int(engine.nonfinite) == 0, f"{label}: {int(engine.nonfinite)} non-finite logits")
     check_launches(launches, expected_scan_launches(cfg, 1, steps, ecfg.max_len), label)
     return dict(batch=B_, prompt_len=plen, steps=steps, layers=cfg.n_layers, dtype=cfg.dtype,
-                wall_s=wall, tokens_per_s=B_ * steps / wall, launches=launches, card=name_line)
+                wall_s=wall, tokens_per_s=B_ * steps / wall, launches=launches,
+                capture=capture, card=name_line)
 
 
 def phase_scan_card_vs_cpu(cfg, n_layers: int) -> dict:
@@ -1590,12 +1725,13 @@ def phase_scan_card_vs_cpu(cfg, n_layers: int) -> dict:
     rng = np.random.default_rng(6)
     prompts = prompts_for(rng, 6, 16, 300, small.vocab_size)
     max_new = 8
-    reset_launches()
-    card_h, card_wall, card_eng = serve(card_model, ecfg, prompts, max_new, torch.device("cuda"))
+    card_h, card_wall, card_eng = serve(card_model, ecfg, prompts, max_new, torch.device("cuda"),
+                                        label=label)
     launches = read_launches()
     tel = card_eng.telemetry
     check_launches(launches, expected_scan_launches(
         small, tel.prefills, tel.chunks * ecfg.decode_chunk, ecfg.max_len), label)
+    eager = captured_vs_eager(label, card_model, ecfg, prompts, max_new, card_h, launches)
     cpu_h, cpu_wall, cpu_eng = serve(cpu_model, ecfg, prompts, max_new, torch.device("cpu"))
     check_handles(card_h, card_eng, max_new, small.vocab_size, f"{label} card fp32")
     check_handles(cpu_h, cpu_eng, max_new, small.vocab_size, f"{label} cpu fp32")
@@ -1619,7 +1755,7 @@ def phase_scan_card_vs_cpu(cfg, n_layers: int) -> dict:
                 layers=small.n_layers, dtype=small.dtype, slots=ecfg.decode_batch,
                 prefills=tel.prefills, launches=launches,
                 card_wall_s=card_wall, cpu_wall_s=cpu_wall,
-                decode_vs_prefill_max_abs_err=err)
+                decode_vs_prefill_max_abs_err=err, eager=eager)
 
 
 # --------------------------------------------------------------------------
@@ -2351,6 +2487,11 @@ def main() -> int:
     free_memory()
     print(f"[5c/6] legacy vs mixed on the card, generate card vs cpu in "
           f"{time.perf_counter() - t0:.1f} s: " + json.dumps(runs["legacy_vs_mixed"]), flush=True)
+    t0 = time.perf_counter()
+    runs["stale_buffers"] = phase_stale_buffers(card_model)
+    free_memory()
+    print(f"[5g/6] replays after the lengths and tables change equal eager, in "
+          f"{time.perf_counter() - t0:.1f} s: " + json.dumps(runs["stale_buffers"]), flush=True)
     del cpu_model, card_model
     free_memory()
     t0 = time.perf_counter()
@@ -2364,6 +2505,13 @@ def main() -> int:
     print(f"[5e/6] zamba2-2.7b card vs cpu (12 layers, fp32, 2 slots) in "
           f"{time.perf_counter() - t0:.1f} s: " + json.dumps(runs["zamba2_card_vs_cpu"]),
           flush=True)
+    lvm = runs["legacy_vs_mixed"]
+    eager = {"5": runs["card_vs_cpu"]["eager"], "5b": runs["card_vs_cpu_paged"]["eager"],
+             "5c contiguous": lvm["contiguous"]["eager"], "5c paged": lvm["paged"]["eager"],
+             "5c generate": lvm["generate"]["eager"], "5d": runs["rwkv_card_vs_cpu"]["eager"],
+             "5e": runs["zamba2_card_vs_cpu"]["eager"]}
+    print("[5f/6] fp32 traffic of 5-5e captured vs eager (graphs=False) on the card, "
+          "token-exact, launches equal: " + json.dumps(eager), flush=True)
 
     t0 = time.perf_counter()
     tim = phase_timing()

@@ -48,6 +48,12 @@ wrapper's (``split_counters``), one per (device, stream): zeroed when it
 is made, grown (a new zeroed buffer) when a launch needs more entries,
 never touched by the host otherwise, since the kernel leaves every count
 at 0.  A launch that fails drops it, so the next call starts from zeros.
+A CUDA graph keeps the address of the buffer its capture launched with,
+so the buffer must exist, large enough, before the capture: the engine
+runs each step once on the capture stream first.  Made or grown under a
+capture it would live in the graph's memory, so ``split_counters``
+raises there; a buffer replaced by a larger one is kept alive for the
+graphs that hold it.
 
 The library is built on the first call (``kernels._build``).  These take
 CUDA tensors only; ``ops`` sends CPU tensors to ``ref``.
@@ -141,8 +147,10 @@ LAUNCHES = {
 }
 
 ROWS_PER_CTA = 8       # flash_rows_kernel's query rows per CTA (csrc: kRows)
-# the split-K decode's arrival counters by (device index, stream)
+# the split-K decode's arrival counters by (device index, stream), and the
+# buffers a larger one replaced (a captured graph may still launch on them)
 _COUNTERS: dict = {}
+_RETIRED: list = []
 
 
 def reset_launches() -> None:
@@ -255,10 +263,17 @@ def _counter_key(t: torch.Tensor) -> tuple:
 def split_counters(t: torch.Tensor, n: int) -> torch.Tensor:
     """At least ``n`` int32 arrival counters of the split-K decode for the
     current stream of ``t``'s device, all 0: made zeroed on first use and
-    kept; replaced by a larger zeroed buffer when ``n`` outgrows it."""
+    kept; replaced by a larger zeroed buffer when ``n`` outgrows it.  Under
+    a CUDA graph capture it must already be there: raises otherwise."""
     key = _counter_key(t)
     buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"split-K counters for {n} entries do not exist on the capturing stream: "
+                "run the step once on that stream before capturing it")
+        if buf is not None:
+            _RETIRED.append(buf)
         buf = _COUNTERS[key] = torch.zeros(n, dtype=torch.int32, device=t.device)
     return buf
 

@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve
         [--arch qwen3-0.6b|rwkv6-7b|zamba2-2.7b] [--paged] [--legacy]
-        [--max-len 4096] [--out build/profile]
+        [--max-len 4096] [--eager] [--out build/profile]
 
 Serves a full-width model (all layers, seeded random weights, bf16;
 qwen3-0.6b by default) through ``EngineClient`` at the default
@@ -11,8 +11,11 @@ qwen3-0.6b by default) through ``EngineClient`` at the default
 zamba2-2.7b take legacy admission either way, as they have no mixed
 step; ``--max-len`` sets the cache length, which picks the decode
 attention: split-K at 2048 keys or more, the single-stage cluster kernel
-below) -- 8 requests with distinct prompts of 16 to 1024 tokens, 16 new
-tokens each -- once to warm up and once under the profiler, and prints
+below; the engine's steps run as CUDA graphs, captured before the
+profiled run, or with ``--eager`` (``graphs=False``) kernel by kernel,
+for the A/B of step time and idle share) -- 8 requests with distinct
+prompts of 16 to 1024 tokens, 16 new tokens each -- once to warm up and
+once under the profiler, and prints
 one JSON line: wall time, device busy time (the union of kernel and
 memcpy intervals in the trace) and idle share, time per engine step (a
 mixed step, a decode step or a prefill), the top device kernels, the
@@ -46,8 +49,18 @@ PROMPT_MAX = 1024
 MAX_NEW = 16
 
 
-def _serve(model, ecfg, prompts, max_new):
-    engine = ServingEngine(model, ecfg)
+def _engine(model, ecfg, eager: bool) -> ServingEngine:
+    """An engine whose graphs (unless ``eager``) are captured now: the
+    mixed-step grid and the decode chunk, into its next session's state."""
+    engine = ServingEngine(model, ecfg, graphs=not eager)
+    if engine.graphs:
+        engine.warm_mixed_traces([ecfg.prefill_chunk])
+        engine.warm_decode()
+        torch.cuda.synchronize()
+    return engine
+
+
+def _serve(engine, prompts, max_new):
     client = EngineClient(engine)
     handles = [client.submit(InferenceRequest(prompt=p, max_new=max_new)) for p in prompts]
     torch.cuda.synchronize()
@@ -85,6 +98,8 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="qwen3-0.6b", choices=ARCH_IDS)
     ap.add_argument("--max-len", type=int, default=EngineConfig.max_len,
                     help="KV cache length per slot (the engine's default: 4096)")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the steps kernel by kernel (graphs=False), not as CUDA graphs")
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args(argv)
 
@@ -94,9 +109,10 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, int(n))
                for n in np.linspace(16, PROMPT_MAX, REQUESTS).round()]
-    _serve(model, ecfg, prompts[:2], 4)                      # warm-up
+    _serve(_engine(model, ecfg, args.eager), prompts[:2], 4)        # warm-up
+    engine = _engine(model, ecfg, args.eager)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        handles, wall, engine = _serve(model, ecfg, prompts, MAX_NEW)
+        handles, wall, engine = _serve(engine, prompts, MAX_NEW)
     tel = engine.telemetry
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
@@ -132,7 +148,10 @@ def main(argv=None) -> int:
     print(json.dumps(dict(
         card=torch.cuda.get_device_name(0), arch=cfg.name, paged_kv=args.paged,
         max_len=ecfg.max_len,
-        legacy=not engine.mixed, layers=cfg.n_layers, requests=len(handles),
+        legacy=not engine.mixed, graphs=engine.graphs, layers=cfg.n_layers,
+        requests=len(handles),
+        **(dict(graphs_captured=engine._graphs.captured, capture_s=engine._graphs.capture_s,
+                graph_pool_gb=engine._graphs.pool_bytes() / 1e9) if engine.graphs else {}),
         prompt_tokens=int(sum(len(p) for p in prompts)), max_new=MAX_NEW,
         wall_s=wall, mixed_steps=tel.mixed_steps, decode_steps=tel.chunks * ecfg.decode_chunk,
         prefills=legacy_prefills, ms_per_step=wall * 1e3 / max(1, steps),
@@ -149,7 +168,8 @@ def main(argv=None) -> int:
                                   if any(n in k for n in ("cluster_", "flash_rows", "splitk"))},
         syncs=dict(stream_sync=rt.get("cudaStreamSynchronize", 0),
                    memcpy_async=rt.get("cudaMemcpyAsync", 0),
-                   launches=rt.get("cudaLaunchKernel", 0) + rt.get("cudaLaunchKernelExC", 0)),
+                   launches=rt.get("cudaLaunchKernel", 0) + rt.get("cudaLaunchKernelExC", 0),
+                   graph_launches=rt.get("cudaGraphLaunch", 0)),
         trace=str(trace),
     )))
     return 0

@@ -143,13 +143,61 @@ def _attention_decode_paged(
     return (out.reshape(B, cfg.q_dim) @ p.wo)[:, None, :]
 
 
+# the reserved page every padding row of a paged mixed step writes to
+# (``serving.paged_kv.TRASH_PAGE``); nothing reads it
+TRASH_PAGE = 0
+
+
+def mixed_write_plan(cache_lens: torch.Tensor, new_lens: torch.Tensor, Q: int,
+                     S: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Where a mixed step's chunk rows land in a contiguous (B, S) cache,
+    computed on the device from the (B,) lengths, at a fixed shape.  Slot
+    ``b`` rewrites the Q-row window [w_b, w_b + Q), w_b = min(cache_lens[b],
+    S - Q): position p takes chunk row p - cache_lens[b] where that is in
+    [0, new_lens[b]) (the JAX positional select), else its old row, bit for
+    bit.  Every row a slot writes lies in its window, and the windows'
+    rows are distinct, so one ``index_copy_`` stays deterministic.  Returns
+    (dst, src, take) over the B·Q window rows: flat cache row, flat chunk
+    row, and whether the chunk row is taken."""
+    if Q > S:
+        raise ValueError(f"a mixed step of {Q} rows needs a cache of at least {Q} rows, not {S}")
+    dev = cache_lens.device
+    B = cache_lens.shape[0]
+    cl, nl = cache_lens.long()[:, None], new_lens.long()[:, None]
+    b = torch.arange(B, device=dev)[:, None]
+    pos = cl.clamp(max=S - Q) + torch.arange(Q, device=dev)[None, :]
+    off = pos - cl
+    take = (off >= 0) & (off < nl)
+    return ((b * S + pos).reshape(-1), (b * Q + off.clamp(0, Q - 1)).reshape(-1),
+            take.reshape(-1))
+
+
+def paged_write_plan(cache_lens: torch.Tensor, new_lens: torch.Tensor, Q: int,
+                     tables: torch.Tensor, ps: int) -> Tuple[torch.Tensor, None, None]:
+    """``mixed_write_plan`` through (B, nb) block tables, on the device:
+    chunk row ``i`` of slot ``b`` writes position t = cache_lens[b] + i at
+    flat pool row tables[b, t // ps]·ps + t % ps when i < new_lens[b] and
+    t < nb·ps; every other row goes to its row of the trash page, as in
+    JAX.  Only the trash page takes repeated writes (after copy-on-write
+    every page a slot writes is its own), and nothing reads it.  Returns
+    (dst, None, None): every chunk row is written, in order."""
+    dev = cache_lens.device
+    nb = tables.shape[1]
+    pos = cache_lens.long()[:, None] + torch.arange(Q, device=dev)[None, :]
+    valid = ((torch.arange(Q, device=dev)[None, :] < new_lens.long()[:, None])
+             & (pos < nb * ps))
+    page = tables.long().gather(1, (pos // ps).clamp(max=nb - 1))
+    page = torch.where(valid, page, TRASH_PAGE)
+    return (page * ps + pos % ps).reshape(-1), None, None
+
+
 def mixed_write_index(cache_lens: np.ndarray, new_lens: np.ndarray, Q: int,
                       S: int) -> Tuple[np.ndarray, np.ndarray]:
-    """Rows of a mixed step that land in the cache: chunk row ``i`` of slot
-    ``b`` writes position ``cache_lens[b] + i`` iff ``i < new_lens[b]`` and
-    the position exists.  Returns (src, dst): flat indices into the
-    (B·Q) chunk rows and the (B·S) cache rows — unique, so the copy is
-    deterministic.  Padding rows write nothing (the JAX positional select)."""
+    """The host form of ``mixed_write_plan``, the plain version the tests
+    hold it to: chunk row ``i`` of slot ``b`` lands at position
+    ``cache_lens[b] + i`` iff ``i < new_lens[b]`` and the position exists.
+    Returns (src, dst): flat indices into the (B·Q) chunk rows and the
+    (B·S) cache rows of the rows that land."""
     cache_lens = np.asarray(cache_lens, np.int64)
     new_lens = np.asarray(new_lens, np.int64)
     i = np.arange(Q)[None, :]
@@ -161,13 +209,10 @@ def mixed_write_index(cache_lens: np.ndarray, new_lens: np.ndarray, Q: int,
 
 def paged_write_index(cache_lens: np.ndarray, new_lens: np.ndarray, Q: int,
                       tables: np.ndarray, ps: int) -> Tuple[np.ndarray, np.ndarray]:
-    """``mixed_write_index`` through block tables: chunk row ``i`` of slot
-    ``b`` writes position ``t = cache_lens[b] + i`` iff ``i < new_lens[b]``,
-    at flat pool row ``tables[b, t // ps]·ps + t % ps`` of the (P·ps) rows.
-    Padding rows are dropped, not sent to the trash page as in JAX: nothing
-    reads what they would write.  The destinations are unique — after
-    copy-on-write every page a slot writes is its own — so one
-    ``index_copy_`` stays deterministic."""
+    """The host form of ``paged_write_plan`` without its trash-page rows:
+    chunk row ``i`` of slot ``b`` lands at flat pool row ``tables[b, t //
+    ps]·ps + t % ps`` of the (P·ps) rows, t = ``cache_lens[b] + i``, iff
+    ``i < new_lens[b]`` and t < nb·ps."""
     cache_lens = np.asarray(cache_lens, np.int64)
     new_lens = np.asarray(new_lens, np.int64)
     tables = np.asarray(tables, np.int64)
@@ -179,31 +224,43 @@ def paged_write_index(cache_lens: np.ndarray, new_lens: np.ndarray, Q: int,
     return b * Q + col, tables[b, t // ps] * ps + t % ps
 
 
+def write_rows(buf: torch.Tensor, new: torch.Tensor, plan) -> None:
+    """Write a mixed step's (B, Q, Hkv, Dh) ``new`` rows into one layer's
+    cache or pool ``buf`` in place, by a ``mixed_write_plan`` or
+    ``paged_write_plan``: one ``index_copy_`` of B·Q rows."""
+    dst, src, take = plan
+    flat = buf.view(-1, *buf.shape[2:])
+    rows = new.reshape(-1, *new.shape[2:]).to(buf.dtype)
+    if src is not None:
+        rows = rows.index_select(0, src)
+    if take is not None:
+        rows = torch.where(take[:, None, None], rows, flat.index_select(0, dst))
+    flat.index_copy_(0, dst, rows)
+
+
 def attention_mixed(
     p: Attention,
     x: torch.Tensor,               # (B, Q, d) — Q new tokens per slot
     cache: KVCache,                # (B, S, Hkv, Dh) or a pool, written in place
     cache_lens: torch.Tensor,      # (B,) int32 tokens already cached, on x's device
     cfg: ModelConfig,
-    write_index: Tuple[torch.Tensor, torch.Tensor],   # mixed/paged_write_index, on device
+    write_plan,                    # mixed_write_plan / paged_write_plan, on x's device
     *,
     attn_window: Optional[int] = None,
     page_table: Optional[torch.Tensor] = None,        # (B, nb) int32 => paged pool
 ) -> torch.Tensor:
     """One mixed-batch step: every slot advances by its own ragged suffix.
-    Only rows ``i < new_lens[b]`` write KV (``write_index``, flat rows of
-    the cache or pool); query ``i`` attends to every position
-    ``<= cache_lens[b] + i``.  ``attn_window`` bounds the span read: the
-    kernel takes the ``[:, :W]`` view of a contiguous cache, or the
-    ``[:, :ceil(W / ps)]`` column slice of the tables, in place (no copy)."""
+    The chunk's KV goes in by ``write_plan`` (only rows ``i < new_lens[b]``
+    land where a slot's content lives); query ``i`` attends to every
+    position ``<= cache_lens[b] + i``.  ``attn_window`` bounds the span
+    read: the kernel takes the ``[:, :W]`` view of a contiguous cache, or
+    the ``[:, :ceil(W / ps)]`` column slice of the tables, in place (no
+    copy)."""
     B, Q, _ = x.shape
     positions = cache_lens[:, None] + torch.arange(Q, device=x.device, dtype=cache_lens.dtype)
     q, k_new, v_new = _project_qkv(p, x, cfg, positions)
-    src, dst = write_index
-    for buf, new in ((cache.k, k_new), (cache.v, v_new)):
-        flat = buf.view(-1, *buf.shape[2:])
-        flat.index_copy_(0, dst, new.reshape(B * Q, *new.shape[2:]).index_select(0, src)
-                         .to(buf.dtype))
+    write_rows(cache.k, k_new, write_plan)
+    write_rows(cache.v, v_new, write_plan)
     if page_table is not None:
         ps = cache.k.shape[1]
         read_table = page_table if attn_window is None else page_table[:, :-(-attn_window // ps)]

@@ -46,12 +46,6 @@ class DecoderKVCache(NamedTuple):
 Cache = Union[DecoderKVCache, rwkv6.RWKVLayerCache, zamba2.Zamba2Cache]
 
 
-def _host_ints(a) -> np.ndarray:
-    if isinstance(a, torch.Tensor):
-        a = a.cpu().numpy()
-    return np.asarray(a, np.int64)
-
-
 class Model(nn.Module):
     """Embedding, an ``nn.ModuleList`` of ``DecoderLayer``s (dense),
     ``RWKVLayer``s (rwkv) or ``Mamba2Layer``s (hybrid, with the one
@@ -152,8 +146,8 @@ class Model(nn.Module):
             raise ValueError(f"{self.cfg.name}: paged prefill unsupported")
         T = tokens.shape[1]
         return self.step_mixed(torch.as_tensor(tokens, device=self.device), pool,
-                               np.array([start]), np.array([T]),
-                               page_table=_host_ints(page_row).reshape(1, -1))
+                               self._ints([start]), self._ints([T]),
+                               page_table=self._ints(page_row).reshape(1, -1))
 
     @torch.no_grad()
     def decode(self, tokens: torch.Tensor, cache: Cache,
@@ -178,7 +172,7 @@ class Model(nn.Module):
                                          cache_len.to(self.device, torch.int32), self.cfg)
             return self._logits(x)[:, 0]
         if page_table is not None:
-            page_table = torch.as_tensor(page_table, dtype=torch.int32, device=self.device)
+            page_table = self._ints(page_table)
         x = transformer.run_layers_decode(self.layers, x, cache.k, cache.v,
                                           cache_len.to(self.device, torch.int32), self.cfg,
                                           page_table)
@@ -197,31 +191,34 @@ class Model(nn.Module):
         column (B, Q, V).  With ``page_table`` ((B, n_blocks) int32)
         ``cache`` is the page pool, read and written through the tables.
 
-        The lengths (and tables) are read on the host (the engine keeps them
-        there) to place the chunk's KV rows; a device tensor is copied back
-        first.  The tables go to the device once per step."""
+        Nothing is read back to the host and every shape follows from the
+        arguments' shapes, so the step can be captured in a CUDA graph: the
+        chunk's KV rows are placed on the device from the (B,) lengths
+        (``attention.mixed_write_plan``, ``paged_write_plan``).  Lengths and
+        tables given as host arrays are copied to the device first."""
         if not self.supports_mixed_step:
             raise ValueError(f"{self.cfg.name}: mixed-batch step unsupported "
                              f"(family {self.cfg.family!r})")
         B, Q = tokens.shape
-        cl, nl = _host_ints(cache_lens), _host_ints(new_lens)
+        cl, nl = self._ints(cache_lens), self._ints(new_lens)
         if page_table is not None:
-            tables = _host_ints(page_table)
-            src, dst = attention.paged_write_index(cl, nl, Q, tables, cache.k.shape[2])
-            page_table = torch.as_tensor(tables, dtype=torch.int32, device=self.device)
+            page_table = self._ints(page_table)
+            plan = attention.paged_write_plan(cl, nl, Q, page_table, cache.k.shape[2])
         else:
-            src, dst = attention.mixed_write_index(cl, nl, Q, cache.k.shape[2])
-        write_index = (torch.as_tensor(src, device=self.device),
-                       torch.as_tensor(dst, device=self.device))
-        lens_dev = torch.as_tensor(cl, dtype=torch.int32, device=self.device)
+            plan = attention.mixed_write_plan(cl, nl, Q, cache.k.shape[2])
         x = self.embed[tokens]
-        x = transformer.run_layers_mixed(self.layers, x, cache.k, cache.v, lens_dev,
-                                         write_index, self.cfg, attn_window, page_table)
+        x = transformer.run_layers_mixed(self.layers, x, cache.k, cache.v, cl, plan,
+                                         self.cfg, attn_window, page_table)
         if all_logits:
             return self._logits(x)
-        last = torch.as_tensor(np.maximum(nl - 1, 0), device=self.device)
+        last = (nl - 1).clamp(min=0)
         x_last = x[torch.arange(B, device=self.device), last][:, None]
         return self._logits(x_last)[:, 0]
+
+    def _ints(self, a) -> torch.Tensor:
+        """``a`` as an int32 tensor on the model's device (no copy when it
+        already is one)."""
+        return torch.as_tensor(a, dtype=torch.int32, device=self.device)
 
     @property
     def supports_mixed_step(self) -> bool:

@@ -136,7 +136,7 @@ def run_layers_mixed(
     cache_k: torch.Tensor,         # (L, B, S, Hkv, Dh) or a pool (L, P, ps, Hkv, Dh)
     cache_v: torch.Tensor,
     cache_lens: torch.Tensor,      # (B,) int32 tokens already cached
-    write_index: Tuple[torch.Tensor, torch.Tensor],
+    write_plan: tuple,             # attention.mixed_write_plan / paged_write_plan
     cfg: ModelConfig,
     attn_window: Optional[int] = None,
     page_table: Optional[torch.Tensor] = None,   # (B, nb) int32 => paged pool
@@ -146,7 +146,7 @@ def run_layers_mixed(
         h = layers.rms_norm(x, layer.ln1, cfg.norm_eps)
         x = x + attention.attention_mixed(
             layer.attn, h, attention.KVCache(cache_k[li], cache_v[li]), cache_lens, cfg,
-            write_index, attn_window=attn_window, page_table=page_table)
+            write_plan, attn_window=attn_window, page_table=page_table)
         x = _mlp(layer, x, cfg)
     return x
 

@@ -27,25 +27,48 @@ tables, managed by ``paged_kv.BlockAllocator``: admission allocates
 decodes straight off its cached logits (copy-on-write of a shared partial
 last page first); a block-aligned prefix hit queues only the suffix; a
 prompt whose pages another slot is still ingesting waits one pump and
-then hits.  The tables live on the host and go to the device once per
+then hits.  The tables live on the host and are copied in before every
 step.
+
+Each step the JAX engine jits (the decode chunk ``_chunk_scan`` and its
+paged form, ``generate``'s ``_gen_scan``, the mixed step once per (Q,
+attention-window) bucket) is one function here, ``_decode_steps`` or
+``_mixed_step``, over the fixed-shape device buffers of a
+``steps.StepState``: the host mirrors (``_lens_host``, ``tables``, the
+slot flags, the chunk tokens) are copied in from pinned memory before each
+call, and the step reads nothing back.  On the card
+(``ServingEngine(graphs=None)`` there) each is captured as a CUDA graph
+once per key -- (steps,) for the decode chunk and ``generate``, (Q,
+window) for the mixed step -- and replayed; on the CPU, or with
+``graphs=False``, the same function is called directly.
+``warm_mixed_traces`` and ``warm_decode`` capture ahead of a measured run,
+into the state the next session takes.  Legacy admission's ``Model.prefill``
+stays eager: JAX jits it per prompt shape, and no bucket grid bounds those.
 
 Differences from the JAX engine, and why:
 
-* The JAX ``lax.scan`` bodies are Python loops; the steps run eagerly on
-  PyTorch's stream (CUDA graphs come in a later change).
+* The JAX ``lax.scan`` bodies are Python loops, captured whole on the card.
+* A graph holds the addresses of one state's cache and buffers, so graphs
+  belong to a session's ``StepState``, not to the engine: a second
+  session of one engine captures its own (``mixed_traces`` counts each
+  bucket once, as JAX counts each trace once).
 * The KV cache is updated in place where JAX donated it to the step.
-* ``self.tok`` is rebound to a new tensor after every step and never
-  written in place: the pump saves each step's ``tok`` for one read after
-  its dispatch loop, and an in-place update would make every deferred read
-  return the last step's token.
+* The carried tokens live in one static buffer (``StepState.tok``) that
+  every step updates in place, so the pump clones each mixed step's
+  tokens before the next step for its one read after the dispatch loop
+  (a saved reference would read the last step's tokens).
 * Idle slots in the decode chunk still decode garbage and write its KV at
   their frozen length (clamped to ``max_len - 1``), exactly as the JAX
   chunk scan does; real writes overwrite it before any mask uncovers it.
-* Paged: a mixed step's padding rows write no KV (JAX sends them to the
-  trash page), and the rows that do write go in through one
-  ``index_copy_`` of destinations computed on the host from the tables.
-  A full-prompt hit's cached logits are kept as fp32 numpy.
+* The contiguous mixed step rewrites a Q-row window per slot, its padding
+  rows' old contents kept bit for bit (``attention.mixed_write_plan``);
+  paged, padding rows go to the trash page, as in JAX.  A full-prompt
+  hit's cached logits are kept as fp32 numpy.
+* A temperature draw is ``torch.multinomial``'s one-sample form (the
+  exponential race) without its host-side checks; on the card the decode
+  chunk's generator is registered with its graph, so captured and eager
+  runs draw the same stream from the same seed.  The mixed step's draws
+  stay outside its graph.
 
 Not ported yet: speculative decoding (``spec_k > 0`` raises
 ``NotImplementedError``; ROADMAP §1 item 7), durable-KV frontiers, the
@@ -53,6 +76,7 @@ scan-state ``StateFrontier`` included (item 8).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 from dataclasses import dataclass, field
@@ -64,6 +88,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
 from repro_torch.serving.paged_kv import TRASH_PAGE, BlockAllocator
+from repro_torch.serving.steps import StepGraphs, StepState
 
 # the auto-sized page pool holds this many times the worst-case live set:
 # the slack lets finished prompts stay cached for prefix reuse
@@ -119,14 +144,33 @@ class EngineTelemetry:
         return self.prefix_hits / total if total else 0.0
 
 
+@contextlib.contextmanager
+def _rng_kept(generator: Optional[torch.Generator]):
+    """Restore ``generator``'s state after the block (a warm-up's draws)."""
+    state = None if generator is None else generator.get_state()
+    try:
+        yield
+    finally:
+        if generator is not None:
+            generator.set_state(state)
+
+
 class ServingEngine:
     """One model-server replica over a ``Model``.  ``device`` defaults to
-    the card; it must be the device the model lives on."""
+    the card; it must be the device the model lives on.  ``graphs``: run
+    the steps as CUDA graphs (the default on the card; ``True`` on the CPU
+    raises) or call them directly (the default on the CPU; ``False`` on the
+    card runs the same steps eagerly)."""
 
-    def __init__(self, model: Model, cfg: EngineConfig, *, device=None):
+    def __init__(self, model: Model, cfg: EngineConfig, *, device=None,
+                 graphs: Optional[bool] = None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine asked for {self.device}")
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        if graphs and self.device.type != "cuda":
+            raise ValueError(f"graphs=True needs the card; the engine is on {self.device}")
         if cfg.paged_kv and not model.supports_paged_kv:
             raise ValueError(
                 f"paged_kv=True but {model.cfg.name} has no pageable KV cache")
@@ -146,9 +190,100 @@ class ServingEngine:
         self.max_blocks = -(-cfg.max_len // ps)
         self.num_pages = cfg.num_pages or (
             1 + math.ceil(PAGE_HEADROOM * cfg.decode_batch * self.max_blocks))
+        self._graphs = StepGraphs(self.device) if graphs else None
+        self._buckets: set = set()              # (Q, window) mixed buckets prepared
+        self._primed: Optional[StepState] = None    # the next session's state
+        self._gen_states: Dict[int, StepState] = {}  # generate's, by batch size
+
+    @property
+    def graphs(self) -> bool:
+        return self._graphs is not None
+
+    @property
+    def mixed_traces(self) -> int:
+        """Mixed-step buckets (Q, attention window) prepared, as the JAX
+        engine counts its traces: by warming or by a first use."""
+        return len(self._buckets)
 
     def new_session(self) -> "QueueSession":
         return QueueSession(self)
+
+    # -- step states and their graphs ------------------------------------------
+    def _session_state(self) -> StepState:
+        """The state the next session takes (made here if none is waiting):
+        its cache or page pool and step buffers, and the graphs warmed on it."""
+        if self._primed is None:
+            n = self.cfg.decode_batch
+            cache = (self.model.empty_page_pool(self.num_pages, self.cfg.page_size)
+                     if self.paged else self.model.empty_cache(n, self.cfg.max_len))
+            self._primed = self._step_state(cache, n, self.max_blocks if self.paged else 0)
+        return self._primed
+
+    def _take_session_state(self) -> StepState:
+        """``_session_state`` for a new session, which keeps it."""
+        st, self._primed = self._session_state(), None
+        return st
+
+    def _step_state(self, cache, batch: int, n_blocks: int) -> StepState:
+        return StepState(cache, batch, device=self.device, n_blocks=n_blocks,
+                         seed=self.cfg.seed if self.cfg.temperature > 0.0 else None)
+
+    def _run(self, st: StepState, key: tuple, body):
+        return body() if self._graphs is None else self._graphs.run(st, key, body)
+
+    def _decode_call(self, st: StepState, steps: int) -> torch.Tensor:
+        return self._run(st, ("decode", steps), lambda: self._decode_steps(st, steps))
+
+    def _mixed_call(self, st: StepState, Q: int, aw: int):
+        self._buckets.add((Q, aw))
+        return self._run(st, ("mixed", Q, aw), lambda: self._mixed_step(st, Q, aw))
+
+    def _windows(self, Q: int) -> List[int]:
+        """The pow-2 attention-window buckets of q-chunk width Q: Q, 2Q, ...,
+        up to max_len (the buckets a session can ever request)."""
+        out, aw = [], Q
+        while True:
+            out.append(min(aw, self.cfg.max_len))
+            if out[-1] >= self.cfg.max_len:
+                return out
+            aw *= 2
+
+    def warm_mixed_traces(self, budgets) -> int:
+        """Prepare the mixed-step grid for the given token budgets: for each
+        budget's Q quantum, every attention-window bucket, run once on dummy
+        inputs (lengths 0, one new token, no decode slot) -- on the card
+        captured, into the state the next session takes.  Keeps captures
+        out of measured pumps; returns the buckets added (the JAX engine's
+        traces compiled)."""
+        if not self.mixed:
+            return 0
+        before = self.mixed_traces
+        st = self._session_state()
+        n = st.batch
+        with _rng_kept(st.generator):
+            for Q in sorted({self.chunk_quantum(b) for b in budgets}):
+                st.chunk(Q).fill(np.zeros((n, Q), np.int32))
+                for aw in self._windows(Q):
+                    st.stage(np.zeros(n), np.ones(n), np.zeros(n), np.zeros(n),
+                             np.full((n, self.max_blocks), TRASH_PAGE))
+                    self._mixed_call(st, Q, aw)
+        return self.mixed_traces - before
+
+    def warm_decode(self) -> int:
+        """Capture the session decode chunk ahead of time, on dummy inputs
+        (every slot idle), into the state the next session takes.  Returns
+        the graphs captured: 0 on the CPU, or when it is already there."""
+        st = self._session_state()
+        steps = max(1, self.cfg.decode_chunk)
+        if self._graphs is None or ("decode", steps) in st.graphs:
+            return 0
+        n = st.batch
+        with _rng_kept(st.generator):
+            st.stage(np.zeros(n), np.zeros(n), np.zeros(n), np.zeros(n),
+                     np.full((n, self.max_blocks), TRASH_PAGE))
+            self._decode_call(st, steps)
+        st.tok.zero_()
+        return 1
 
     # -- single-shot steps and fixed-batch generation ---------------------------
     def prefill(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Any]:
@@ -169,30 +304,27 @@ class ServingEngine:
                              f"max_len={self.cfg.max_len}")
         logits, pcache = self.prefill(prompt)
         B = logits.shape[0]
-        cache = self._expand_cache(pcache, B)
-        generator = None
-        if self.cfg.temperature > 0.0:
-            generator = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
-        tok0 = self._sample(logits, generator)
-        lens = torch.full((B,), prompt_len, dtype=torch.int32, device=self.device)
-        active = torch.ones((B,), dtype=torch.bool, device=self.device)
-        _, toks = self._chunk_loop(cache, tok0, lens, active, generator, steps)
-        return toks.T.cpu().numpy()
+        st = self._gen_states.get(B)
+        if st is None:
+            st = self._gen_states[B] = self._step_state(
+                self.model.empty_cache(B, self.cfg.max_len), B, 0)
+        self._load_prefill(st.cache, pcache)
+        if st.generator is not None:
+            st.generator.manual_seed(self.cfg.seed)
+        st.tok.copy_(self._sample(logits, st.generator))
+        st.stage(np.full(B, prompt_len), np.zeros(B), np.ones(B), np.zeros(B))
+        return self._decode_call(st, steps).T.cpu().numpy()
 
-    def _expand_cache(self, pcache, batch: int):
-        """The prefill cache in the fixed decode buffer, leaf by leaf: a KV
-        leaf at the head of a fresh (L, B, max_len, ...) buffer; a leaf
-        whose shape the buffer already has (rwkv states, shift rows, the
-        hybrid's conv tails and states) passes through."""
-        buf = self.model.empty_cache(batch, self.cfg.max_len)
-
-        def place(b, c):
-            if b.shape == c.shape:
-                return c
-            b[tuple(slice(0, n) for n in c.shape)] = c
-            return b
-
-        return type(buf)(*(place(b, c) for b, c in zip(buf, pcache)))
+    @staticmethod
+    def _load_prefill(cache, pcache) -> None:
+        """The prefill cache into the fixed decode buffer, leaf by leaf: a KV
+        leaf at the head of its zeroed (L, B, max_len, ...) buffer; a leaf
+        of the buffer's own shape (rwkv states, shift rows, the hybrid's
+        conv tails and states) copied whole."""
+        for buf, c in zip(cache, pcache):
+            if buf.shape != c.shape:
+                buf.zero_()
+            buf[tuple(slice(0, n) for n in c.shape)] = c
 
     def _place_slot(self, cache, pcache, slot: int) -> None:
         """Write a B=1 prefill cache into slot ``slot`` of the decode buffer,
@@ -219,12 +351,15 @@ class ServingEngine:
     def _sample(self, logits: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Greedy argmax (first maximum, as ``jnp.argmax``) or a temperature
-        sample.  Sampled streams follow torch's generator, not jax.random."""
+        sample: one draw from softmax(logits / T) per row, as
+        ``torch.multinomial`` makes it (argmax of p / E, E ~ Exp(1)) but
+        without its host-side checks, so a graph can hold it.  Sampled
+        streams follow torch's generator, not jax.random."""
         if self.cfg.temperature <= 0.0:
             return torch.argmax(logits, dim=-1).to(torch.int32)
         probs = torch.softmax(logits.float() / self.cfg.temperature, dim=-1)
-        return torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1,
-                                 generator=generator).reshape(probs.shape[:-1]).to(torch.int32)
+        race = torch.empty_like(probs).exponential_(generator=generator)
+        return torch.argmax(probs / race, dim=-1).to(torch.int32)
 
     def _mixed_tokens(self, chunks: torch.Tensor, tok: torch.Tensor,
                       is_decode: torch.Tensor) -> torch.Tensor:
@@ -233,35 +368,40 @@ class ServingEngine:
         col0 = torch.arange(chunks.shape[1], device=chunks.device)[None, :] == 0
         return torch.where(is_decode[:, None] & col0, tok[:, None], chunks)
 
-    def _mixed_step(self, cache, chunks: torch.Tensor, tok: torch.Tensor,
-                    lens: np.ndarray, new_lens: np.ndarray, is_decode: torch.Tensor,
-                    attn_window: int, page_table: Optional[np.ndarray] = None) -> torch.Tensor:
-        """ONE step advancing every slot by its ragged suffix (decode slots
-        by their carried token, prefill slots by a prompt chunk); attention
-        reads only the first ``attn_window`` cache positions, through the
-        host block tables ``page_table`` when paged.  Returns the
-        last-valid-position logits (B, V)."""
-        tokens = self._mixed_tokens(chunks, tok, is_decode)
-        return self.model.step_mixed(tokens, cache, lens, new_lens, page_table=page_table,
-                                     attn_window=attn_window)
+    def _mixed_step(self, st: StepState, Q: int, attn_window: int
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The mixed step, as the card captures it: ONE step advancing every
+        slot of ``st`` by its ragged suffix (decode slots, ``st.decoding``,
+        by their carried token, prefill slots by the chunk in ``st.chunk(Q)``)
+        from ``st.lens`` by ``st.new_lens``; attention reads only the first
+        ``attn_window`` cache positions, through ``st.tables`` when paged.
+        Returns the last-valid-position logits (B, V) and, greedy, their
+        argmax (a temperature draw is made outside, per request)."""
+        chunks = st.chunks[Q].dev.view(st.batch, Q)
+        tokens = self._mixed_tokens(chunks, st.tok, st.decoding != 0)
+        logits = self.model.step_mixed(tokens, st.cache, st.lens, st.new_lens,
+                                       page_table=st.tables, attn_window=attn_window)
+        return logits, (self._sample(logits) if self.cfg.temperature <= 0.0 else None)
 
-    def _chunk_loop(self, cache, tok: torch.Tensor, lens: torch.Tensor,
-                    active: torch.Tensor, generator: Optional[torch.Generator],
-                    steps: int, page_table: Optional[torch.Tensor] = None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Ragged decode chunk: every ``active`` slot advances ``steps``
-        tokens with its own cache length; inactive slots decode discarded
-        garbage at a frozen length.  With ``page_table`` (device block
-        tables) every step reads and writes the pool through it.  Returns
-        (next tok, toks (steps, B))."""
+    def _decode_steps(self, st: StepState, steps: int) -> torch.Tensor:
+        """The decode chunk, as the card captures it: every slot flagged in
+        ``st.decoding`` advances ``steps`` tokens from its ``st.lens``;
+        the others decode discarded garbage at a frozen length.  Paged,
+        every step reads and writes the pool through ``st.tables``.
+        Draws from ``st.generator``.  Leaves the next tokens in ``st.tok``
+        and returns the emitted ones (steps, B)."""
         max_row = self.cfg.max_len - 1
+        active = st.decoding != 0
+        tok, lens = st.tok, st.lens
         emitted = []
         for _ in range(steps):
-            logits = self.model.decode(tok[:, None], cache, lens, page_table=page_table)
+            logits = self.model.decode(tok[:, None], st.cache, lens, page_table=st.tables)
             emitted.append(tok)
-            tok = self._sample(logits, generator)
+            tok = self._sample(logits, st.generator)
             lens = torch.where(active, torch.clamp(lens + 1, max=max_row), lens)
-        return tok, torch.stack(emitted)
+        toks = torch.stack(emitted)
+        st.tok.copy_(tok)
+        return toks
 
     def _copy_page(self, pool, src: int, dst: int) -> None:
         """Copy-on-write on the device: page ``src`` into ``dst`` in every
@@ -311,27 +451,23 @@ class QueueSession:
     def __init__(self, engine: ServingEngine):
         self.eng = engine
         n_slots = engine.cfg.decode_batch
-        dev = engine.device
         self.slots = DecodeSlots(n_slots)
         self.paged = engine.paged
+        # the cache (or page pool), the step buffers and their graphs: the
+        # state warm_* captured into, or a fresh one
+        self.st = engine._take_session_state()
+        # host block tables (the source of truth; copied in before every step)
+        self.tables = None
+        self.allocator = None
         if self.paged:
-            self.cache = engine.model.empty_page_pool(engine.num_pages, engine.cfg.page_size)
             self.allocator = BlockAllocator(engine.num_pages, engine.cfg.page_size)
-            # host block tables (the source of truth; uploaded once per step)
             self.tables = np.full((n_slots, engine.max_blocks), TRASH_PAGE, dtype=np.int32)
             self._slot_pages: List[List[int]] = [[] for _ in range(n_slots)]
             self._slot_of: Dict[int, int] = {}        # rid -> slot holding its pages
-        else:
-            self.allocator = None
-            self.cache = engine.model.empty_cache(n_slots, engine.cfg.max_len)
         # scan-state backend: the rwkv and hybrid decode states are
         # per-slot caches (no pages); their frontiers are not ported yet
         self.scan_state = (not self.paged
                            and engine.model.cfg.family in ("rwkv", "hybrid"))
-        self.tok = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
-        self.generator = None
-        if engine.cfg.temperature > 0.0:
-            self.generator = torch.Generator(device=dev).manual_seed(engine.cfg.seed)
         self.queue: List[Tuple[int, np.ndarray, int]] = []
         self.results: Dict[int, np.ndarray] = {}
         self._out: Dict[int, List[int]] = {}
@@ -344,6 +480,11 @@ class QueueSession:
         # host mirror of per-slot cache lengths (the single source of truth
         # for the attention window and the mixed step's KV placement)
         self._lens_host = np.zeros((n_slots,), np.int64)
+
+    @property
+    def cache(self):
+        """The session's KV cache, page pool or scan states."""
+        return self.st.cache
 
     # -- request intake -------------------------------------------------------
     def submit(self, rid: int, inp: np.ndarray, max_new: int, *,
@@ -581,10 +722,8 @@ class QueueSession:
         return True
 
     def _set_tok(self, s: int, tok0: torch.Tensor) -> None:
-        """Slot ``s``'s carried token; rebinds ``self.tok``, never writes it
-        in place (see the module docstring)."""
-        self.tok = torch.where(torch.arange(self.slots.n_slots, device=self.eng.device) == s,
-                               tok0, self.tok)
+        """Slot ``s``'s carried token, written into the step buffer."""
+        self.st.tok[s:s + 1].copy_(tok0.reshape(1))
 
     # -- legacy admission (mixed_step=False) ------------------------------------
     def _admit_prefill(self, s: int, inp: np.ndarray) -> None:
@@ -742,7 +881,7 @@ class QueueSession:
     def _pump_mixed(self) -> PumpReport:
         """Admission -> mixed steps until this pump's prompts are ingested ->
         one decode chunk."""
-        eng, slots = self.eng, self.slots
+        eng, slots, st = self.eng, self.slots, self.st
         dev = eng.device
         n_slots = slots.n_slots
         greedy = eng.cfg.temperature <= 0.0
@@ -778,9 +917,9 @@ class QueueSession:
             return report
 
         # ---- the fused prefill+decode steps --------------------------------
-        # emitted-token reads are deferred past the loop: each step's tok
-        # tensor is kept (self.tok is rebound, never mutated), so the steps
-        # queue on the stream with no per-step host sync
+        # emitted-token reads are deferred past the loop: each step's carried
+        # tokens are cloned out of the step buffer, which the next step
+        # overwrites, so the steps queue on the stream with no per-step sync
         deferred_emits: List[Tuple[torch.Tensor, List[Tuple[int, int]]]] = []
         deferred_done: List[int] = []
         t_disp = time.perf_counter()
@@ -793,32 +932,30 @@ class QueueSession:
                 chunks_np[s, :len(c)] = c
                 new_lens[s] = len(c)
             new_lens[decode_active] = 1
+            completing = [s for s, c in sched if len(self._prefilling[s]["rem"]) == len(c)]
+            upd = decode_active.copy()                 # slots whose token this step sets
+            upd[completing] = True
             pairs = [(int(s), int(slots.request_id[s])) for s in np.nonzero(decode_active)[0]]
-            deferred_emits.append((self.tok, pairs))
-            is_decode = torch.as_tensor(decode_active, device=dev)
+            deferred_emits.append((st.tok.clone(), pairs))
             # attention window: pow-2 bucket over the advancing rows' content
             # frontier, floored at Q and capped at max_len
             need = int(np.max(np.where(new_lens > 0, self._lens_host + new_lens, 0)))
             aw = max(1 << (max(1, need) - 1).bit_length(), Q)
             aw = min(aw, eng.cfg.max_len)
-            logits = eng._mixed_step(self.cache, torch.as_tensor(chunks_np, device=dev),
-                                     self.tok, self._lens_host, new_lens, is_decode, aw,
-                                     self.tables if self.paged else None)
+            st.stage(self._lens_host, new_lens, decode_active, upd, self.tables)
+            st.chunk(Q).fill(chunks_np)
+            logits, nxt = eng._mixed_call(st, Q, aw)
             self._lens_host += new_lens
             report.mixed_steps += 1
-            completing = [s for s, c in sched if len(self._prefilling[s]["rem"]) == len(c)]
             if greedy:
-                nxt = eng._sample(logits)
-                upd = decode_active.copy()
-                upd[completing] = True
-                self.tok = torch.where(torch.as_tensor(upd, device=dev), nxt, self.tok)
+                st.tok.copy_(torch.where(st.update != 0, nxt, st.tok))
             else:
-                nxt = eng._sample(logits, self.generator)
-                tok = torch.where(is_decode, nxt, self.tok)
+                nxt = eng._sample(logits, st.generator)
+                tok = torch.where(st.decoding != 0, nxt, st.tok)
                 for s in completing:
                     first = eng._sample(logits[s][None], self._prefilling[s]["akey"])
                     tok = torch.where(torch.arange(n_slots, device=dev) == s, first, tok)
-                self.tok = tok
+                st.tok.copy_(tok)
             # a prompt completing this step publishes its last-position logits
             published = (dict(zip(completing, logits[completing].float().cpu().numpy()))
                          if self.paged and completing else None)
@@ -867,16 +1004,13 @@ class QueueSession:
         ``decode_chunk`` steps, ONE transfer of the emitted tokens, then
         the completions."""
         eng, slots = self.eng, self.slots
-        dev = eng.device
         chunk = max(1, eng.cfg.decode_chunk)
         n_slots = slots.n_slots
         decode_active = slots.request_id >= 0
         t_disp = time.perf_counter()
-        active = torch.as_tensor(decode_active, device=dev)
-        lens_dev = torch.as_tensor(self._lens_host, dtype=torch.int32, device=dev)
-        tables = torch.as_tensor(self.tables, device=dev) if self.paged else None
-        self.tok, toks = eng._chunk_loop(
-            self.cache, self.tok, lens_dev, active, self.generator, chunk, tables)
+        none = np.zeros(n_slots)
+        self.st.stage(self._lens_host, none, decode_active, none, self.tables)
+        toks = eng._decode_call(self.st, chunk)
         self._lens_host[decode_active] = np.minimum(
             self._lens_host[decode_active] + chunk, eng.cfg.max_len - 1)
         t_sync = time.perf_counter()

@@ -36,7 +36,14 @@ each side of every chunk edge, through window views and column slices of
 tables (page sizes 1, 16, 48), at prefill_paged's suffix shape, NaN past
 every cache_len + Q and in every pool row not held, repeats and a strided
 q view bit-equal, and which kernel the profiler sees
-(``cluster_mixed_f32_kernel``; ``flash_rows_kernel`` at G = 32)).
+(``cluster_mixed_f32_kernel``; ``flash_rows_kernel`` at G = 32)); and the
+engine's steps as CUDA graphs on a reduced fp32 qwen3: sessions (both
+layouts, the single-stage and the split-K decode, warmed or captured at
+first use, greedy and at temperature 0.8) and ``generate`` token-exact with
+``graphs=False`` and with equal launch counts, replays after the lengths,
+flags, chunk tokens and tables change bit-equal to eager, N replays
+counting N graphs' launches, and the split-K counters never made under a
+capture.
 
 Marked ``gpu``; each test asks the ``cuda`` fixture for the card, which
 skips when ``torch.cuda.is_available()`` is false.  This file imports no
@@ -1826,3 +1833,195 @@ def test_fp32_mixed_runs_the_expected_kernel(cuda, fp32_mixed_traces, G, name):
         assert len(counts) == 1 and name in next(iter(counts)), counts
         assert next(iter(counts.values())) == 2, counts
         assert got["launches"][wrapper] == 2 and sum(got["launches"].values()) == 2, got
+
+
+# ---------------------------------------------------------------------------
+# the engine's steps as CUDA graphs: captured against eager (graphs=False)
+# on one reduced fp32 qwen3 (2 layers, 4 q / 2 kv heads, widened to
+# head_dim 64 so that the flash prefill kernel takes it)
+# ---------------------------------------------------------------------------
+
+
+@functools.cache
+def _graph_model():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_config("qwen3-0.6b").reduce(), head_dim=64)
+    return Model(cfg, device="cuda").init_(torch.Generator("cuda").manual_seed(0))
+
+
+def _graph_requests(vocab, n=7, seed=0):
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, vocab, int(p)), int(m))
+            for p, m in zip(rng.integers(3, 90, n), rng.integers(1, 12, n))]
+
+
+def _serve_graphs(graphs, *, warm=True, **ecfg_kw):
+    """Serve ``_graph_requests`` through EngineClient; returns the streams,
+    the launches of the served run (warming excluded) and the engine."""
+    from repro_torch.serving import EngineClient, EngineConfig, InferenceRequest, ServingEngine
+
+    model = _graph_model()
+    kw = dict(max_len=256, decode_batch=3, decode_chunk=4, prefill_chunk=24)
+    kw.update(ecfg_kw)
+    eng = ServingEngine(model, EngineConfig(**kw), graphs=graphs)
+    assert eng.graphs is graphs
+    if warm:
+        eng.warm_mixed_traces([kw["prefill_chunk"]])
+        eng.warm_decode()
+    for m in (kernel, norm_kernel):
+        m.reset_launches()
+    cli = EngineClient(eng)
+    hs = [cli.submit(InferenceRequest(prompt=p, max_new=m))
+          for p, m in _graph_requests(model.cfg.vocab_size)]
+    cli.drain()
+    launches = dict(kernel.LAUNCHES)
+    return [h.result() for h in hs], launches, eng
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("max_len", [256, 2048])
+def test_captured_session_equals_eager(cuda, paged, max_len):
+    """Mixed steps and decode chunks replayed from CUDA graphs give the
+    eager steps' streams token for token and the same launch counts (each
+    replay adds its graph's launches); a served workload after warming
+    prepares no new mixed bucket.  At max_len 2048 the decode is the
+    one-launch split-K, whose counters must exist before its capture."""
+    got, launches, eng = _serve_graphs(True, paged_kv=paged, max_len=max_len)
+    warmed = eng.mixed_traces
+    want, want_launches, eager = _serve_graphs(False, paged_kv=paged, max_len=max_len)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert launches == want_launches
+    assert eng.mixed_traces == warmed == len(eng._windows(eng.chunk_quantum(24)))
+    assert eager.mixed_traces <= warmed
+    split = ("decode_attention_paged_splitk" if paged else "decode_attention_splitk")
+    assert (launches[split] > 0) == (max_len == 2048)
+    assert eng._graphs.captured == warmed + 1
+
+
+def test_captured_session_without_warming_equals_eager(cuda):
+    """Steps captured at their first use inside the pumps (no warm call)
+    give the eager streams and launches too."""
+    got, launches, eng = _serve_graphs(True, warm=False, paged_kv=True)
+    want, want_launches, _ = _serve_graphs(False, warm=False, paged_kv=True)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert launches == want_launches and eng._graphs.captured >= 2
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_captured_generate_equals_eager(cuda, temperature):
+    """``generate``'s decode loop as one graph per (batch, steps): the first
+    call captures, the second replays at another prompt; both equal eager,
+    and a seeded temperature stream equals eager's."""
+    from repro_torch.serving import EngineConfig, ServingEngine
+
+    model = _graph_model()
+    rng = np.random.default_rng(3)
+    cfg = EngineConfig(max_len=256, temperature=temperature, seed=5)
+    engines = [ServingEngine(model, cfg, graphs=g) for g in (True, False)]
+    for plen in (20, 41):
+        toks = rng.integers(0, model.cfg.vocab_size, (3, plen))
+        for m in (kernel, norm_kernel):
+            m.reset_launches()
+        got = engines[0].generate({"inputs": toks}, 12, plen)
+        launches = dict(kernel.LAUNCHES)
+        kernel.reset_launches()
+        want = engines[1].generate({"inputs": toks}, 12, plen)
+        np.testing.assert_array_equal(got, want)
+        assert launches == kernel.LAUNCHES
+    assert engines[0]._graphs.captured == 1
+
+
+def test_captured_temperature_session_equals_eager(cuda):
+    """A seeded temperature > 0 session: the decode chunk's draws come from
+    the generator registered with its graph, the mixed step's outside it;
+    captured and eager give the same streams."""
+    got, _, _ = _serve_graphs(True, temperature=0.8, seed=11)
+    want, _, _ = _serve_graphs(False, temperature=0.8, seed=11)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_replay_reads_new_lengths_and_tables(cuda, paged):
+    """A replay reads its step buffers as they stand: a mixed step and a
+    decode chunk replayed after the lengths, flags, chunk tokens and block
+    tables change equal the eager steps at the new values, bit for bit."""
+    from repro_torch.serving import EngineConfig, ServingEngine
+
+    model = _graph_model()
+    rng = np.random.default_rng(21)
+    B = 3
+    ecfg = EngineConfig(max_len=256, decode_batch=B, decode_chunk=4, prefill_chunk=24,
+                        paged_kv=paged)
+    engines = [ServingEngine(model, ecfg, graphs=g) for g in (True, False)]
+    Q, nb, P = engines[0].chunk_quantum(24), engines[0].max_blocks, engines[0].num_pages
+    calls = []
+    for _ in range(3):
+        dec = rng.integers(0, 2, B)
+        new = np.where(dec == 1, 1, rng.integers(0, Q + 1, B))
+        calls.append((rng.integers(0, 200, B), new, dec, dec | (new > 0),
+                      rng.integers(0, model.cfg.vocab_size, (B, Q)),
+                      rng.permutation(np.arange(1, P))[:B * nb].reshape(B, nb)))
+    outs = []
+    for eng in engines:
+        st, got = eng._session_state(), []
+        for lens, new, dec, upd, chunks, tables in calls:
+            st.stage(lens, new, dec, upd, tables)
+            st.chunk(Q).fill(chunks)
+            logits, nxt = eng._mixed_call(st, Q, 256)
+            got += [logits.clone(), nxt.clone()]
+        for lens, _, dec, _, _, tables in calls:
+            st.stage(lens, np.zeros(B), dec, np.zeros(B), tables)
+            got += [eng._decode_call(st, 4).clone(), st.tok.clone()]
+        outs.append(got)
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert not torch.equal(outs[0][0], outs[0][2])
+    assert engines[0]._graphs.captured == 2
+
+
+def test_splitk_counters_are_never_made_under_capture(cuda):
+    """The split-K decode's counters of the capture stream are made by the
+    step's first (eager) call; a capture that would make them raises."""
+    from repro_torch.serving import EngineConfig, ServingEngine
+
+    kernel._COUNTERS.clear()
+    eng = ServingEngine(_graph_model(), EngineConfig(max_len=2048, decode_batch=3))
+    eng.warm_decode()
+    assert (cuda.index or 0, eng._graphs.stream.cuda_stream) in kernel._COUNTERS
+    rng = np.random.default_rng(31)
+    k, v = _kv(rng, 2, 2048, 2, 64, torch.float32, cuda)
+    q = _q(rng, 2, 4, 64, torch.float32, cuda)
+    lens = torch.tensor([2048, 5], dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    with pytest.raises(RuntimeError, match="split-K counters"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=side):
+            ops.decode_attention(q, k, v, lens)
+    assert (cuda.index or 0, side.cuda_stream) not in kernel._COUNTERS
+
+
+def test_launches_after_replays_equal_eager(cuda):
+    """N replays of the decode chunk count N times its graph's launches,
+    as N eager calls do."""
+    from repro_torch.serving import EngineConfig, ServingEngine
+
+    ecfg = EngineConfig(max_len=2048, decode_batch=3, decode_chunk=4)
+    counts = []
+    for graphs in (True, False):
+        eng = ServingEngine(_graph_model(), ecfg, graphs=graphs)
+        st = eng._session_state()
+        st.stage(np.array([5, 900, 0]), np.zeros(3), np.array([1, 1, 0]), np.zeros(3))
+        kernel.reset_launches()
+        for _ in range(5):
+            eng._decode_call(st, 4)
+        torch.cuda.synchronize()
+        counts.append(dict(kernel.LAUNCHES))
+    assert counts[0] == counts[1]
+    assert counts[0]["decode_attention_splitk"] == 5 * 4 * _graph_model().cfg.n_layers
+
