@@ -76,7 +76,7 @@ Phases (any failure exits non-zero; nothing is caught):
 4. serve: EngineClient serves full-width qwen3-0.6b (28 layers, bf16,
    seeded random weights) at the default EngineConfig: 16 requests,
    prompts 16..2000 tokens, 32 new tokens each; the engine's steps run as
-   CUDA graphs, in every served phase (4-4k, 5-5e): the mixed-step grid
+   CUDA graphs, in every served phase (4-4m, 5-5h): the mixed-step grid
    (10 (Q, window) buckets) and the decode chunk are captured before the
    clock starts (``warm_mixed_traces``, ``warm_decode``; the capture time,
    the graph count and the graph pool's memory on a line of their own),
@@ -103,6 +103,22 @@ Phases (any failure exits non-zero; nothing is caught):
    cluster kernel, its launches held to layers x decode steps exactly, and
    no kernel but it and the mixed step may launch;
 4k. the same over the paged pool (the paged single-stage decode);
+4l. serve with speculative decoding: phase 4's model at the default
+   EngineConfig with spec_k=4, mixed admission, contiguous: 16 requests of
+   64 new tokens, 8 random prompts (16..2000 tokens) interleaved with 8
+   periodic ones (a random 24-token motif repeated to 64..1024 tokens);
+   the 10 verify-step buckets (Q 8, windows 8..4096) are captured with
+   the mixed grid and the decode chunk before the clock
+   (``warm_spec_traces``); every request gets its 64 tokens,
+   ``useful_tokens`` is their sum, accepted <= drafted, the mixed-step
+   kernel launches exactly layers x (mixed steps + verify steps) and no
+   decode kernel launches; the drafted and accepted tokens per request,
+   read from the drafter's calls and the greedy streams, must add up to
+   the telemetry's; prints the acceptance rate of each half and how a
+   round's wall splits (drafting, issuing the replay, the wait for the
+   verdict and its walk; CUDA events give the verify step's device time);
+   then serves the same traffic with spec_k=0 (``spec_off``) beside it;
+4m. the same over the paged pool, every page released after the drain;
 4f. serve rwkv6-7b: EngineClient serves full-width rwkv6-7b (32 layers,
    d 4096, 64 heads of 64, d_ff 14336, vocab 65536, bf16, seeded random
    weights, 15.2 GB) at the default EngineConfig, which falls to legacy
@@ -145,6 +161,14 @@ Phases (any failure exits non-zero; nothing is caught):
    (both layouts) run one mixed-step bucket and the decode chunk at one
    set of lengths, flags, chunk tokens and block tables, then at another
    (the captured engine's replays): every output bit-equal to eager's;
+5h. speculative exactness in fp32: phase 5's 4-layer model at a 16-token
+   vocabulary (greedy streams loop, so drafts are accepted), 6 requests
+   (3 random, 3 periodic prompts of 16..300 tokens, 32 new), contiguous and
+   paged, at spec_k 1, 4 and 8 (verify steps of 2, 8 and 16 columns): the
+   card's streams must equal spec off on the card and the CPU's speculating
+   streams (or near-ties), accepted > 0, the launches held as in 4l, and
+   each captured run token-exact with its graphs=False twin with equal
+   launch counts;
 6. timing: every kernel, its plain version and the one PyTorch call with
    the same result (scaled_dot_product_attention, used only as a
    yardstick; no one call reads a block table or computes the WKV6 or SSD
@@ -157,7 +181,8 @@ Phases (any failure exits non-zero; nothing is caught):
    bf16 (beside SDPA) and in fp32 at the recovery tier's shape (B=3, 2
    kv heads of 32, paged, max_len 544), each at every cluster size
    (``ms_by_cluster``); the split-K decode also as its partial alone
-   (``partial_ms``); the fp32 routes (``cluster_mixed_f32_kernel`` as the
+   (``partial_ms``); the bf16 mixed step also at Q 16 (``q16``, the
+   verify step of spec_k 8); the fp32 routes (``cluster_mixed_f32_kernel`` as the
    mixed step, contiguous and paged, also at the recovery tier's shape,
    each at every cluster size; ``flash_rows_kernel<float>`` as the
    split-K decode, ``flash_fwd_kernel``, ``wkv6_kernel``, ``ssd_kernel``)
@@ -1080,36 +1105,74 @@ def paged_inputs(gen, lens_np, ps, dtype, max_len=S_MAX):
 # --------------------------------------------------------------------------
 
 
+class RecordingDrafter:
+    """The engine's drafter, recording every call's history length, the
+    history's first 8 tokens and the drafts: after a greedy run, a request's
+    stream says how many of each call's drafts were accepted (the verifier
+    accepts a draft iff it is the token the stream goes on with)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.calls = []
+
+    def propose(self, context, k):
+        out = self.inner.propose(context, k)
+        self.calls.append((len(context), tuple(context[:8]), out))
+        return out
+
+
 def make_engine_class():
     from repro_torch.serving import ServingEngine
 
     class CheckedEngine(ServingEngine):
-        """Counts non-finite logits on the device, with no host sync."""
+        """Counts non-finite logits on the device, with no host sync; records
+        the drafter's calls and, per verify step, the host seconds issuing
+        it and a pair of CUDA events around it (``verify_steps``)."""
 
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             self.nonfinite = torch.zeros((), dtype=torch.int64, device=self.device)
+            self.drafter = RecordingDrafter(self.drafter)
+            self.verify_steps = []
 
         def _sample(self, logits, generator=None):
             self.nonfinite += (~torch.isfinite(logits)).sum()
             return super()._sample(logits, generator)
 
+        def _verify(self, logits, drafts, generator):
+            self.nonfinite += (~torch.isfinite(logits)).sum()
+            return super()._verify(logits, drafts, generator)
+
+        def _spec_call(self, st, Qs, aw):
+            cuda = self.device.type == "cuda"
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if cuda else None
+            t0 = time.perf_counter()
+            if cuda:
+                ev[0].record()
+            out = super()._spec_call(st, Qs, aw)
+            if cuda:
+                ev[1].record()
+            self.verify_steps.append((time.perf_counter() - t0, ev))
+            return out
+
     return CheckedEngine
 
 
 def warm_graphs(engine, label: str) -> dict:
-    """Capture the engine's mixed-step grid and decode chunk ahead of the
-    clock, into the state its next session takes; prints the capture time,
+    """Capture the engine's mixed-step grid, its verify-step grid (at
+    ``spec_k`` > 0) and the decode chunk ahead of the clock, into the state
+    its next session takes; prints the capture time,
     the graph count and the graph pool's memory on a line of their own."""
     t0 = time.perf_counter()
     buckets = engine.warm_mixed_traces([engine.cfg.prefill_chunk])
+    spec = engine.warm_spec_traces([engine.cfg.spec_k])
     engine.warm_decode()
     torch.cuda.synchronize()
     g = engine._graphs
     out = dict(capture_s=time.perf_counter() - t0, graphs=g.captured, mixed_buckets=buckets,
-               graph_pool_gb=g.pool_bytes() / 1e9)
-    print(f"  {label}: captured {g.captured} graphs ({buckets} mixed buckets) in "
-          f"{out['capture_s']:.2f} s, graph pool {out['graph_pool_gb']:.3f} GB", flush=True)
+               spec_buckets=spec, graph_pool_gb=g.pool_bytes() / 1e9)
+    print(f"  {label}: captured {g.captured} graphs ({buckets} mixed, {spec} verify buckets) "
+          f"in {out['capture_s']:.2f} s, graph pool {out['graph_pool_gb']:.3f} GB", flush=True)
     return out
 
 
@@ -1122,6 +1185,7 @@ def serve(model, ecfg, prompts, max_new, device, *, graphs=None, label="serve"):
 
     engine = make_engine_class()(model, ecfg, device=device, graphs=graphs)
     engine.capture = warm_graphs(engine, label) if engine.graphs else None
+    engine.verify_steps = []
     reset_launches()
     client = EngineClient(engine, device=device)
     if device.type == "cuda":
@@ -1330,6 +1394,151 @@ def phase_serve_single(name_line: str, model, *, paged: bool, graphs=None) -> di
                 mixed_steps=tel.mixed_steps, decode_chunks=tel.chunks,
                 decode_chunk=ecfg.decode_chunk, launches=launches, capture=engine.capture,
                 card=name_line)
+
+
+SPEC_K = 4
+DECODE_KERNELS = ("decode_attention", "decode_attention_splitk", "decode_attention_paged",
+                  "decode_attention_paged_splitk", "decode_attention_splitk_partial",
+                  "decode_attention_paged_splitk_partial")
+
+
+def periodic_prompts(rng, n, lo, hi, vocab, period=24):
+    """``n`` prompts of ``lo``..``hi`` tokens, each a random ``period``-token
+    motif repeated: prompt lookup finds a match in every one."""
+    out = []
+    for L in np.linspace(lo, hi, n).round().astype(int):
+        motif = rng.integers(0, vocab, period)
+        out.append(np.tile(motif, -(-L // period))[:L])
+    return out
+
+
+def interleave(a, b):
+    return [p for pair in zip(a, b) for p in pair]
+
+
+def acceptance_by_request(engine, prompts, streams) -> tuple:
+    """Drafted and accepted tokens per request, from the recorded drafter
+    calls and the greedy streams: a call at history length L for a prompt
+    of length P drafted after stream position L - P - 1 (its carry), and
+    its accepted drafts are the longest prefix the stream goes on with."""
+    index = {tuple(int(t) for t in p[:8]): i for i, p in enumerate(prompts)}
+    check(len(index) == len(prompts), "two prompts share their first 8 tokens")
+    drafted, accepted = np.zeros(len(prompts), int), np.zeros(len(prompts), int)
+    for L, head, drafts in engine.drafter.calls:
+        i = index[head]
+        pos = L - len(prompts[i]) - 1
+        nxt = list(streams[i][pos + 1:pos + 1 + len(drafts)])
+        a = 0
+        while a < len(nxt) and drafts[a] == nxt[a]:
+            a += 1
+        drafted[i] += len(drafts)
+        accepted[i] += a
+    tel = engine.telemetry
+    check(int(drafted.sum()) == tel.drafted_tokens and int(accepted.sum()) == tel.accepted_tokens,
+          f"drafter calls give {drafted.sum()} drafted / {accepted.sum()} accepted, telemetry "
+          f"{tel.drafted_tokens} / {tel.accepted_tokens}")
+    return drafted, accepted
+
+
+def check_spec_launches(launches: dict, engine, layers: int, label: str, *, paged: bool) -> int:
+    """A speculating session launches the mixed-step kernel once a layer
+    for every mixed step and every verify step, and no decode kernel (the
+    rounds replace the decode chunk).  Returns the verify steps."""
+    mixed = "mixed_attention_paged" if paged else "mixed_attention"
+    steps = len(engine.verify_steps)
+    tel = engine.telemetry
+    check(steps > 0 and tel.spec_rounds > 0, f"{label}: {steps} verify steps, "
+                                             f"{tel.spec_rounds} spec rounds")
+    check(tel.spec_rounds <= steps, f"{label}: {tel.spec_rounds} spec rounds > {steps} steps")
+    check(launches[mixed] == layers * (tel.mixed_steps + steps),
+          f"{label}: {launches[mixed]} {mixed} launches for {tel.mixed_steps} mixed and "
+          f"{steps} verify steps of {layers} layers")
+    for k_, n in launches.items():
+        check(k_ == mixed or n == 0, f"{label}: kernel {k_} launched {n} times")
+    check(tel.accepted_tokens <= tel.drafted_tokens,
+          f"{label}: {tel.accepted_tokens} accepted of {tel.drafted_tokens} drafted")
+    return steps
+
+
+def phase_serve_spec(name_line: str, model, *, paged: bool) -> dict:
+    """Phase 4l (contiguous) or 4m (paged): the full-width bf16 model at the
+    default EngineConfig with ``spec_k`` = 4 (verify steps of 8 columns),
+    mixed admission: 16 requests of 64 new tokens, 8 random prompts of
+    16..2000 tokens interleaved with 8 periodic ones (a 24-token motif
+    repeated to 64..1024 tokens).  The mixed, verify and decode-chunk
+    graphs are captured before the clock.  A round's wall splits into the
+    drafter's host time, the host's time issuing the verify step (a graph
+    replay) and the rest (the wait for the step and its verdict, and the
+    host's walk of it); CUDA events around each verify step give its
+    device time.  The same traffic is then served with speculation off
+    (``spec_off``: the decode chunk in place of the rounds)."""
+    import dataclasses
+
+    from repro_torch.serving import EngineConfig
+
+    cfg = model.cfg
+    dev = model.device
+    ecfg = EngineConfig(paged_kv=paged, spec_k=SPEC_K)
+    label = "serve spec" + (" paged" if paged else "")
+    rng = np.random.default_rng(9)
+    serve(model, ecfg, prompts_for(rng, 2, 16, 64, cfg.vocab_size), 4, dev,   # warm-up
+          graphs=False)
+    free_memory()
+    random_half = prompts_for(rng, 8, 16, 2000, cfg.vocab_size)
+    periodic_half = periodic_prompts(rng, 8, 64, 1024, cfg.vocab_size)
+    prompts = interleave(random_half, periodic_half)
+    periodic = np.arange(len(prompts)) % 2 == 1
+    max_new = 64
+    handles, wall, engine = serve(model, ecfg, prompts, max_new, dev, label=label)
+    launches = read_launches()
+    check_handles(handles, engine, max_new, cfg.vocab_size, label)
+    tel = engine.telemetry
+    check(tel.useful_tokens == max_new * len(prompts),
+          f"{label}: useful_tokens {tel.useful_tokens}, not {max_new * len(prompts)}")
+    steps = check_spec_launches(launches, engine, cfg.n_layers, label, paged=paged)
+    streams = [h.result() for h in handles]
+    drafted, accepted = acceptance_by_request(engine, prompts, streams)
+    host_launch_s = sum(h for h, _ in engine.verify_steps)
+    device_s = sum(ev[0].elapsed_time(ev[1]) for _, ev in engine.verify_steps) / 1e3
+    rest_s = tel.spec_s - tel.draft_s - host_launch_s
+    ttft = np.array([h.record.ttft_s for h in handles])
+    out = dict(
+        requests=len(handles), layers=cfg.n_layers, dtype=cfg.dtype, spec_k=SPEC_K,
+        max_new=max_new, prompt_tokens=int(sum(len(p) for p in prompts)),
+        generated_tokens=int(sum(len(t) for t in streams)), wall_s=wall,
+        tokens_per_s=sum(len(t) for t in streams) / wall,
+        ttft_p50_s=float(np.percentile(ttft, 50)), ttft_p99_s=float(np.percentile(ttft, 99)),
+        mixed_steps=tel.mixed_steps, verify_steps=steps, spec_rounds=tel.spec_rounds,
+        drafted_tokens=tel.drafted_tokens, accepted_tokens=tel.accepted_tokens,
+        accept_rate=tel.spec_accept_rate,
+        accept_rate_periodic=float(accepted[periodic].sum() / max(1, drafted[periodic].sum())),
+        accept_rate_random=float(accepted[~periodic].sum() / max(1, drafted[~periodic].sum())),
+        drafted_periodic=int(drafted[periodic].sum()), drafted_random=int(drafted[~periodic].sum()),
+        spec_s=tel.spec_s, draft_s=tel.draft_s, verify_launch_s=host_launch_s,
+        verify_device_s=device_s, verify_wait_and_walk_s=rest_s,
+        round_ms=1e3 * tel.spec_s / steps,
+        round_share=dict(draft=tel.draft_s / tel.spec_s, launch=host_launch_s / tel.spec_s,
+                         wait_and_walk=rest_s / tel.spec_s, device=device_s / tel.spec_s),
+        launches=launches, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        capture=engine.capture, card=name_line)
+    if paged:
+        al = handles[0]._client.session.allocator
+        check(al.live_pages == 0, f"{label}: {al.live_pages} pages still live after the drain")
+        out.update(live_pages=al.live_pages, misses=al.stats.misses)
+    del handles
+    free_memory()
+    off_h, off_wall, off_eng = serve(model, dataclasses.replace(ecfg, spec_k=0), prompts,
+                                     max_new, dev, label=label + " off")
+    check_handles(off_h, off_eng, max_new, cfg.vocab_size, label + " off")
+    off_ttft = np.array([h.record.ttft_s for h in off_h])
+    out["spec_off"] = dict(
+        wall_s=off_wall, tokens_per_s=sum(len(h.result()) for h in off_h) / off_wall,
+        ttft_p50_s=float(np.percentile(off_ttft, 50)),
+        ttft_p99_s=float(np.percentile(off_ttft, 99)),
+        mixed_steps=off_eng.telemetry.mixed_steps, decode_chunks=off_eng.telemetry.chunks,
+        streams_equal_to_spec=int(sum(np.array_equal(a, h.result())
+                                      for a, h in zip(streams, off_h))))
+    return out
 
 
 def phase_generate(name_line: str, model) -> dict:
@@ -1565,6 +1774,69 @@ def phase_stale_buffers(card_model) -> dict:
               f"stale buffers {key}: the two mixed steps' inputs gave one result")
         out[key] = dict(outputs=len(errs), max_abs_err=max(errs),
                         graphs=engines[0]._graphs.captured)
+    return out
+
+
+def phase_spec_card_vs_cpu(small_cfg) -> dict:
+    """Phase 5h: phase 5's 4-layer fp32 qwen3 (max_len 1024) at a 16-token
+    vocabulary, so that greedy streams loop and drafts are accepted: 3
+    random prompts (16..300 tokens) and 3 periodic ones (48..300), 32 new
+    tokens each, contiguous and paged, at ``spec_k`` 1, 4 and 8 (verify
+    steps of 2, 8 and 16 columns).  On the card every speculating stream
+    must equal spec off, and the CPU's speculating stream (near-ties under
+    ``NEAR_TIE`` printed with their margins); accepted > 0; each captured
+    run is held to its ``graphs=False`` twin (streams and launches)."""
+    import dataclasses
+
+    from repro_torch.models import Model
+    from repro_torch.serving import EngineConfig
+
+    cfg = dataclasses.replace(small_cfg, vocab_size=16)
+    cpu_model = Model(cfg, device="cpu").init_(torch.Generator().manual_seed(3))
+    card_model = Model(cfg, device="cuda")
+    card_model.load_state_dict(cpu_model.state_dict())
+    card, cpu = torch.device("cuda"), torch.device("cpu")
+    rng = np.random.default_rng(8)
+    prompts = interleave(prompts_for(rng, 3, 16, 300, cfg.vocab_size),
+                         periodic_prompts(rng, 3, 48, 300, cfg.vocab_size))
+    max_new = 32
+    out = {}
+    for paged in (False, True):
+        layout = "paged" if paged else "contiguous"
+        base = EngineConfig(max_len=1024, paged_kv=paged)
+        off_h, _, off_eng = serve(card_model, base, prompts, max_new, card,
+                                  label=f"spec 5h {layout} off")
+        check_handles(off_h, off_eng, max_new, cfg.vocab_size, f"spec 5h {layout} off")
+        plain = [h.result() for h in off_h]
+        for k in (1, 4, 8):
+            label = f"spec 5h {layout} k={k}"
+            ecfg = dataclasses.replace(base, spec_k=k)
+            handles, wall, engine = serve(card_model, ecfg, prompts, max_new, card, label=label)
+            launches = read_launches()
+            check_handles(handles, engine, max_new, cfg.vocab_size, label)
+            steps = check_spec_launches(launches, engine, cfg.n_layers, label, paged=paged)
+            tel = engine.telemetry
+            check(tel.accepted_tokens > 0, f"{label}: no draft accepted")
+            streams = [h.result() for h in handles]
+            exact_off, ties_off = compare_streams(prompts, streams, plain, card_model, card_model,
+                                                  ("spec", "plain"))
+            eager = captured_vs_eager(label, card_model, ecfg, prompts, max_new, handles,
+                                      launches)
+            cpu_h, cpu_wall, cpu_eng = serve(cpu_model, ecfg, prompts, max_new, cpu)
+            check_handles(cpu_h, cpu_eng, max_new, cfg.vocab_size, f"{label} cpu")
+            exact_cpu, ties_cpu = compare_streams(prompts, streams, [h.result() for h in cpu_h],
+                                                  card_model, cpu_model, ("card", "cpu"))
+            if paged:
+                al = handles[0]._client.session.allocator
+                check(al.live_pages == 0, f"{label}: {al.live_pages} pages live after the drain")
+            out[f"{layout}_k{k}"] = dict(
+                requests=len(prompts), spec_k=k, exact_vs_spec_off=exact_off,
+                near_ties_vs_spec_off=ties_off, exact_vs_cpu=exact_cpu,
+                near_ties_vs_cpu=ties_cpu, verify_steps=steps, spec_rounds=tel.spec_rounds,
+                drafted_tokens=tel.drafted_tokens, accepted_tokens=tel.accepted_tokens,
+                cpu_accepted_tokens=cpu_eng.telemetry.accepted_tokens, launches=launches,
+                card_wall_s=wall, cpu_wall_s=cpu_wall, eager=eager)
+            free_memory()
     return out
 
 
@@ -1865,6 +2137,23 @@ def phase_timing() -> dict:
         time_ms(lambda: _sdpa(qm, kw, vw, mmask), 50),
         f"bf16 B={B} Q={Q} window={W} of S={S} Hkv={HKV} G={G} D={D} "
         f"cache_lens={cl_np.tolist()}")
+    # the verify step of spec_k = 8 (phase 5h's widest): Q = 16 over the
+    # same window, cache lengths cut to fit it
+    Q16 = 16
+    q16 = _rand(gen, (B, Q16, HKV * G, D), dt)
+    c16_np = np.minimum(cl_np, W - Q16)
+    c16 = torch.as_tensor(c16_np, dtype=torch.int32, device="cuda")
+    qpos16 = c16[:, None] + torch.arange(Q16, device="cuda")[None, :]
+    mask16 = (torch.arange(W, device="cuda")[None, None, :] <= qpos16[:, :, None])[:, None]
+    pairs16 = int(sum((c + i + 1) for c in c16_np for i in range(Q16)))
+    b16, by16 = bound_ms(2 * int((c16_np + Q16).sum()) * HKV * D * es
+                         + 2 * B * Q16 * HKV * G * D * es + 4 * B, 4 * pairs16 * HKV * G * D, dt)
+    out["mixed_attention"]["q16"] = dict(
+        ms=time_ms(lambda: kernel.mixed_attention_cuda(q16, kw, vw, c16), 200),
+        plain_ms=time_ms(lambda: ref.mixed_attention(q16, kw, vw, c16), 20),
+        bound_ms=b16, bound_by=by16, library_ms=time_ms(lambda: _sdpa(q16, kw, vw, mask16), 50),
+        shape=f"bf16 B={B} Q={Q16} window={W} Hkv={HKV} G={G} D={D} "
+              f"cache_lens={c16_np.tolist()}")
 
     # the paged split-K partial and mixed step over the auto-sized bf16 pool,
     # at the same lengths as their contiguous twins above.  Bytes: the keys
@@ -2294,10 +2583,11 @@ LAUNCH_PHASES = {
     "flash_attention": ("serve_legacy", "serve_legacy_paged", "generate") + ZAMBA2_PHASES,
     "decode_attention": ("serve_single", "card_vs_cpu", "zamba2_card_vs_cpu"),
     "decode_attention_splitk": ("serve",) + ZAMBA2_PHASES,
-    "mixed_attention": ("serve", "serve_single"),
+    "mixed_attention": ("serve", "serve_single", "serve_spec"),
     "decode_attention_paged": ("serve_single_paged", "card_vs_cpu_paged"),
     "decode_attention_paged_splitk": ("serve_paged",),
-    "mixed_attention_paged": ("serve_paged", "serve_legacy_paged", "serve_single_paged"),
+    "mixed_attention_paged": ("serve_paged", "serve_legacy_paged", "serve_single_paged",
+                              "serve_spec_paged"),
     "wkv6": ("serve_rwkv", "generate_rwkv"),
     "ssd": ZAMBA2_PHASES,
     "rmsnorm": ZAMBA2_PHASES,
@@ -2305,12 +2595,16 @@ LAUNCH_PHASES = {
 }
 # the fp32 phases whose launches each fp32 route reports: by kernel row,
 # (the run, the counter read) for phases 5, 5b, 5c (its legacy runs and its
-# card generate), 5d and 5e
+# card generate), 5d, 5e and 5h (its speculating runs)
 _VS = ("legacy_vs_mixed",)
+_SPEC = tuple(("spec_card_vs_cpu", f"{layout}_k{k}") for layout in ("contiguous", "paged")
+              for k in (1, 4, 8))
 FP32_PHASES = {
-    "mixed_attention": ((("card_vs_cpu",), "mixed_attention"),),
+    "mixed_attention": ((("card_vs_cpu",), "mixed_attention"),)
+    + tuple((run, "mixed_attention") for run in _SPEC if run[1].startswith("contiguous")),
     "mixed_attention_paged": ((("card_vs_cpu_paged",), "mixed_attention_paged"),
-                              (_VS + ("paged",), "mixed_attention_paged")),
+                              (_VS + ("paged",), "mixed_attention_paged"))
+    + tuple((run, "mixed_attention_paged") for run in _SPEC if run[1].startswith("paged")),
     "decode_attention_splitk": tuple(
         ((ph,), name) for ph in ("card_vs_cpu", "card_vs_cpu_paged", "zamba2_card_vs_cpu")
         for name in ("decode_attention_splitk", "decode_attention_paged_splitk")),
@@ -2431,6 +2725,14 @@ def main() -> int:
               f"({'paged ' if paged else ''}single-stage decode) in "
               f"{time.perf_counter() - t0:.1f} s on {name_line}: " + json.dumps(runs[key]),
               flush=True)
+    for key, tag, paged in (("serve_spec", "4l", False), ("serve_spec_paged", "4m", True)):
+        t0 = time.perf_counter()
+        runs[key] = phase_serve_spec(name_line, model, paged=paged)
+        free_memory()
+        print(f"[{tag}/6] served full-width qwen3-0.6b with speculative decoding (spec_k "
+              f"{SPEC_K}, {'paged' if paged else 'contiguous'}) in "
+              f"{time.perf_counter() - t0:.1f} s on {name_line}: " + json.dumps(runs[key]),
+              flush=True)
     del model
     free_memory()
 
@@ -2492,6 +2794,12 @@ def main() -> int:
     free_memory()
     print(f"[5g/6] replays after the lengths and tables change equal eager, in "
           f"{time.perf_counter() - t0:.1f} s: " + json.dumps(runs["stale_buffers"]), flush=True)
+    t0 = time.perf_counter()
+    runs["spec_card_vs_cpu"] = phase_spec_card_vs_cpu(small)
+    free_memory()
+    print(f"[5h/6] speculative fp32 streams (vocab 16, spec_k 1/4/8, both layouts) equal spec "
+          f"off and the CPU, captured equal eager, in {time.perf_counter() - t0:.1f} s: "
+          + json.dumps(runs["spec_card_vs_cpu"]), flush=True)
     del cpu_model, card_model
     free_memory()
     t0 = time.perf_counter()
@@ -2535,7 +2843,7 @@ def main() -> int:
                if "fp32" in t else {}),
             **{k: v for k, v in t.items()
                if k.startswith("phase_") or k in ("ms_by_cols", "ms_by_rows", "ms_by_cluster",
-                                                  "cluster", "bf16", "partial_ms")}))
+                                                  "cluster", "bf16", "partial_ms", "q16")}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(name_line)
     print(json.dumps({"kernels": rows}))

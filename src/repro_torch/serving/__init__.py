@@ -12,3 +12,9 @@ from repro_torch.serving.engine import (  # noqa: F401
     QueueSession,
     ServingEngine,
 )
+from repro_torch.serving.spec import (  # noqa: F401
+    Drafter,
+    NgramDrafter,
+    spec_quantum,
+    verify_tokens,
+)

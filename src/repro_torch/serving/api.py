@@ -16,7 +16,8 @@ Handle lifecycle::
        |                        |
        +---- cancel() ----------+--> CANCELLED   (partial tokens kept)
 
-The JAX client's ``Tracer`` argument comes with the port of ``obs``.
+The JAX client's ``Tracer`` argument, and with it its tracer events (the
+``engine.speculate`` event among them), comes with the port of ``obs``.
 """
 from __future__ import annotations
 
@@ -48,13 +49,15 @@ class RequestStatus(enum.Enum):
 @dataclass
 class InferenceRequest:
     """One client-side generation request.  ``prompt`` is (Sp,) or (1, Sp)
-    int tokens; ``deadline_s`` is relative to submission."""
+    int tokens; ``deadline_s`` is relative to submission; ``speculate=False``
+    keeps it out of speculative rounds."""
 
     prompt: np.ndarray
     max_new: int
     slo_class: str = "interactive"
     priority: int = 0                 # higher admits first within a class
     deadline_s: Optional[float] = None
+    speculate: bool = True            # may ride speculative rounds (spec_k > 0)
 
     def prompt_2d(self) -> np.ndarray:
         p = np.asarray(self.prompt)
@@ -168,7 +171,7 @@ class EngineClient:
         rid = self._next_rid
         self.session.submit(rid, request.prompt_2d(), request.max_new,
                             slo_class=request.slo_class, priority=request.priority,
-                            deadline_s=request.deadline_s)
+                            deadline_s=request.deadline_s, speculate=request.speculate)
         self._next_rid += 1
         handle = RequestHandle(request, rid, self, self._clock())
         self.handles[rid] = handle

@@ -1,17 +1,21 @@
 """Serving engine of the port: mixed-batch and legacy admission, contiguous
-or paged, and fixed-batch ``generate``, over the dense family's KV cache,
-the rwkv family's constant-size state or the hybrid family's Mamba-2
-states and shared-attention KV.
+or paged, speculative decoding, and fixed-batch ``generate``, over the
+dense family's KV cache, the rwkv family's constant-size state or the
+hybrid family's Mamba-2 states and shared-attention KV.
 
-Counterpart of the JAX package's ``serving/engine.py`` (``spec_k=0``) on
-both cache layouts.  With ``mixed_step=True`` (the default)
+Counterpart of the JAX package's ``serving/engine.py`` on both cache
+layouts.  With ``mixed_step=True`` (the default)
 ``QueueSession.pump`` admits requests into free slots, drives fused
 prefill+decode ("mixed") steps until this pump's prompts are ingested —
 decode slots advance one token in every one — and then runs one decode
-chunk of ``decode_chunk`` steps over the whole slot batch.  With
+chunk of ``decode_chunk`` steps over the whole slot batch, or, with the
+session's ``spec_k`` above 0, up to ``decode_chunk`` speculative rounds
+(``serving/spec.py``: drafts from ``engine.drafter``, verified in one
+mixed step with all-position logits).  With
 ``mixed_step=False`` (legacy admission) every admission is one B=1
 ``Model.prefill`` placed into its slot (or a ``prefill_paged`` of the
-suffix on a prefix hit), then the same decode chunk.  A model without
+suffix on a prefix hit), then the same decode chunk; legacy sessions
+ignore ``spec_k``, as in JAX.  A model without
 a mixed step (the rwkv family, ``Model.supports_mixed_step`` False) takes
 legacy admission whatever ``mixed_step`` says, as in JAX: its per-slot
 cache is a recurrent state (L, B, H, N, N) and two shift rows (L, B, d),
@@ -32,18 +36,21 @@ step.
 
 Each step the JAX engine jits (the decode chunk ``_chunk_scan`` and its
 paged form, ``generate``'s ``_gen_scan``, the mixed step once per (Q,
-attention-window) bucket) is one function here, ``_decode_steps`` or
-``_mixed_step``, over the fixed-shape device buffers of a
+attention-window) bucket, the spec verify step once per (Q, window)
+bucket) is one function here, ``_decode_steps``, ``_mixed_step`` or
+``_spec_step``, over the fixed-shape device buffers of a
 ``steps.StepState``: the host mirrors (``_lens_host``, ``tables``, the
 slot flags, the chunk tokens) are copied in from pinned memory before each
 call, and the step reads nothing back.  On the card
 (``ServingEngine(graphs=None)`` there) each is captured as a CUDA graph
 once per key -- (steps,) for the decode chunk and ``generate``, (Q,
-window) for the mixed step -- and replayed; on the CPU, or with
-``graphs=False``, the same function is called directly.
-``warm_mixed_traces`` and ``warm_decode`` capture ahead of a measured run,
-into the state the next session takes.  Legacy admission's ``Model.prefill``
-stays eager: JAX jits it per prompt shape, and no bucket grid bounds those.
+window) for the mixed step, ("spec", Q, window) for the verify step,
+whose only output is the (3, B, Q) verdict -- and replayed; on the CPU,
+or with ``graphs=False``, the same function is called directly.
+``warm_mixed_traces``, ``warm_spec_traces`` and ``warm_decode`` capture
+ahead of a measured run, into the state the next session takes.  Legacy
+admission's ``Model.prefill`` stays eager: JAX jits it per prompt shape,
+and no bucket grid bounds those.
 
 Differences from the JAX engine, and why:
 
@@ -66,13 +73,15 @@ Differences from the JAX engine, and why:
   hit's cached logits are kept as fp32 numpy.
 * A temperature draw is ``torch.multinomial``'s one-sample form (the
   exponential race) without its host-side checks; on the card the decode
-  chunk's generator is registered with its graph, so captured and eager
-  runs draw the same stream from the same seed.  The mixed step's draws
-  stay outside its graph.
+  chunk's and the verify step's generator is registered with their graphs,
+  so captured and eager runs draw the same stream from the same seed.  The
+  mixed step's draws stay outside its graph.
+* A spec round's carried token rides column 0 of its chunk (the host knows
+  it from the last verdict), so the round stages no slot as reading
+  ``StepState.tok``; the carry is copied back into it after the rounds.
 
-Not ported yet: speculative decoding (``spec_k > 0`` raises
-``NotImplementedError``; ROADMAP §1 item 7), durable-KV frontiers, the
-scan-state ``StateFrontier`` included (item 8).
+Not ported yet: durable-KV frontiers, the scan-state ``StateFrontier``
+included (ROADMAP §1 item 8).
 """
 from __future__ import annotations
 
@@ -88,6 +97,13 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
 from repro_torch.serving.paged_kv import TRASH_PAGE, BlockAllocator
+from repro_torch.serving.spec import (
+    Drafter,
+    NgramDrafter,
+    categorical_draw,
+    spec_quantum,
+    verify_tokens,
+)
 from repro_torch.serving.steps import StepGraphs, StepState
 
 # the auto-sized page pool holds this many times the worst-case live set:
@@ -107,13 +123,16 @@ class EngineConfig:
     paged_kv: bool = False          # block-based KV with prefix reuse
     page_size: int = 16             # tokens per KV page
     num_pages: int = 0              # 0 => auto-size from decode_batch/max_len
-    spec_k: int = 0                 # not ported yet (ROADMAP §1 item 7)
+    spec_k: int = 0                 # draft tokens per decode round (0 = off);
+                                    # sessions retune it live
+    spec_ngram: int = 3             # n-gram length of the default drafter
 
 
 @dataclass
 class EngineTelemetry:
     """Measured engine-side counters (the JAX engine's, minus the
-    recovery and speculative ones this path never moves)."""
+    recovery ones this path never moves, plus the host seconds of the
+    speculative rounds and their drafting)."""
 
     prefills: int = 0                # prompts ingested to completion
     prefill_chunks: int = 0          # prompt chunks dispatched
@@ -128,10 +147,21 @@ class EngineTelemetry:
     prefix_misses: int = 0
     reused_tokens: int = 0           # prompt tokens served from cached pages
     prefilled_tokens: int = 0        # prompt tokens run through the model
+    # speculative decoding (zero when spec_k is 0): only accepted drafts
+    # count toward useful_tokens; a rejected draft is wasted
+    drafted_tokens: int = 0          # draft tokens dispatched for verification
+    accepted_tokens: int = 0         # drafts that survived verification
+    spec_rounds: int = 0             # verify steps with at least one draft
+    spec_s: float = 0.0              # wall time of the speculative rounds
+    draft_s: float = 0.0             # of which the drafter's
 
     @property
     def tokens_per_s(self) -> float:
         return self.useful_tokens / self.decode_s if self.decode_s > 0 else 0.0
+
+    @property
+    def spec_accept_rate(self) -> float:
+        return self.accepted_tokens / self.drafted_tokens if self.drafted_tokens else 0.0
 
     @property
     def efficiency(self) -> float:
@@ -174,14 +204,13 @@ class ServingEngine:
         if cfg.paged_kv and not model.supports_paged_kv:
             raise ValueError(
                 f"paged_kv=True but {model.cfg.name} has no pageable KV cache")
-        if cfg.spec_k > 0:
-            raise NotImplementedError("spec_k > 0 (speculative decoding) is not ported yet "
-                                      "(ROADMAP §1 item 7)")
         self.model = model
         self.cfg = cfg
         self.telemetry = EngineTelemetry()
         # a model without a mixed step (rwkv) takes legacy admission, as in JAX
         self.mixed = bool(cfg.mixed_step) and model.supports_mixed_step
+        # the pluggable drafter; sessions read it every speculative round
+        self.drafter: Drafter = NgramDrafter(max(1, cfg.spec_ngram))
         # paged-KV resolution (sessions read these): the auto pool holds a
         # max_len request in every slot, times PAGE_HEADROOM so finished
         # prompts can stay cached (page 0 is the reserved trash page)
@@ -191,7 +220,8 @@ class ServingEngine:
         self.num_pages = cfg.num_pages or (
             1 + math.ceil(PAGE_HEADROOM * cfg.decode_batch * self.max_blocks))
         self._graphs = StepGraphs(self.device) if graphs else None
-        self._buckets: set = set()              # (Q, window) mixed buckets prepared
+        # (Q, window) mixed and ("spec", Q, window) verify buckets prepared
+        self._buckets: set = set()
         self._primed: Optional[StepState] = None    # the next session's state
         self._gen_states: Dict[int, StepState] = {}  # generate's, by batch size
 
@@ -201,8 +231,9 @@ class ServingEngine:
 
     @property
     def mixed_traces(self) -> int:
-        """Mixed-step buckets (Q, attention window) prepared, as the JAX
-        engine counts its traces: by warming or by a first use."""
+        """Mixed-step and verify-step buckets (Q, attention window)
+        prepared, as the JAX engine counts its traces: by warming or by a
+        first use."""
         return len(self._buckets)
 
     def new_session(self) -> "QueueSession":
@@ -238,6 +269,10 @@ class ServingEngine:
         self._buckets.add((Q, aw))
         return self._run(st, ("mixed", Q, aw), lambda: self._mixed_step(st, Q, aw))
 
+    def _spec_call(self, st: StepState, Qs: int, aw: int) -> torch.Tensor:
+        self._buckets.add(("spec", Qs, aw))
+        return self._run(st, ("spec", Qs, aw), lambda: self._spec_step(st, Qs, aw))
+
     def _windows(self, Q: int) -> List[int]:
         """The pow-2 attention-window buckets of q-chunk width Q: Q, 2Q, ...,
         up to max_len (the buckets a session can ever request)."""
@@ -267,6 +302,28 @@ class ServingEngine:
                     st.stage(np.zeros(n), np.ones(n), np.zeros(n), np.zeros(n),
                              np.full((n, self.max_blocks), TRASH_PAGE))
                     self._mixed_call(st, Q, aw)
+        return self.mixed_traces - before
+
+    def warm_spec_traces(self, ks) -> int:
+        """Prepare the verify-step grid for the given draft depths: for
+        each depth's column quantum ``spec_quantum(k)``, every attention-
+        window bucket, run once on dummy inputs (lengths 0, one new token)
+        -- on the card captured, into the state the next session takes --
+        so that retuning ``spec_k`` never captures mid-pump.  Returns the
+        buckets added (the JAX engine's traces compiled): 0 for a model
+        without a mixed step."""
+        if not self.mixed:
+            return 0
+        before = self.mixed_traces
+        st = self._session_state()
+        n = st.batch
+        with _rng_kept(st.generator):
+            for Qs in sorted({spec_quantum(k) for k in ks if k > 0}):
+                st.chunk(Qs).fill(np.zeros((n, Qs), np.int32))
+                for aw in self._windows(Qs):
+                    st.stage(np.zeros(n), np.ones(n), np.zeros(n), np.zeros(n),
+                             np.full((n, self.max_blocks), TRASH_PAGE))
+                    self._spec_call(st, Qs, aw)
         return self.mixed_traces - before
 
     def warm_decode(self) -> int:
@@ -357,9 +414,8 @@ class ServingEngine:
         streams follow torch's generator, not jax.random."""
         if self.cfg.temperature <= 0.0:
             return torch.argmax(logits, dim=-1).to(torch.int32)
-        probs = torch.softmax(logits.float() / self.cfg.temperature, dim=-1)
-        race = torch.empty_like(probs).exponential_(generator=generator)
-        return torch.argmax(probs / race, dim=-1).to(torch.int32)
+        return categorical_draw(torch.softmax(logits.float() / self.cfg.temperature, dim=-1),
+                                generator)
 
     def _mixed_tokens(self, chunks: torch.Tensor, tok: torch.Tensor,
                       is_decode: torch.Tensor) -> torch.Tensor:
@@ -382,6 +438,34 @@ class ServingEngine:
         logits = self.model.step_mixed(tokens, st.cache, st.lens, st.new_lens,
                                        page_table=st.tables, attn_window=attn_window)
         return logits, (self._sample(logits) if self.cfg.temperature <= 0.0 else None)
+
+    def _spec_step(self, st: StepState, Qs: int, attn_window: int) -> torch.Tensor:
+        """The verify step, as the card captures it: one mixed step over
+        ``st.chunk(Qs)`` with all-position logits, every slot advancing by
+        ``st.new_lens`` (a speculating slot: its carry in column 0 and d
+        drafts after it, ``new_len = 1 + d``) from ``st.lens``, reduced on
+        the device by ``verify_tokens`` (draws from ``st.generator``).
+        Returns only the (3, B, Qs) verdict: the (B, Qs, V) logits stay
+        inside the step (inside the graph's pool on the card).  Rejected
+        columns write KV past the slot's accepted frontier; nothing undoes
+        them (the session's length mirror never covers them, and the next
+        round's writes land on them first)."""
+        buf = st.chunks.get(Qs)
+        if buf is None:
+            raise ValueError(f"no chunk buffer of width {Qs} was filled for this verify step")
+        chunks = buf.dev.view(st.batch, Qs)
+        tokens = self._mixed_tokens(chunks, st.tok, st.decoding != 0)
+        logits = self.model.step_mixed(tokens, st.cache, st.lens, st.new_lens,
+                                       page_table=st.tables, attn_window=attn_window,
+                                       all_logits=True)
+        # column j's logits judge the token in column j + 1 (the last is padding)
+        drafts = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
+        return self._verify(logits, drafts, st.generator)
+
+    def _verify(self, logits: torch.Tensor, drafts: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        """``verify_tokens`` at the engine's temperature."""
+        return verify_tokens(logits, drafts, self.cfg.temperature, generator)
 
     def _decode_steps(self, st: StepState, steps: int) -> torch.Tensor:
         """The decode chunk, as the card captures it: every slot flagged in
@@ -441,6 +525,13 @@ class PumpReport:
     prefilled_tokens: int = 0         # prompt tokens run through the model
     page_occupancy: float = 0.0       # live fraction of the page pool
     cached_pages: int = 0             # reusable (refcount-0) pages held
+    # speculative decoding this pump (zero when spec_k is 0); only accepted
+    # drafts reach emitted, tokens and useful_tokens
+    drafted_tokens: int = 0           # draft tokens dispatched for verification
+    accepted_tokens: int = 0          # drafts that survived verification
+    spec_rounds: int = 0              # verify steps with at least one draft
+    spec_s: float = 0.0               # wall time of the speculative rounds
+    draft_s: float = 0.0              # of which the drafter's
 
 
 class QueueSession:
@@ -480,6 +571,13 @@ class QueueSession:
         # host mirror of per-slot cache lengths (the single source of truth
         # for the attention window and the mixed step's KV placement)
         self._lens_host = np.zeros((n_slots,), np.int64)
+        # speculative decoding: the live draft depth (0 = off), the rids that
+        # opted out, the acceptance EWMA over drafted rounds (None before the
+        # first), and each request's prompt, which the drafter reads
+        self.spec_k = max(0, int(engine.cfg.spec_k))
+        self._no_spec: set = set()
+        self.spec_accept_ewma: Optional[float] = None
+        self._prompt_of: Dict[int, Tuple[int, ...]] = {}
 
     @property
     def cache(self):
@@ -489,9 +587,11 @@ class QueueSession:
     # -- request intake -------------------------------------------------------
     def submit(self, rid: int, inp: np.ndarray, max_new: int, *,
                slo_class: str = "interactive", priority: int = 0,
-               deadline_s: Optional[float] = None) -> None:
+               deadline_s: Optional[float] = None, speculate: bool = True) -> None:
         """Queue a request; admission order is interactive before batch,
-        higher priority first, soonest deadline first, then FIFO."""
+        higher priority first, soonest deadline first, then FIFO.
+        ``speculate=False`` keeps this request out of speculative rounds:
+        it decodes one token a round while the rest of the batch drafts."""
         if rid in self._out or rid in self.results:
             raise ValueError(f"request id {rid} already in session")
         inp = np.asarray(inp)
@@ -514,6 +614,8 @@ class QueueSession:
         deadline_at = (time.monotonic() + deadline_s if deadline_s is not None else math.inf)
         self._slo[rid] = slo_order_key(slo_class, priority, deadline_at, self._seq)
         self._seq += 1
+        if not speculate:
+            self._no_spec.add(rid)
         self._out[rid] = []
         self.queue.append((rid, inp, max_new))
 
@@ -523,6 +625,8 @@ class QueueSession:
 
     def _retire(self, rid: int) -> None:
         self._slo.pop(rid, None)
+        self._prompt_of.pop(rid, None)
+        self._no_spec.discard(rid)
 
     def cancel(self, rid: int) -> bool:
         """Abandon a request: drop it from the queue, or free its slot (and
@@ -634,6 +738,13 @@ class QueueSession:
         return (len(self.queue) + len(self._prefilling)
                 + int(np.sum(self.slots.request_id >= 0)))
 
+    def inflight_rids(self) -> List[int]:
+        """Incomplete rids, slot occupants first (the requeue set when this
+        session's replica dies): decoding, then mid-prefill, then queued."""
+        active = [int(r) for r in self.slots.request_id if r >= 0]
+        active += [st["rid"] for _, st in sorted(self._prefilling.items())]
+        return active + [rid for rid, _, _ in self.queue]
+
     # -- mixed-batch admission ------------------------------------------------
     def _akey(self) -> Optional[torch.Generator]:
         """Per-admission sampling generator (None in greedy mode)."""
@@ -647,6 +758,7 @@ class QueueSession:
         """The prompt enters the slot as pending chunks; nothing is
         dispatched here — it rides the next mixed steps."""
         self._lens_host[s] = 0
+        self._prompt_of[rid] = tuple(int(t) for t in np.asarray(inp)[0])
         self._prefilling[s] = dict(
             rid=rid, rem=np.asarray(inp)[0].astype(np.int64),
             plen=int(inp.shape[1]), max_new=int(max_new), akey=self._akey(), tokens=None)
@@ -666,6 +778,7 @@ class QueueSession:
         if entry is not None:
             if not self._admit_full_hit(s, rid, entry, plen, total_blocks):
                 return False
+            self._prompt_of[rid] = tuple(tokens)
             self.slots.admit(s, rid, max_new)     # decoding immediately
             return True
 
@@ -677,6 +790,7 @@ class QueueSession:
         m = self._claim_pages(s, rid, tokens, total_blocks)
         if m is None:
             return False
+        self._prompt_of[rid] = tuple(tokens)
         if m > 0:
             # block-aligned prefix hit: only the suffix goes through the model
             al.stats.prefix_hits += 1
@@ -993,7 +1107,12 @@ class QueueSession:
         report.sync_s += time.perf_counter() - t_sync
 
         if (slots.request_id >= 0).any():
-            self._decode_chunk(report)
+            if self.spec_k > 0:
+                # speculative rounds replace the decode chunk: each one
+                # advances every decoding slot by 1 + its accepted drafts
+                self._decode_speculative(report)
+            else:
+                self._decode_chunk(report)
         self._paged_report_tail(report, stats0)
         report.wall_s = time.perf_counter() - t0
         self._add_telemetry(report)
@@ -1031,6 +1150,110 @@ class QueueSession:
         report.chunk_steps = chunk
         report.sync_s += time.perf_counter() - t_sync
 
+    def _decode_speculative(self, report: PumpReport) -> None:
+        """The decode phase with speculation on: up to ``decode_chunk``
+        draft + verify rounds in place of the decode chunk.
+
+        Per round the drafter proposes up to ``min(spec_k, remaining - 1,
+        Qs - 1)`` tokens per decoding slot from its whole history (prompt,
+        generated tokens, carry: all known on the host); the carry and the
+        drafts fill columns 0..d of one verify step of width ``Qs =
+        spec_quantum(spec_k)`` (``new_len = 1 + d``; an opted-out or
+        missing slot runs d = 0); one (3, B, Qs) read of the verdict, and
+        the host emits the carry and the longest accepted prefix and takes
+        the next carry.  The carry is read from ``StepState.tok`` once at
+        the start and copied back at the end; in between the verdicts keep
+        it on the host.  The round's sync is inherent: the next drafts need
+        this round's tokens.
+
+        Rejected columns already wrote KV past the accepted frontier, and
+        nothing undoes them: ``_lens_host`` only advances by what was
+        emitted, so those rows stay masked until the next round's writes
+        land on them.  The contiguous window keeps its other rows bit for
+        bit; paged, every page at or past a slot's write frontier is its
+        own by the copy-on-write invariant of admission, so no shared
+        prefix page is written and no allocator call is needed."""
+        eng, slots, st = self.eng, self.slots, self.st
+        n_slots = slots.n_slots
+        Qs = spec_quantum(self.spec_k)
+        drafter = eng.drafter
+        none = np.zeros(n_slots)
+        t_start = time.perf_counter()
+        carry = st.tok.cpu().numpy().astype(np.int64)      # ONE carry read
+        executed = 0
+        for _ in range(max(1, eng.cfg.decode_chunk)):
+            active = np.nonzero(slots.request_id >= 0)[0]
+            if len(active) == 0:
+                break
+            t_draft = time.perf_counter()
+            chunks_np = np.zeros((n_slots, Qs), np.int32)
+            new_lens = np.zeros((n_slots,), np.int32)
+            d_of = np.zeros((n_slots,), np.int64)
+            for s in active:
+                rid = int(slots.request_id[s])
+                # never draft past the request's budget: carry + accepted <=
+                # remaining keeps completions exact and writes inside its pages
+                k = min(self.spec_k, int(slots.remaining[s]) - 1, Qs - 1)
+                drafts: List[int] = []
+                if k > 0 and rid not in self._no_spec:
+                    ctx = list(self._prompt_of.get(rid, ()))
+                    ctx += self._out[rid]
+                    ctx.append(int(carry[s]))
+                    drafts = drafter.propose(ctx, k)[:k]
+                d_of[s] = len(drafts)
+                chunks_np[s, 0] = carry[s]
+                chunks_np[s, 1:1 + len(drafts)] = drafts
+                new_lens[s] = 1 + len(drafts)
+            # the attention window: the mixed loop's pow-2 rule, floored at
+            # Qs so that (Qs, window) stays on the warm_spec_traces grid
+            need = int(np.max(self._lens_host[active] + new_lens[active]))
+            aw = min(max(1 << (max(1, need) - 1).bit_length(), Qs), eng.cfg.max_len)
+            t_disp = time.perf_counter()
+            report.draft_s += t_disp - t_draft
+            st.stage(self._lens_host, new_lens, none, none, self.tables)
+            st.chunk(Qs).fill(chunks_np)
+            verdict = eng._spec_call(st, Qs, aw)
+            t_sync = time.perf_counter()
+            v = verdict.cpu().numpy()                 # ONE (3, B, Qs) read a round
+            counts = np.zeros(n_slots, np.int64)
+            drafted = accepted = 0
+            for s in active:
+                rid = int(slots.request_id[s])
+                d = int(d_of[s])
+                a = 0
+                while a < d and v[0, s, a]:
+                    a += 1
+                vals = [int(carry[s])] + [int(t) for t in chunks_np[s, 1:1 + a]]
+                self._out[rid].extend(vals)
+                report.emitted[rid] = report.emitted.get(rid, 0) + len(vals)
+                report.tokens.setdefault(rid, []).extend(vals)
+                # the next carry: the replacement at the first rejection, or
+                # the bonus after a fully accepted draft
+                carry[s] = int(v[1, s, a]) if a < d else int(v[2, s, d])
+                self._lens_host[s] += len(vals)
+                counts[s] = len(vals)
+                drafted += d
+                accepted += a
+            report.useful_tokens += int(counts.sum())
+            # idle slots and rejected drafts are paid for and not delivered
+            report.wasted_tokens += n_slots - len(active) + drafted - accepted
+            report.drafted_tokens += drafted
+            report.accepted_tokens += accepted
+            if drafted:
+                report.spec_rounds += 1
+                rate = accepted / drafted
+                self.spec_accept_ewma = (rate if self.spec_accept_ewma is None
+                                         else 0.3 * rate + 0.7 * self.spec_accept_ewma)
+            executed += 1
+            t_done = time.perf_counter()
+            report.dispatch_s += t_sync - t_disp
+            report.sync_s += (t_disp - t_draft) + (t_done - t_sync)
+            for rid in slots.advance(counts):
+                self._complete(rid, report)
+        st.tok.copy_(torch.from_numpy(carry.astype(np.int32)))
+        report.chunk_steps = executed
+        report.spec_s += time.perf_counter() - t_start
+
     def _add_telemetry(self, report: PumpReport) -> None:
         tel = self.eng.telemetry
         tel.mixed_steps += report.mixed_steps
@@ -1045,6 +1268,11 @@ class QueueSession:
         tel.prefix_misses += report.prefix_misses
         tel.reused_tokens += report.reused_tokens
         tel.prefilled_tokens += report.prefilled_tokens
+        tel.drafted_tokens += report.drafted_tokens
+        tel.accepted_tokens += report.accepted_tokens
+        tel.spec_rounds += report.spec_rounds
+        tel.spec_s += report.spec_s
+        tel.draft_s += report.draft_s
 
 
 class DecodeSlots:
@@ -1069,8 +1297,13 @@ class DecodeSlots:
 
     def step(self) -> list:
         """Advance one decode step; returns request ids that finished."""
+        return self.advance(np.ones(self.n_slots, np.int64))
+
+    def advance(self, counts: np.ndarray) -> list:
+        """Advance every active slot by its own ``counts[slot]`` emitted
+        tokens (a speculative round); returns request ids that finished."""
         active = self.request_id >= 0
-        self.remaining[active] -= 1
+        self.remaining[active] -= np.asarray(counts, np.int64)[active]
         done = np.nonzero(active & (self.remaining <= 0))[0]
         finished = self.request_id[done].tolist()
         self.request_id[done] = -1

@@ -22,11 +22,15 @@ directly.
   split-K counters of that stream) and is that call's result; the capture
   follows, and every later call replays.  Each graph records the kernel
   launches (``kernels.*.LAUNCHES``) its capture counted, which the capture
-  itself does not keep and every replay adds back.
+  itself does not keep and every replay adds back.  The cyclic garbage
+  collector is held off during a capture: a collection there can destroy
+  an unreachable engine's graphs, events and pinned buffers, calls that a
+  capturing stream does not permit, and the capture is then invalidated.
 """
 from __future__ import annotations
 
 import functools
+import gc
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -163,10 +167,14 @@ class StepGraphs:
         graph = torch.cuda.CUDAGraph()
         if st.generator is not None:
             graph.register_generator_state(st.generator)
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
                 outputs = body()
         finally:
+            if collecting:
+                gc.enable()
             # the capture launched nothing: its counts go to the graph
             launched = [{k: t[k] - b[k] for k in t if t[k] != b[k]} for t, b in zip(tables, before)]
             for t, b in zip(tables, before):

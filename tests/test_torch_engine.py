@@ -106,11 +106,12 @@ def test_cancel_frees_the_slot(pair):
 
 
 def test_unported_options_raise(pair):
-    """Speculative decoding is not ported yet; ``mixed_step=False`` is (see
-    ``test_torch_prefill.py``) and builds an engine."""
+    """Speculative decoding is ported (``test_torch_spec.py``): ``spec_k=2``
+    builds a mixed engine whose sessions take that depth; ``mixed_step=False``
+    (see ``test_torch_prefill.py``) builds a legacy engine."""
     *_, cfg, model = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(model, EngineConfig(max_len=64, spec_k=2), device="cpu")
+    eng = ServingEngine(model, EngineConfig(max_len=64, spec_k=2), device="cpu")
+    assert eng.mixed and eng.new_session().spec_k == 2
     assert not ServingEngine(model, EngineConfig(max_len=64, mixed_step=False),
                              device="cpu").mixed
 

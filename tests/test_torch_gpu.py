@@ -43,7 +43,13 @@ first use, greedy and at temperature 0.8) and ``generate`` token-exact with
 ``graphs=False`` and with equal launch counts, replays after the lengths,
 flags, chunk tokens and tables change bit-equal to eager, N replays
 counting N graphs' launches, and the split-K counters never made under a
-capture.
+capture; and the speculative verify step captured per ("spec", Qs,
+window) on the same model at a 16-token vocabulary: speculating sessions
+at Qs 2, 4, 8 and 16 (both layouts) token-exact with ``graphs=False``,
+launches equal and the mixed-step kernel once a layer per mixed and
+verify step, seeded temperature streams equal, replays after the
+lengths, tables and drafts change bit-equal to eager, N replays counting
+N graphs' launches, and the verdict as the graph's only output.
 
 Marked ``gpu``; each test asks the ``cuda`` fixture for the card, which
 skips when ``torch.cuda.is_available()`` is false.  This file imports no
@@ -2006,6 +2012,52 @@ def test_splitk_counters_are_never_made_under_capture(cuda):
     assert (cuda.index or 0, side.cuda_stream) not in kernel._COUNTERS
 
 
+def test_capture_holds_off_the_garbage_collector(cuda):
+    """A collection during a capture can destroy an unreachable engine's
+    graphs, events and pinned buffers, which a capturing stream does not
+    permit, and the capture is then invalidated (seen in a long pytest
+    process, where finished clients and their engines wait in reference
+    cycles): captures run with the automatic collector off, and it is back
+    on after them.  A dead engine whose last reference drops inside the
+    capture, with a collection due at every allocation, is freed after it."""
+    import gc
+
+    from repro_torch.serving import EngineConfig, ServingEngine
+
+    cfg = EngineConfig(max_len=256, decode_batch=3, decode_chunk=4, prefill_chunk=24)
+    dead = ServingEngine(_graph_model(), cfg)
+    dead.warm_mixed_traces([24])
+    dead.warm_decode()
+    dead.cycle = dead                       # only a collection can free it
+    holder = [dead]
+    del dead
+    eng = ServingEngine(_graph_model(), cfg)
+    seen = []
+    decode_steps = eng._decode_steps
+
+    def body(st, steps):
+        if torch.cuda.is_current_stream_capturing():
+            seen.append(gc.isenabled())
+            holder.clear()
+            _ = [[] for _ in range(5000)]          # allocations that would start collections
+        return decode_steps(st, steps)
+
+    eng._decode_steps = body
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        assert eng.warm_decode() == 1
+    finally:
+        gc.set_threshold(*thresholds)
+    assert seen == [False] and gc.isenabled()
+    gc.collect()
+    st = eng._session_state()
+    st.stage(np.array([5, 90, 0]), np.zeros(3), np.array([1, 1, 0]), np.zeros(3))
+    eng._decode_call(st, 4)
+    torch.cuda.synchronize()
+    assert eng._graphs.captured == 1
+
+
 def test_launches_after_replays_equal_eager(cuda):
     """N replays of the decode chunk count N times its graph's launches,
     as N eager calls do."""
@@ -2025,3 +2077,163 @@ def test_launches_after_replays_equal_eager(cuda):
     assert counts[0] == counts[1]
     assert counts[0]["decode_attention_splitk"] == 5 * 4 * _graph_model().cfg.n_layers
 
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: the verify step as a CUDA graph per ("spec", Qs,
+# window), captured against eager on the graph model at a 16-token vocab
+# (greedy streams on random weights loop, so drafts are accepted)
+# ---------------------------------------------------------------------------
+
+
+@functools.cache
+def _spec_model():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_config("qwen3-0.6b").reduce(), head_dim=64, vocab_size=16)
+    return Model(cfg, device="cuda").init_(torch.Generator("cuda").manual_seed(0))
+
+
+def _serve_spec(graphs, spec_k, **ecfg_kw):
+    """Serve seven requests (prompts 3-60, 6-30 new tokens) at draft depth
+    ``spec_k`` with the mixed and verify grids and the decode chunk warmed;
+    returns the streams, the served run's launches, the verify steps it
+    dispatched and the session."""
+    from repro_torch.serving import EngineClient, EngineConfig, InferenceRequest, ServingEngine
+
+    model = _spec_model()
+    kw = dict(max_len=256, decode_batch=3, decode_chunk=4, prefill_chunk=24, spec_k=spec_k)
+    kw.update(ecfg_kw)
+    eng = ServingEngine(model, EngineConfig(**kw), graphs=graphs)
+    eng.warm_mixed_traces([kw["prefill_chunk"]])
+    eng.warm_spec_traces([spec_k])
+    eng.warm_decode()
+    verify_steps = []
+    spec_call = eng._spec_call
+
+    def counted(st, Qs, aw):
+        verify_steps.append((Qs, aw))
+        return spec_call(st, Qs, aw)
+
+    eng._spec_call = counted
+    for m in (kernel, norm_kernel):
+        m.reset_launches()
+    rng = np.random.default_rng(1)
+    cli = EngineClient(eng)
+    hs = [cli.submit(InferenceRequest(prompt=rng.integers(0, 16, int(p)), max_new=int(m)))
+          for p, m in zip(rng.integers(3, 60, 7), rng.integers(6, 30, 7))]
+    cli.drain()
+    return [h.result() for h in hs], dict(kernel.LAUNCHES), verify_steps, cli.session
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("spec_k", [1, 3, 4, 8])             # Qs 2, 4, 8, 16
+def test_captured_spec_session_equals_eager(cuda, spec_k, paged):
+    """Verify steps replayed from CUDA graphs give the eager streams token
+    for token and the same launch counts; every verify step and mixed step
+    launches the mixed-attention kernel once a layer; a warmed engine
+    prepares no bucket while serving; the verify graphs' only output is
+    the (3, B, Qs) verdict."""
+    from repro_torch.serving import spec_quantum
+
+    got, launches, steps, sess = _serve_spec(True, spec_k, paged_kv=paged)
+    want, want_launches, want_steps, _ = _serve_spec(False, spec_k, paged_kv=paged)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert launches == want_launches and steps == want_steps
+    Qs = spec_quantum(spec_k)
+    assert steps and {q for q, _ in steps} == {Qs}
+    eng = sess.eng
+    tel = eng.telemetry
+    assert tel.spec_rounds > 0 and 0 < tel.accepted_tokens <= tel.drafted_tokens
+    mixed = "mixed_attention_paged" if paged else "mixed_attention"
+    assert launches[mixed] == _spec_model().cfg.n_layers * (tel.mixed_steps + len(steps))
+    # warmed: every bucket the pumps used was captured before them
+    windows = eng._windows(Qs)
+    assert eng.mixed_traces == len(eng._windows(eng.chunk_quantum(24))) + len(windows)
+    spec_graphs = {k: g for k, g in sess.st.graphs.items() if k[0] == "spec"}
+    assert sorted(k[2] for k in spec_graphs) == windows
+    for g in spec_graphs.values():
+        assert isinstance(g.outputs, torch.Tensor)
+        assert g.outputs.shape == (3, 3, Qs) and g.outputs.dtype == torch.int32
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_captured_spec_temperature_session_equals_eager(cuda, paged):
+    """A seeded temperature > 0 speculating session: the verify step's
+    draws come from the generator registered with its graph; captured and
+    eager give the same streams."""
+    got, _, steps, _ = _serve_spec(True, 4, paged_kv=paged, temperature=0.8, seed=11)
+    want, _, want_steps, _ = _serve_spec(False, 4, paged_kv=paged, temperature=0.8, seed=11)
+    assert steps == want_steps
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def _spec_calls(rng, B, Qs, P, nb, vocab):
+    """Three sets of verify inputs: lengths, new lengths (0 for an idle
+    slot, else 1 + drafts), the carries and drafts, block tables."""
+    calls = []
+    for _ in range(3):
+        new = np.where(rng.random(B) < 0.25, 0, rng.integers(1, Qs + 1, B))
+        calls.append((rng.integers(0, 200, B), new, rng.integers(0, vocab, (B, Qs)),
+                      rng.permutation(np.arange(1, P))[:B * nb].reshape(B, nb)))
+    return calls
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_spec_replay_reads_new_lengths_tables_and_drafts(cuda, paged):
+    """A verify step replayed after the lengths, tables and drafts change
+    equals the eager step at the new values, bit for bit; its graph's only
+    output is the verdict."""
+    from repro_torch.serving import EngineConfig, ServingEngine
+
+    model = _spec_model()
+    rng = np.random.default_rng(41)
+    B, Qs, aw = 3, 8, 256
+    ecfg = EngineConfig(max_len=256, decode_batch=B, spec_k=4, paged_kv=paged)
+    engines = [ServingEngine(model, ecfg, graphs=g) for g in (True, False)]
+    calls = _spec_calls(rng, B, Qs, engines[0].num_pages, engines[0].max_blocks,
+                        model.cfg.vocab_size)
+    outs = []
+    for eng in engines:
+        st, got = eng._session_state(), []
+        for lens, new, chunks, tables in calls:
+            zero = np.zeros(B)
+            st.stage(lens, new, zero, zero, tables)
+            st.chunk(Qs).fill(chunks)
+            got.append(eng._spec_call(st, Qs, aw).clone())
+        outs.append(got)
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert not torch.equal(outs[0][0], outs[0][1])
+    assert engines[0]._graphs.captured == 1
+    verdict = engines[0]._session_state().graphs[("spec", Qs, aw)].outputs
+    assert isinstance(verdict, torch.Tensor)
+    assert verdict.shape == (3, B, Qs) and verdict.dtype == torch.int32
+
+
+def test_spec_launches_after_replays_equal_eager(cuda):
+    """N replays of a verify step count N times its graph's launches, as N
+    eager calls do: one mixed-attention launch a layer a step."""
+    from repro_torch.serving import EngineConfig, ServingEngine
+
+    model = _spec_model()
+    B, Qs = 3, 16
+    counts = []
+    for graphs in (True, False):
+        eng = ServingEngine(model, EngineConfig(max_len=256, decode_batch=B, spec_k=8),
+                            graphs=graphs)
+        st = eng._session_state()
+        st.stage(np.array([5, 90, 0]), np.array([9, 16, 0]), np.zeros(B), np.zeros(B))
+        st.chunk(Qs).fill(np.random.default_rng(5).integers(0, 16, (B, Qs)))
+        kernel.reset_launches()
+        for _ in range(5):
+            eng._spec_call(st, Qs, 128)
+        torch.cuda.synchronize()
+        counts.append(dict(kernel.LAUNCHES))
+    assert counts[0] == counts[1]
+    assert counts[0]["mixed_attention"] == 5 * model.cfg.n_layers
