@@ -136,6 +136,27 @@ Phases (any failure exits non-zero; nothing is caught):
    path through the RMSNorm kernel; no mixed, paged or WKV6 kernel may
    launch. The rwkv6 model is freed first;
 4i. generate on zamba2-2.7b: B=8, prompt 512, 32 steps;
+4n. durable KV: phase 4's model, paged, mixed admission at a prefill
+   budget of 1024 (a q-chunk of 128 a slot, so that all 8 requests decode
+   at once): 8 requests, prompts 16..2000, 32 new tokens; after the pump
+   in which every slot decodes, ``extract_frontiers()`` (each frontier's
+   bytes, its extract timed whole and as the gather, the copy to the
+   host and the host cast), the longest injected into a second pool
+   (bit-equal below its frontier), the session killed; a fresh session
+   of the same engine (graphs captured first, none after) restores them
+   (each ``_admit_restored`` timed) and drains: every request its 32
+   tokens, starting with its frontier's, zero recomputed and zero
+   prefilled tokens, the recovered tokens the frontiers', zero live
+   pages, and only the paged split-K decode launched (layers x decode
+   steps); then each prompt's re-prefill on the same engine (a fresh
+   admission's pump: its mixed steps and one decode chunk), printed
+   beside its frontier;
+4o. durable state: 4n's checks for rwkv6-7b (after 4g) and zamba2-2.7b
+   (after 4i) on the model loaded, legacy admission: 2 requests (prompts
+   64 and 512, 32 new), their ``StateFrontier``s taken after one pump,
+   restored in a fresh session with no prefill kernel, every launch held
+   to ``expected_scan_launches`` of the restored decode steps; bytes,
+   extract, restore and re-prefill times printed;
 5. card vs CPU: the same kind of traffic at fp32 (full width, 4 layers,
    max_len 1024, prompts up to 900) on the card and on the CPU (plain
    versions); greedy streams must agree token for token, or each first
@@ -169,6 +190,17 @@ Phases (any failure exits non-zero; nothing is caught):
    streams (or near-ties), accepted > 0, the launches held as in 4l, and
    each captured run token-exact with its graphs=False twin with equal
    launch counts;
+5i. durable exactness in fp32: phase 5's 4-layer model (max_len 1024,
+   paged; mixed and legacy admission: 10 requests, prompts 16..120, 24 new
+   tokens, 8 slots) and 5d's and 5e's models (4 requests through 2 slots,
+   prompts 16..300, 16 new): frontiers taken after the first pump, the
+   session killed, every request resubmitted to a fresh session (with its
+   frontier where it has one); each restored card stream must equal the
+   uninterrupted card stream and the CPU's, which resumes the card's
+   frontiers alone (or near-ties under ``NEAR_TIE``, printed with their
+   margins); the kill and restore again with graphs=False must be
+   token-exact with equal launch counts; paged, every frontier injected
+   into a second pool is bit-equal below its frontier;
 6. timing: every kernel, its plain version and the one PyTorch call with
    the same result (scaled_dot_product_attention, used only as a
    yardstick; no one call reads a block table or computes the WKV6 or SSD
@@ -197,6 +229,7 @@ of the repository, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -1472,8 +1505,6 @@ def phase_serve_spec(name_line: str, model, *, paged: bool) -> dict:
     host's walk of it); CUDA events around each verify step give its
     device time.  The same traffic is then served with speculation off
     (``spec_off``: the decode chunk in place of the rounds)."""
-    import dataclasses
-
     from repro_torch.serving import EngineConfig
 
     cfg = model.cfg
@@ -1786,8 +1817,6 @@ def phase_spec_card_vs_cpu(small_cfg) -> dict:
     must equal spec off, and the CPU's speculating stream (near-ties under
     ``NEAR_TIE`` printed with their margins); accepted > 0; each captured
     run is held to its ``graphs=False`` twin (streams and launches)."""
-    import dataclasses
-
     from repro_torch.models import Model
     from repro_torch.serving import EngineConfig
 
@@ -1978,13 +2007,12 @@ def phase_generate_scan(name_line: str, model) -> dict:
                 capture=capture, card=name_line)
 
 
-def phase_scan_card_vs_cpu(cfg, n_layers: int) -> dict:
+def phase_scan_card_vs_cpu(cfg, n_layers: int) -> tuple:
     """Phases 5d (rwkv6-7b, 2 layers) and 5e (zamba2-2.7b, 12 layers: two
     shared applications): full width cut to ``n_layers``, fp32, on the card
     and on the CPU: 6 requests through a 2-slot session (slots reused);
-    then decode after prefill(300) against prefill(301) on the card."""
-    import dataclasses
-
+    then decode after prefill(300) against prefill(301) on the card.
+    Returns the summary and the CPU and card models (phase 5i's)."""
     from repro_torch.models import Model
     from repro_torch.serving import EngineConfig
 
@@ -2027,7 +2055,375 @@ def phase_scan_card_vs_cpu(cfg, n_layers: int) -> dict:
                 layers=small.n_layers, dtype=small.dtype, slots=ecfg.decode_batch,
                 prefills=tel.prefills, launches=launches,
                 card_wall_s=card_wall, cpu_wall_s=cpu_wall,
-                decode_vs_prefill_max_abs_err=err, eager=eager)
+                decode_vs_prefill_max_abs_err=err, eager=eager), cpu_model, card_model
+
+
+# --------------------------------------------------------------------------
+# phases 4n, 4o, 5i: durable KV (frontiers out of a session and back)
+# --------------------------------------------------------------------------
+
+# 4n's prefill budget: a q-chunk of 128 tokens a slot, so the 2000-token
+# prompt is ingested in 16 mixed steps, before the shortest request's 32
+# tokens are out, and all 8 requests decode at once when the session dies
+DURABLE_BUDGET = 1024
+
+
+def _sync_s(fn):
+    """(fn()'s result, its seconds on the host clock, the card drained
+    before and after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _timed_restores(session) -> dict:
+    """Time every ``_admit_restored`` call of ``session`` (the card drained
+    before and after): rid -> ms."""
+    admit, times = session._admit_restored, {}
+
+    def timed(s, rid, fr, max_new):
+        ok, sec = _sync_s(lambda: admit(s, rid, fr, max_new))
+        if ok:
+            times[rid] = sec * 1e3
+        return ok
+
+    session._admit_restored = timed
+    return times
+
+
+def extract_timed(session, rid: int) -> tuple:
+    """``extract_frontier(rid)`` timed whole, then its parts again on the
+    same pages or slot: the gather on the card, the copy to the host, the
+    host cast (bf16 to float32), each drained; the parts' result must equal
+    the frontier's payload bit for bit.  Returns (frontier, a row)."""
+    from repro_torch.serving import engine as engine_mod
+
+    fr, total = _sync_s(lambda: session.extract_frontier(rid))
+    if session.paged:
+        pages = session._slot_pages[session._slot_of[rid]][
+            :session.allocator.blocks_for(fr.tokens)]
+        payload = fr.pages_kv
+        gathered, gather = _sync_s(lambda: session.eng.gather_pages(session.cache, pages))
+    else:
+        s = int(np.nonzero(session.slots.request_id == rid)[0][0])
+        payload = fr.state
+        gathered, gather = _sync_s(lambda: [leaf[:, s:s + 1] for leaf in session.cache])
+    host, copy = _sync_s(lambda: engine_mod.to_host(gathered))
+    cast, host_cast = _sync_s(lambda: engine_mod.host_cast(host))
+    check(all(np.array_equal(a, b) for a, b in zip(cast, payload)),
+          f"extract {rid}: the timed parts differ from the frontier's payload")
+    row = dict(rid=rid, tokens=fr.tokens, generated=len(fr.generated),
+               device_bytes=sum(t.numel() * t.element_size() for t in gathered),
+               host_bytes=sum(a.nbytes for a in payload), extract_ms=total * 1e3,
+               gather_ms=gather * 1e3, copy_ms=copy * 1e3, host_cast_ms=host_cast * 1e3)
+    return fr, row
+
+
+def inject_roundtrip(session, fr, rid: int) -> int:
+    """A paged frontier injected into a second pool: its pages there must
+    be bit-equal to the session's below the frontier.  Returns the
+    positions compared."""
+    pages = session._slot_pages[session._slot_of[rid]][:session.allocator.blocks_for(fr.tokens)]
+    pool = session.eng.model.empty_page_pool(len(pages) + 1, fr.page_size)
+    session.eng._inject_pages(pool, fr.pages_kv, range(1, len(pages) + 1))
+    n = fr.tokens
+    for a, b in zip(session.cache, pool):
+        a = a[:, pages].flatten(1, 2)[:, :n]
+        b = b[:, 1:].flatten(1, 2)[:, :n]
+        check(torch.equal(a, b), f"inject round trip of request {rid} ({a.dtype}): not bit-equal "
+                                 f"below its frontier (max abs err {_err(a.float(), b.float()):.3e})")
+    return n
+
+
+def restore_checks(label, results, frontiers, max_new, reports, vocab) -> dict:
+    """Every restored request has its ``max_new`` tokens, starting with its
+    frontier's; no prefill was recomputed; the recovered tokens are the
+    frontiers' tokens (summed over the restored session's reports)."""
+    for rid, fr in frontiers.items():
+        toks = results[rid]
+        check(len(toks) == max_new, f"{label}: request {rid} got {len(toks)} tokens")
+        check(list(toks[:len(fr.generated)]) == list(fr.generated),
+              f"{label}: request {rid}'s stream does not start with its frontier's tokens")
+        check(bool(((toks >= 0) & (toks < vocab)).all()), f"{label}: out-of-vocab token")
+    recovered = sum(r.recovered_tokens for r in reports)
+    recomputed = sum(r.recomputed_prefill_tokens for r in reports)
+    want = sum(fr.tokens for fr in frontiers.values())
+    check(recomputed == 0, f"{label}: {recomputed} prefill tokens recomputed")
+    check(recovered == want, f"{label}: {recovered} tokens recovered, the frontiers hold {want}")
+    return dict(restored=len(frontiers), recovered_tokens=recovered,
+                recomputed_prefill_tokens=recomputed)
+
+
+def _pump_all(session) -> list:
+    reports = []
+    while not session.idle:
+        reports.append(session.pump())
+    return reports
+
+
+def _rewarm(engine) -> None:
+    """Capture the next session's graphs before it admits anything."""
+    if engine.graphs:
+        engine.warm_mixed_traces([engine.cfg.prefill_chunk])
+        engine.warm_decode()
+
+
+def phase_durable_kv(name_line: str, model) -> dict:
+    """Phase 4n: durable KV on full-width bf16 qwen3-0.6b, paged, mixed
+    admission (``EngineConfig(paged_kv=True, prefill_chunk=1024)``): 8
+    requests, prompts 16..2000, 32 new tokens; after the pump in which
+    every slot decodes, ``extract_frontiers()`` (each timed: the gather,
+    the copy, the host cast), one frontier injected into a second pool
+    (bit-equal below its frontier), the session killed (every request
+    cancelled); a fresh session of the same engine, its graphs captured
+    first, takes them with ``frontier=`` (each ``_admit_restored`` timed)
+    and drains: every request its 32 tokens starting with its frontier's,
+    zero prefill, the recovered tokens the frontiers', zero live pages, and
+    only the paged split-K decode launched (layers x decode steps).  Then
+    each prompt alone on the drained session: its re-prefill (the mixed
+    steps and one decode chunk, to the first token)."""
+    from repro_torch.serving import EngineConfig
+
+    cfg = model.cfg
+    ecfg = EngineConfig(paged_kv=True, prefill_chunk=DURABLE_BUDGET)
+    label = "durable kv"
+    engine = make_engine_class()(model, ecfg, device=model.device)
+    capture = warm_graphs(engine, label)
+    prompts = prompts_for(np.random.default_rng(9), 8, 16, 2000, cfg.vocab_size)
+    max_new = 32
+    reset_launches()
+    first = engine.new_session()
+    for rid, p in enumerate(prompts):
+        first.submit(rid, p[None], max_new)
+    pumps = 0
+    while not (first.slots.request_id >= 0).all():
+        first.pump()
+        pumps += 1
+        check(not first.results and pumps <= 4, f"{label}: {len(first.results)} requests "
+              f"completed, {pumps} pumps, before every slot decoded")
+    frontiers, rows = {}, []
+    for rid in sorted(first.decoding_lens()):
+        frontiers[rid], row = extract_timed(first, rid)
+        rows.append(row)
+    check(sorted(frontiers) == list(range(len(prompts))), f"{label}: frontiers {sorted(frontiers)}")
+    longest = max(frontiers, key=lambda r: frontiers[r].tokens)
+    compared = inject_roundtrip(first, frontiers[longest], longest)
+    for rid in frontiers:
+        first.cancel(rid)
+    check(first.allocator.live_pages == 0, f"{label}: the killed session holds pages")
+    launches_first = read_launches()
+    del first
+    free_memory()
+
+    _rewarm(engine)
+    captured = engine._graphs.captured if engine.graphs else 0
+    tel0 = dataclasses.asdict(engine.telemetry)
+    reset_launches()
+    second = engine.new_session()
+    admit_ms = _timed_restores(second)
+    for rid, p in enumerate(prompts):
+        second.submit(rid, p[None], max_new, frontier=frontiers[rid])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reports = _pump_all(second)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    tel = {k: v - tel0[k] for k, v in dataclasses.asdict(engine.telemetry).items()}
+    out = restore_checks(label, second.results, frontiers, max_new, reports, cfg.vocab_size)
+    check(int(engine.nonfinite) == 0, f"{label}: {int(engine.nonfinite)} non-finite logits")
+    check(tel["recomputed_prefill_tokens"] == 0 and tel["prefilled_tokens"] == 0
+          and tel["prefills"] == 0 and tel["recovered_tokens"] == out["recovered_tokens"],
+          f"{label}: telemetry of the restored session {tel}")
+    check(second.allocator.live_pages == 0,
+          f"{label}: {second.allocator.live_pages} pages still live after the drain")
+    check(not engine.graphs or engine._graphs.captured == captured,
+          f"{label}: the restored session captured a graph")
+    steps = tel["chunks"] * ecfg.decode_chunk
+    split = "decode_attention_paged_splitk"
+    for k_, n in launches.items():
+        check(n == (cfg.n_layers * steps if k_ == split else 0),
+              f"{label}: restored run launched {k_} {n} times ({steps} decode steps)")
+
+    # each prompt's re-prefill on the same engine: a fresh admission's pump
+    # on the drained session (its pool published none of these prompts)
+    for row, p in zip(rows, prompts):
+        second.submit(100 + row["rid"], p[None], 1)
+        reps, sec = _sync_s(lambda: _pump_all(second))
+        check(sum(r.prefix_misses for r in reps) == 1, f"{label}: re-prefill hit the cache")
+        row.update(reprefill_ms=sec * 1e3, reprefill_mixed_steps=sum(r.mixed_steps for r in reps),
+                   admit_restored_ms=admit_ms[row["rid"]])
+        print(f"  {label} frontier: " + json.dumps(row), flush=True)
+    del second
+    free_memory()
+    for k_, n in launches_first.items():
+        launches[k_] += n
+    return dict(out, requests=len(prompts), layers=cfg.n_layers, dtype=cfg.dtype,
+                max_new=max_new, prefill_chunk=ecfg.prefill_chunk, pumps_before_kill=pumps,
+                frontiers=rows, frontier_device_gb=sum(r["device_bytes"] for r in rows) / 1e9,
+                frontier_host_gb=sum(r["host_bytes"] for r in rows) / 1e9,
+                roundtrip_positions=compared, restored_wall_s=wall,
+                restored_decode_steps=steps, launches=launches, capture=capture, card=name_line)
+
+
+def phase_durable_scan(name_line: str, model) -> dict:
+    """Phase 4o: scan-state frontiers on the full-width bf16 model already
+    loaded (rwkv6-7b after 4g, zamba2-2.7b after 4i), default EngineConfig
+    (legacy admission): 2 requests (prompts 64 and 512, 32 new tokens),
+    their ``StateFrontier``s taken after the first pump (each timed, as in
+    4n), the session killed, a fresh session (decode chunk captured first)
+    restores them (each timed) and drains: 32 tokens each starting with the
+    frontier's, zero prefill and no prefill kernel, every launch held to
+    ``expected_scan_launches`` of its decode steps.  Then each prompt's
+    re-prefill on the drained session (a fresh admission's pump: one
+    prefill and one decode chunk)."""
+    from repro_torch.serving import EngineConfig
+
+    cfg = model.cfg
+    ecfg = EngineConfig()
+    label = f"durable state {cfg.name}"
+    engine = make_engine_class()(model, ecfg, device=model.device)
+    capture = warm_graphs(engine, label)
+    prompts = prompts_for(np.random.default_rng(10), 2, 64, 512, cfg.vocab_size)
+    max_new = 32
+    reset_launches()
+    first = engine.new_session()
+    for rid, p in enumerate(prompts):
+        first.submit(rid, p[None], max_new)
+    first.pump()
+    check(sorted(first.decoding_lens()) == list(range(len(prompts))),
+          f"{label}: not every request decodes after the first pump")
+    frontiers, rows = {}, []
+    for rid in range(len(prompts)):
+        frontiers[rid], row = extract_timed(first, rid)
+        rows.append(row)
+    for rid in frontiers:
+        first.cancel(rid)
+    launches_first = read_launches()
+    del first
+    free_memory()
+
+    _rewarm(engine)
+    tel0 = dataclasses.asdict(engine.telemetry)
+    reset_launches()
+    second = engine.new_session()
+    admit_ms = _timed_restores(second)
+    for rid, p in enumerate(prompts):
+        second.submit(rid, p[None], max_new, frontier=frontiers[rid])
+    reports = _pump_all(second)
+    launches = read_launches()
+    tel = {k: v - tel0[k] for k, v in dataclasses.asdict(engine.telemetry).items()}
+    out = restore_checks(label, second.results, frontiers, max_new, reports, cfg.vocab_size)
+    check(int(engine.nonfinite) == 0, f"{label}: {int(engine.nonfinite)} non-finite logits")
+    check(tel["prefills"] == 0, f"{label}: {tel['prefills']} prefills in the restored session")
+    steps = tel["chunks"] * ecfg.decode_chunk
+    check_launches(launches, expected_scan_launches(cfg, 0, steps, ecfg.max_len), label)
+
+    # each prompt's re-prefill on the drained session: a fresh admission's pump
+    for row, p in zip(rows, prompts):
+        second.submit(100 + row["rid"], p[None], 1)
+        _, sec = _sync_s(lambda: _pump_all(second))
+        row.update(reprefill_ms=sec * 1e3, admit_restored_ms=admit_ms[row["rid"]])
+        print(f"  {label} frontier: " + json.dumps(row), flush=True)
+    del second
+    free_memory()
+    for k_, n in launches_first.items():
+        launches[k_] = launches.get(k_, 0) + n
+    return dict(out, requests=len(prompts), layers=cfg.n_layers, dtype=cfg.dtype,
+                max_new=max_new, frontiers=rows,
+                frontier_host_gb=sum(r["host_bytes"] for r in rows) / 1e9,
+                restored_decode_steps=steps, launches=launches, capture=capture, card=name_line)
+
+
+def kill_and_restore(model, ecfg, prompts, max_new, device, *, graphs=None, frontiers=None,
+                     roundtrip=False) -> dict:
+    """Serve ``prompts`` on a session of a fresh engine, take every decoding
+    request's frontier after the first pump (``roundtrip``: each injected
+    into a second pool, bit-equal below its frontier) and cancel them all;
+    then a fresh session (graphs captured first) takes every request again,
+    with its frontier where it has one, and drains.  With ``frontiers``
+    (another run's), the first session is skipped and only those requests
+    are restored.  Returns the streams by rid; launches are counted over
+    both sessions, warming excluded."""
+    engine = make_engine_class()(model, ecfg, device=device, graphs=graphs)
+    launches = dict.fromkeys(read_launches(), 0)
+    only_restored = frontiers is not None
+    if frontiers is None:
+        reset_launches()
+        first = engine.new_session()
+        for rid, p in enumerate(prompts):
+            first.submit(rid, p[None], max_new)
+        first.pump()
+        frontiers = dict(first.extract_frontiers())
+        if roundtrip:
+            for rid, fr in frontiers.items():
+                inject_roundtrip(first, fr, rid)
+        for rid in range(len(prompts)):
+            first.cancel(rid)
+        launches = read_launches()
+        del first
+    _rewarm(engine)
+    reset_launches()
+    sess = engine.new_session()
+    rids = sorted(frontiers) if only_restored else range(len(prompts))
+    for rid in rids:
+        sess.submit(rid, prompts[rid][None], max_new, frontier=frontiers.get(rid))
+    reports = _pump_all(sess)
+    for k_, n in read_launches().items():
+        launches[k_] += n
+    out = restore_checks(f"kill-and-restore on {device}", sess.results, frontiers, max_new,
+                         reports, model.cfg.vocab_size)
+    check(int(engine.nonfinite) == 0, f"kill-and-restore: {int(engine.nonfinite)} non-finite")
+    if sess.paged:
+        check(sess.allocator.live_pages == 0, "kill-and-restore: pages live after the drain")
+    return dict(out, streams=sess.results, frontiers=frontiers, launches=launches)
+
+
+def durable_exact(label: str, card_model, cpu_model, ecfg, prompts, max_new) -> dict:
+    """One run of phase 5i: the uninterrupted card streams; a kill and
+    restore on the card captured (inject round trips checked) and again
+    with ``graphs=False`` (token-exact, launches equal); the card's
+    frontiers restored on the CPU (those requests alone).  Each restored
+    card stream must equal the uninterrupted one and the CPU's (or
+    near-ties); every card stream the eager run's."""
+    card, cpu = torch.device("cuda"), torch.device("cpu")
+    walls = {}
+    t0 = time.perf_counter()
+    handles, _, eng = serve(card_model, ecfg, prompts, max_new, card, label=label)
+    check_handles(handles, eng, max_new, card_model.cfg.vocab_size, label)
+    plain = [h.result() for h in handles]
+    free_memory()
+    walls["uninterrupted_s"] = time.perf_counter() - t0
+    cap, walls["captured_s"] = _sync_s(lambda: kill_and_restore(
+        card_model, ecfg, prompts, max_new, card, roundtrip=ecfg.paged_kv))
+    eager, walls["eager_s"] = _sync_s(lambda: kill_and_restore(
+        card_model, ecfg, prompts, max_new, card, graphs=False))
+    check(all(np.array_equal(cap["streams"][r], eager["streams"][r]) for r in range(len(prompts))),
+          f"{label}: captured and eager restored streams differ")
+    check(cap["launches"] == eager["launches"],
+          f"{label}: launches captured {cap['launches']} differ from eager {eager['launches']}")
+    t0 = time.perf_counter()
+    on_cpu = kill_and_restore(cpu_model, ecfg, prompts, max_new, cpu,
+                              frontiers=cap["frontiers"])
+    walls["cpu_s"] = time.perf_counter() - t0
+    rids = sorted(cap["frontiers"])
+    restored = [prompts[r] for r in rids]
+    card_streams = [cap["streams"][r] for r in rids]
+    exact, ties = compare_streams(restored, card_streams, [plain[r] for r in rids], card_model,
+                                  card_model, ("restored", "uninterrupted"))
+    exact_cpu, ties_cpu = compare_streams(restored, card_streams,
+                                          [on_cpu["streams"][r] for r in rids], card_model,
+                                          cpu_model, ("card", "cpu"))
+    free_memory()
+    return dict(requests=len(prompts), restored=cap["restored"], restored_rids=rids,
+                recovered_tokens=cap["recovered_tokens"],
+                roundtrip_bit_equal=bool(ecfg.paged_kv),
+                exact_vs_uninterrupted=exact, near_ties_vs_uninterrupted=ties,
+                exact_vs_cpu=exact_cpu, near_ties_vs_cpu=ties_cpu,
+                eager=dict(exact_streams=len(prompts), launches_equal=True),
+                launches=cap["launches"], **walls)
 
 
 # --------------------------------------------------------------------------
@@ -2578,24 +2974,26 @@ REPLACES = {
     "wkv6": "src/repro/kernels/rwkv6_scan/kernel.py:75",
 }
 # the main-path runs whose launches each kernel reports
-ZAMBA2_PHASES = ("serve_zamba2", "generate_zamba2")
+ZAMBA2_PHASES = ("serve_zamba2", "generate_zamba2", "durable_zamba2")
 LAUNCH_PHASES = {
     "flash_attention": ("serve_legacy", "serve_legacy_paged", "generate") + ZAMBA2_PHASES,
-    "decode_attention": ("serve_single", "card_vs_cpu", "zamba2_card_vs_cpu"),
+    "decode_attention": ("serve_single", "card_vs_cpu", "zamba2_card_vs_cpu",
+                         "durable_exact_zamba2"),
     "decode_attention_splitk": ("serve",) + ZAMBA2_PHASES,
     "mixed_attention": ("serve", "serve_single", "serve_spec"),
-    "decode_attention_paged": ("serve_single_paged", "card_vs_cpu_paged"),
-    "decode_attention_paged_splitk": ("serve_paged",),
+    "decode_attention_paged": ("serve_single_paged", "card_vs_cpu_paged", "durable_exact_mixed",
+                               "durable_exact_legacy"),
+    "decode_attention_paged_splitk": ("serve_paged", "durable_kv"),
     "mixed_attention_paged": ("serve_paged", "serve_legacy_paged", "serve_single_paged",
-                              "serve_spec_paged"),
-    "wkv6": ("serve_rwkv", "generate_rwkv"),
+                              "serve_spec_paged", "durable_kv"),
+    "wkv6": ("serve_rwkv", "generate_rwkv", "durable_rwkv"),
     "ssd": ZAMBA2_PHASES,
     "rmsnorm": ZAMBA2_PHASES,
     "rmsnorm_fused": ZAMBA2_PHASES,
 }
 # the fp32 phases whose launches each fp32 route reports: by kernel row,
 # (the run, the counter read) for phases 5, 5b, 5c (its legacy runs and its
-# card generate), 5d, 5e and 5h (its speculating runs)
+# card generate), 5d, 5e, 5h (its speculating runs) and 5i
 _VS = ("legacy_vs_mixed",)
 _SPEC = tuple(("spec_card_vs_cpu", f"{layout}_k{k}") for layout in ("contiguous", "paged")
               for k in (1, 4, 8))
@@ -2603,16 +3001,18 @@ FP32_PHASES = {
     "mixed_attention": ((("card_vs_cpu",), "mixed_attention"),)
     + tuple((run, "mixed_attention") for run in _SPEC if run[1].startswith("contiguous")),
     "mixed_attention_paged": ((("card_vs_cpu_paged",), "mixed_attention_paged"),
-                              (_VS + ("paged",), "mixed_attention_paged"))
+                              (_VS + ("paged",), "mixed_attention_paged"),
+                              (("durable_exact_mixed",), "mixed_attention_paged"))
     + tuple((run, "mixed_attention_paged") for run in _SPEC if run[1].startswith("paged")),
     "decode_attention_splitk": tuple(
         ((ph,), name) for ph in ("card_vs_cpu", "card_vs_cpu_paged", "zamba2_card_vs_cpu")
         for name in ("decode_attention_splitk", "decode_attention_paged_splitk")),
     "flash_attention": tuple((_VS + (key,), "flash_attention")
                              for key in ("contiguous", "paged", "generate"))
-    + ((("zamba2_card_vs_cpu",), "flash_attention"),),
-    "wkv6": ((("rwkv_card_vs_cpu",), "wkv6"),),
-    "ssd": ((("zamba2_card_vs_cpu",), "ssd"),),
+    + tuple(((ph,), "flash_attention")
+            for ph in ("zamba2_card_vs_cpu", "durable_exact_legacy", "durable_exact_zamba2")),
+    "wkv6": tuple(((ph,), "wkv6") for ph in ("rwkv_card_vs_cpu", "durable_exact_rwkv")),
+    "ssd": tuple(((ph,), "ssd") for ph in ("zamba2_card_vs_cpu", "durable_exact_zamba2")),
 }
 
 
@@ -2634,8 +3034,6 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    import dataclasses
-
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import kernel
@@ -2644,6 +3042,7 @@ def main() -> int:
     from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.models import Model
+    from repro_torch.serving import EngineConfig
 
     kernel_mods = (kernel, flash_kernel, wkv_kernel, ssd_kernel, norm_kernel)
     t_start = time.perf_counter()
@@ -2733,6 +3132,14 @@ def main() -> int:
               f"{SPEC_K}, {'paged' if paged else 'contiguous'}) in "
               f"{time.perf_counter() - t0:.1f} s on {name_line}: " + json.dumps(runs[key]),
               flush=True)
+    t0 = time.perf_counter()
+    runs["durable_kv"] = phase_durable_kv(name_line, model)
+    free_memory()
+    durable_s = time.perf_counter() - t0
+    print(f"[4n/6] durable KV on full-width qwen3-0.6b (paged, mixed admission): 8 frontiers "
+          f"out, the session killed, restored with zero prefill, in "
+          f"{time.perf_counter() - t0:.1f} s on {name_line}: " + json.dumps(runs["durable_kv"]),
+          flush=True)
     del model
     free_memory()
 
@@ -2751,6 +3158,12 @@ def main() -> int:
     runs["generate_rwkv"] = phase_generate_scan(name_line, model)
     print(f"[4g/6] generate on rwkv6-7b in {time.perf_counter() - t0:.1f} s: "
           + json.dumps(runs["generate_rwkv"]), flush=True)
+    t0 = time.perf_counter()
+    runs["durable_rwkv"] = phase_durable_scan(name_line, model)
+    durable_s += time.perf_counter() - t0
+    print(f"[4o/6] durable state on rwkv6-7b: 2 frontiers out and restored with zero prefill in "
+          f"{time.perf_counter() - t0:.1f} s on {name_line}: " + json.dumps(runs["durable_rwkv"]),
+          flush=True)
     del model
     free_memory()
 
@@ -2769,6 +3182,12 @@ def main() -> int:
     runs["generate_zamba2"] = phase_generate_scan(name_line, model)
     print(f"[4i/6] generate on zamba2-2.7b in {time.perf_counter() - t0:.1f} s: "
           + json.dumps(runs["generate_zamba2"]), flush=True)
+    t0 = time.perf_counter()
+    runs["durable_zamba2"] = phase_durable_scan(name_line, model)
+    durable_s += time.perf_counter() - t0
+    print(f"[4o/6] durable state on zamba2-2.7b: 2 frontiers out and restored with zero prefill "
+          f"in {time.perf_counter() - t0:.1f} s on {name_line}: "
+          + json.dumps(runs["durable_zamba2"]), flush=True)
     del model
     free_memory()
 
@@ -2800,19 +3219,39 @@ def main() -> int:
     print(f"[5h/6] speculative fp32 streams (vocab 16, spec_k 1/4/8, both layouts) equal spec "
           f"off and the CPU, captured equal eager, in {time.perf_counter() - t0:.1f} s: "
           + json.dumps(runs["spec_card_vs_cpu"]), flush=True)
+    prompts = prompts_for(np.random.default_rng(11), 10, 16, 120, small.vocab_size)
+    for key, legacy in (("durable_exact_mixed", False), ("durable_exact_legacy", True)):
+        t0 = time.perf_counter()
+        what = "legacy" if legacy else "mixed"
+        runs[key] = durable_exact(f"durable 5i {what}", card_model, cpu_model,
+                                  EngineConfig(max_len=1024, paged_kv=True, mixed_step=not legacy),
+                                  prompts, 24)
+        durable_s += time.perf_counter() - t0
+        print(f"[5i/6] restored fp32 streams, 4-layer qwen3 paged ({what} admission), equal the "
+              f"uninterrupted ones and the CPU's, captured equal eager, in "
+              f"{time.perf_counter() - t0:.1f} s: " + json.dumps(runs[key]), flush=True)
     del cpu_model, card_model
     free_memory()
-    t0 = time.perf_counter()
-    runs["rwkv_card_vs_cpu"] = phase_scan_card_vs_cpu(rcfg, 2)
-    free_memory()
-    print(f"[5d/6] rwkv6-7b card vs cpu (2 layers, fp32, 2 slots) in "
-          f"{time.perf_counter() - t0:.1f} s: " + json.dumps(runs["rwkv_card_vs_cpu"]), flush=True)
-    t0 = time.perf_counter()
-    runs["zamba2_card_vs_cpu"] = phase_scan_card_vs_cpu(zcfg, 12)
-    free_memory()
-    print(f"[5e/6] zamba2-2.7b card vs cpu (12 layers, fp32, 2 slots) in "
-          f"{time.perf_counter() - t0:.1f} s: " + json.dumps(runs["zamba2_card_vs_cpu"]),
-          flush=True)
+    for key, tag, zcfg_, n_layers in (("rwkv", "5d", rcfg, 2), ("zamba2", "5e", zcfg, 12)):
+        t0 = time.perf_counter()
+        runs[f"{key}_card_vs_cpu"], cpu_model, card_model = phase_scan_card_vs_cpu(zcfg_, n_layers)
+        free_memory()
+        print(f"[{tag}/6] {zcfg_.name} card vs cpu ({n_layers} layers, fp32, 2 slots) in "
+              f"{time.perf_counter() - t0:.1f} s: " + json.dumps(runs[f"{key}_card_vs_cpu"]),
+              flush=True)
+        t0 = time.perf_counter()
+        prompts = prompts_for(np.random.default_rng(12), 4, 16, 300, zcfg_.vocab_size)
+        runs[f"durable_exact_{key}"] = durable_exact(
+            f"durable 5i {key}", card_model, cpu_model, EngineConfig(max_len=512, decode_batch=2),
+            prompts, 16)
+        durable_s += time.perf_counter() - t0
+        print(f"[5i/6] restored fp32 streams, {n_layers}-layer {zcfg_.name} (scan state), equal "
+              f"the uninterrupted ones and the CPU's, captured equal eager, in "
+              f"{time.perf_counter() - t0:.1f} s: " + json.dumps(runs[f"durable_exact_{key}"]),
+              flush=True)
+        del cpu_model, card_model
+        free_memory()
+
     lvm = runs["legacy_vs_mixed"]
     eager = {"5": runs["card_vs_cpu"]["eager"], "5b": runs["card_vs_cpu_paged"]["eager"],
              "5c contiguous": lvm["contiguous"]["eager"], "5c paged": lvm["paged"]["eager"],
@@ -2844,6 +3283,7 @@ def main() -> int:
             **{k: v for k, v in t.items()
                if k.startswith("phase_") or k in ("ms_by_cols", "ms_by_rows", "ms_by_cluster",
                                                   "cluster", "bf16", "partial_ms", "q16")}))
+    print(f"durable KV phases (4n, 4o, 5i): {durable_s:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(name_line)
     print(json.dumps({"kernels": rows}))

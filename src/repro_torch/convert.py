@@ -11,24 +11,40 @@ names and dtypes (``ln_x_w``/``ln_x_b`` stay fp32) with no fusion: each of
 r, k, v, w and g projects its own mixed input.  So do a Mamba-2 layer's
 (``A_log``, ``D`` and ``dt_bias`` stay fp32); the hybrid's one ``shared``
 block is fused as a dense layer is.  An untied ``lm_head`` is kept.
+
+``frontier_fields`` and ``frontier_from_fields`` carry durable-KV
+frontiers across, the counterpart of ``params_from_jax`` for state: a
+``KVFrontier`` or ``StateFrontier`` of either package becomes plain fields
+and numpy leaves (its payload NamedTuple's ``_asdict()``; bf16 leaves as
+float32, which is exact) and back, by duck typing.  The two packages' cache
+NamedTuples have the same field names and layouts (``DecoderKVCache(k,
+v)``, ``RWKVLayerCache(state, shift_att, shift_ffn)``, ``Zamba2Cache(conv,
+state, attn_k, attn_v)``), so a frontier taken from one package's session
+resumes in the other's.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, layers, mamba2, rwkv6
+from repro_torch.models import attention, layers, mamba2, model, rwkv6, zamba2
+from repro_torch.serving.backends import StateFrontier
+from repro_torch.serving.paged_kv import KVFrontier
 
 
-def _t(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+def _host(a) -> np.ndarray:
     # numpy has no bfloat16: go through fp32, which holds bf16 values exactly
     arr = np.asarray(a)
     if arr.dtype.kind == "V" or arr.dtype.name == "bfloat16":
         arr = arr.astype(np.float32)
-    return torch.tensor(arr).to(dtype)
+    return arr
+
+
+def _t(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    return torch.tensor(_host(a)).to(dtype)
 
 
 def params_from_jax(tree: Mapping, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
@@ -77,3 +93,34 @@ def _decoder_layer(state: Dict[str, torch.Tensor], pre: str, lay: Mapping, at: M
             leaf(at, "q_norm"), leaf(at, "k_norm"), cfg.n_heads, cfg.n_kv_heads).contiguous()
     state[pre + "w_gu"] = layers.fuse_gate_up_weights(leaf(mlp, "w_gate"), leaf(mlp, "w_up"))
     state[pre + "w_down"] = leaf(mlp, "w_down")
+
+
+def frontier_fields(fr) -> Dict[str, Any]:
+    """A ``KVFrontier`` (``pages_kv``) or ``StateFrontier`` (``state``) of
+    either package as plain fields: ``kind`` ("kv" or "state"), the token
+    fields as ints, ``page_size``, and ``leaves``, the payload's
+    ``_asdict()`` as numpy arrays (bf16 as float32)."""
+    kind = "kv" if hasattr(fr, "pages_kv") else "state"
+    payload = fr.pages_kv if kind == "kv" else fr.state
+    return dict(kind=kind, prompt=tuple(int(t) for t in fr.prompt),
+                generated=tuple(int(t) for t in fr.generated), carry_tok=int(fr.carry_tok),
+                page_size=int(fr.page_size),
+                leaves={name: np.array(_host(leaf)) for name, leaf in payload._asdict().items()})
+
+
+def frontier_from_fields(fields: Mapping[str, Any], frontier_cls: Optional[type] = None,
+                         payload_cls: Optional[type] = None):
+    """``frontier_fields``' output back into a frontier: by default the
+    port's (``KVFrontier`` or ``StateFrontier`` by ``kind``, the payload
+    NamedTuple by its field names); pass another package's frontier class
+    and cache NamedTuple to build its frontier instead."""
+    leaves = fields["leaves"]
+    if payload_cls is None:
+        payload_cls = next(c for c in (model.DecoderKVCache, rwkv6.RWKVLayerCache,
+                                       zamba2.Zamba2Cache) if set(c._fields) == set(leaves))
+    payload = payload_cls(**leaves)
+    tokens = dict(prompt=tuple(fields["prompt"]), generated=tuple(fields["generated"]),
+                  carry_tok=int(fields["carry_tok"]), page_size=int(fields["page_size"]))
+    if fields["kind"] == "kv":
+        return (frontier_cls or KVFrontier)(pages_kv=payload, **tokens)
+    return (frontier_cls or StateFrontier)(state=payload, **tokens)

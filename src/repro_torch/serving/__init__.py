@@ -4,6 +4,7 @@ from repro_torch.serving.api import (  # noqa: F401
     RequestHandle,
     RequestStatus,
 )
+from repro_torch.serving.backends import CacheBackend, StateFrontier  # noqa: F401
 from repro_torch.serving.engine import (  # noqa: F401
     DecodeSlots,
     EngineConfig,
@@ -12,6 +13,7 @@ from repro_torch.serving.engine import (  # noqa: F401
     QueueSession,
     ServingEngine,
 )
+from repro_torch.serving.paged_kv import BlockAllocator, KVFrontier  # noqa: F401
 from repro_torch.serving.spec import (  # noqa: F401
     Drafter,
     NgramDrafter,

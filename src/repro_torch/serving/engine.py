@@ -80,8 +80,23 @@ Differences from the JAX engine, and why:
   it from the last verdict), so the round stages no slot as reading
   ``StepState.tok``; the carry is copied back into it after the rounds.
 
-Not ported yet: durable-KV frontiers, the scan-state ``StateFrontier``
-included (ROADMAP §1 item 8).
+Durable KV: a decoding request leaves a paged session as a
+``paged_kv.KVFrontier`` (its tokens, its carried token and a host copy of
+its pages) and a scan-state session as a ``backends.StateFrontier`` (a
+host copy of its slot's leaves); ``submit(frontier=...)`` in a fresh
+session injects it and the request decodes on with no prefill, under
+either admission.  Where this differs from the JAX session, and why:
+
+* ``extract_pages`` gathers exactly the frontier's pages; JAX pads the
+  gather (and ``_admit_restored`` the inject) to a power-of-two page count
+  with the trash page, because ``jit`` traces once per index length.
+* The payload is numpy on the host, a bf16 leaf held as float32 (the card's
+  machine has no ``ml_dtypes``; bf16 -> float32 is exact), cast back to the
+  pool's dtype on restore, so a round trip is bit-exact.
+* A restore writes the session's cache in place (``_inject_pages``,
+  ``_restore_slot``), where JAX rebinds it: the captured graphs read the
+  cache at fixed addresses.  Lengths, tables and the carried token reach
+  the steps only through the host mirrors and ``StepState.tok``.
 """
 from __future__ import annotations
 
@@ -96,7 +111,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
-from repro_torch.serving.paged_kv import TRASH_PAGE, BlockAllocator
+from repro_torch.serving.backends import StateFrontier
+from repro_torch.serving.paged_kv import TRASH_PAGE, BlockAllocator, KVFrontier
 from repro_torch.serving.spec import (
     Drafter,
     NgramDrafter,
@@ -130,9 +146,8 @@ class EngineConfig:
 
 @dataclass
 class EngineTelemetry:
-    """Measured engine-side counters (the JAX engine's, minus the
-    recovery ones this path never moves, plus the host seconds of the
-    speculative rounds and their drafting)."""
+    """Measured engine-side counters (the JAX engine's, plus the host
+    seconds of the speculative rounds and their drafting)."""
 
     prefills: int = 0                # prompts ingested to completion
     prefill_chunks: int = 0          # prompt chunks dispatched
@@ -147,6 +162,9 @@ class EngineTelemetry:
     prefix_misses: int = 0
     reused_tokens: int = 0           # prompt tokens served from cached pages
     prefilled_tokens: int = 0        # prompt tokens run through the model
+    # durable-KV recovery (zero when no frontier is restored)
+    recovered_tokens: int = 0        # tokens resumed from injected frontiers
+    recomputed_prefill_tokens: int = 0  # prompt tokens of retries run through the model
     # speculative decoding (zero when spec_k is 0): only accepted drafts
     # count toward useful_tokens; a rejected draft is wasted
     drafted_tokens: int = 0          # draft tokens dispatched for verification
@@ -172,6 +190,17 @@ class EngineTelemetry:
     def cache_hit_rate(self) -> float:
         total = self.prefix_hits + self.prefix_misses
         return self.prefix_hits / total if total else 0.0
+
+
+def to_host(leaves) -> List[torch.Tensor]:
+    """Device leaves copied to host memory (a copy on the CPU too, so the
+    result never aliases a live cache)."""
+    return [t.to("cpu", copy=True) for t in leaves]
+
+
+def host_cast(leaves) -> List[np.ndarray]:
+    """Host tensors as numpy: bf16 as float32 (exact), others as they are."""
+    return [(t.float() if t.dtype == torch.bfloat16 else t).numpy() for t in leaves]
 
 
 @contextlib.contextmanager
@@ -493,6 +522,44 @@ class ServingEngine:
         pool.k[:, dst] = pool.k[:, src]
         pool.v[:, dst] = pool.v[:, src]
 
+    # -- durable-KV frontiers ----------------------------------------------------
+    def gather_pages(self, pool, pages) -> List[torch.Tensor]:
+        """``pages`` of every pool leaf, gathered on the device: one gather
+        per leaf, (L, nb, ps, Hkv, Dh).  The pool is untouched."""
+        idx = torch.as_tensor(list(pages), dtype=torch.long, device=self.device)
+        return [buf[:, idx] for buf in pool]
+
+    def extract_pages(self, pool, pages):
+        """The ``KVFrontier`` payload: ``pages`` of the pool as host numpy
+        leaves (L, nb, ps, Hkv, Dh) in the pool's NamedTuple, gathered on
+        the device, copied to the host, then cast there (bf16 to float32)."""
+        return type(pool)(*host_cast(to_host(self.gather_pages(pool, pages))))
+
+    def _device_leaf(self, leaf, buf: torch.Tensor, n: int) -> torch.Tensor:
+        """A frontier's host leaf on the device in ``buf``'s dtype; raises
+        unless it is ``buf``'s shape with ``n`` along axis 1 (pages, or the
+        batch axis of a slot)."""
+        src = torch.as_tensor(np.asarray(leaf))
+        want = (buf.shape[0], n) + tuple(buf.shape[2:])
+        if tuple(src.shape) != want:
+            raise ValueError(f"frontier leaf of shape {tuple(src.shape)} does not fit {want} "
+                             f"of the cache leaf {tuple(buf.shape)}")
+        return src.to(self.device).to(buf.dtype)
+
+    def _inject_pages(self, pool, kv, pages) -> None:
+        """The inverse of ``extract_pages``: each host leaf (L, nb, ps, Hkv,
+        Dh) goes to the device, is cast to the pool's dtype and written into
+        ``pages`` in place, so graphs captured on the pool read it."""
+        idx = torch.as_tensor(list(pages), dtype=torch.long, device=self.device)
+        for buf, leaf in zip(pool, kv, strict=True):
+            buf[:, idx] = self._device_leaf(leaf, buf, len(idx))
+
+    def _restore_slot(self, cache, state, slot: int) -> None:
+        """Write a ``StateFrontier``'s host leaves (batch axis 1) into slot
+        ``slot`` of the cache, in place, cast to each leaf's dtype."""
+        self._place_slot(cache, [self._device_leaf(leaf, buf, 1)
+                                 for buf, leaf in zip(cache, state, strict=True)], slot)
+
     def chunk_quantum(self, token_budget: int) -> int:
         """The fixed q-chunk width a budget implies: pow2(budget / slots)."""
         per_slot = max(1, int(token_budget) // max(1, self.cfg.decode_batch))
@@ -525,6 +592,9 @@ class PumpReport:
     prefilled_tokens: int = 0         # prompt tokens run through the model
     page_occupancy: float = 0.0       # live fraction of the page pool
     cached_pages: int = 0             # reusable (refcount-0) pages held
+    # durable-KV recovery this pump (zero when no frontier moves)
+    recovered_tokens: int = 0         # tokens resumed from injected frontiers
+    recomputed_prefill_tokens: int = 0  # prompt tokens of retries run through the model
     # speculative decoding this pump (zero when spec_k is 0); only accepted
     # drafts reach emitted, tokens and useful_tokens
     drafted_tokens: int = 0           # draft tokens dispatched for verification
@@ -556,7 +626,7 @@ class QueueSession:
             self._slot_pages: List[List[int]] = [[] for _ in range(n_slots)]
             self._slot_of: Dict[int, int] = {}        # rid -> slot holding its pages
         # scan-state backend: the rwkv and hybrid decode states are
-        # per-slot caches (no pages); their frontiers are not ported yet
+        # per-slot caches (no pages); a frontier is a copy of the slot's leaves
         self.scan_state = (not self.paged
                            and engine.model.cfg.family in ("rwkv", "hybrid"))
         self.queue: List[Tuple[int, np.ndarray, int]] = []
@@ -578,6 +648,15 @@ class QueueSession:
         self._no_spec: set = set()
         self.spec_accept_ewma: Optional[float] = None
         self._prompt_of: Dict[int, Tuple[int, ...]] = {}
+        # durable KV: rid -> validated frontier awaiting a slot (admission
+        # injects it instead of prefilling); the rids whose prefill counts as
+        # recomputed; restored tokens replayed through the next report; and
+        # the recovery counts the next report takes
+        self._frontiers: Dict[int, Any] = {}
+        self._recompute: set = set()
+        self._restored: List[Tuple[int, List[int]]] = []
+        self._pending_recovered = 0
+        self._pending_recomputed = 0
 
     @property
     def cache(self):
@@ -587,11 +666,21 @@ class QueueSession:
     # -- request intake -------------------------------------------------------
     def submit(self, rid: int, inp: np.ndarray, max_new: int, *,
                slo_class: str = "interactive", priority: int = 0,
-               deadline_s: Optional[float] = None, speculate: bool = True) -> None:
+               deadline_s: Optional[float] = None, recompute: bool = False,
+               frontier=None, speculate: bool = True) -> None:
         """Queue a request; admission order is interactive before batch,
         higher priority first, soonest deadline first, then FIFO.
         ``speculate=False`` keeps this request out of speculative rounds:
-        it decodes one token a round while the rest of the batch drafts."""
+        it decodes one token a round while the rest of the batch drafts.
+
+        ``frontier`` resumes a checkpointed request: admission injects its
+        pages (paged) or its state (scan state) and decode goes on from its
+        tokens, with no prefill.  A frontier that does not match this
+        session (another prompt or page size, the other kind, or a
+        contiguous dense session) is ignored and the request prefills; one
+        that already holds ``max_new`` tokens completes at once.
+        ``recompute`` counts this request's prefill as recomputed work (its
+        first prefill completed on a replica that died)."""
         if rid in self._out or rid in self.results:
             raise ValueError(f"request id {rid} already in session")
         inp = np.asarray(inp)
@@ -609,6 +698,17 @@ class QueueSession:
             if need > self.allocator.usable:
                 raise ValueError(f"request {rid}: needs {need} KV pages but the pool only "
                                  f"has {self.allocator.usable}")
+        if recompute:
+            self._recompute.add(rid)
+        if frontier is not None and self._frontier_fits(frontier, inp):
+            if len(frontier.generated) >= max_new:
+                # the frontier covers the ask: complete off its tokens
+                self.results[rid] = np.asarray(list(frontier.generated[:max_new]), np.int64)
+                self._instant.append(rid)
+                self._recompute.discard(rid)
+                self._pending_recovered += len(frontier.prompt) + max_new
+                return
+            self._frontiers[rid] = frontier
         from repro_torch.serving.api import slo_order_key
 
         deadline_at = (time.monotonic() + deadline_s if deadline_s is not None else math.inf)
@@ -623,9 +723,22 @@ class QueueSession:
         best = min(range(len(self.queue)), key=lambda i: self._slo[self.queue[i][0]])
         return self.queue.pop(best)
 
+    def _frontier_fits(self, frontier, inp: np.ndarray) -> bool:
+        """Whether ``frontier`` can resume ``inp`` here: a ``KVFrontier`` of
+        this page size in a paged session, a ``StateFrontier`` in a
+        scan-state one, of this prompt."""
+        if self.paged:
+            ok = (isinstance(frontier, KVFrontier)
+                  and frontier.page_size == self.allocator.page_size)
+        else:
+            ok = self.scan_state and isinstance(frontier, StateFrontier)
+        return ok and tuple(int(t) for t in np.asarray(inp)[0]) == tuple(frontier.prompt)
+
     def _retire(self, rid: int) -> None:
         self._slo.pop(rid, None)
         self._prompt_of.pop(rid, None)
+        self._frontiers.pop(rid, None)
+        self._recompute.discard(rid)
         self._no_spec.discard(rid)
 
     def cancel(self, rid: int) -> bool:
@@ -680,9 +793,10 @@ class QueueSession:
     def _claim_pages(self, s: int, rid: int, tokens: List[int],
                      total_blocks: int) -> Optional[int]:
         """Reuse the longest cached block-aligned prefix of ``tokens`` and
-        allocate the rest of the request's ``total_blocks`` into slot ``s``.
-        Returns the reused token count, or None, with every reference rolled
-        back, under pool pressure."""
+        allocate the rest of the request's ``total_blocks`` into slot ``s``;
+        records the prompt (the drafter and frontiers read it).  Returns the
+        reused token count, or None, with every reference rolled back, under
+        pool pressure."""
         al = self.allocator
         m, shared = al.match_prefix(tokens)
         pages = [int(p) for p in shared]
@@ -693,6 +807,7 @@ class QueueSession:
                 al.deref(p)
             return None
         self._bind_pages(s, rid, pages)
+        self._prompt_of[rid] = tuple(tokens)
         return m
 
     def _release_rid(self, rid: int) -> None:
@@ -778,7 +893,6 @@ class QueueSession:
         if entry is not None:
             if not self._admit_full_hit(s, rid, entry, plen, total_blocks):
                 return False
-            self._prompt_of[rid] = tuple(tokens)
             self.slots.admit(s, rid, max_new)     # decoding immediately
             return True
 
@@ -790,7 +904,6 @@ class QueueSession:
         m = self._claim_pages(s, rid, tokens, total_blocks)
         if m is None:
             return False
-        self._prompt_of[rid] = tuple(tokens)
         if m > 0:
             # block-aligned prefix hit: only the suffix goes through the model
             al.stats.prefix_hits += 1
@@ -808,7 +921,8 @@ class QueueSession:
         logits give the first token.  The partial boundary page takes this
         request's first decode write, so if another reader holds it, it is
         copied first (the copy's page reserved before anything is evicted).
-        Returns False, with every reference rolled back, under pressure."""
+        Records the prompt.  Returns False, with every reference rolled
+        back, under pressure."""
         eng, al = self.eng, self.allocator
         pages = [int(p) for p in entry.pages]
         for p in pages:
@@ -828,6 +942,7 @@ class QueueSession:
                 al.deref(p)
             return False
         self._bind_pages(s, rid, pages)
+        self._prompt_of[rid] = entry.tokens
         logits = torch.as_tensor(entry.logits, device=eng.device)[None]
         self._set_tok(s, eng._sample(logits, self._akey()))
         self._lens_host[s] = plen
@@ -839,15 +954,132 @@ class QueueSession:
         """Slot ``s``'s carried token, written into the step buffer."""
         self.st.tok[s:s + 1].copy_(tok0.reshape(1))
 
+    # -- durable-KV checkpoint and restore ---------------------------------------
+    @property
+    def supports_frontiers(self) -> bool:
+        """Paged sessions copy KV pages out, scan-state sessions their slot's
+        leaves; a contiguous dense session has no frontiers (a ``max_len``
+        stripe copy per checkpoint is not worth paying), as in JAX."""
+        return self.paged or self.scan_state
+
+    def extract_frontier(self, rid: int):
+        """Copy one decoding request's resumable state out: its prompt, the
+        tokens generated so far, the carried next token, and a host copy of
+        its pages (paged) or its slot's leaves (scan state) covering them.
+        None for a request not decoding (queued or mid-prefill: its retry is
+        a plain prefill) and in a session without frontiers."""
+        if self.scan_state:
+            return self._extract_frontier_state(rid)
+        if not self.paged:
+            return None
+        s = self._slot_of.get(rid)
+        if s is None or int(self.slots.request_id[s]) != rid:
+            return None
+        prompt = self._prompt_of.get(rid)
+        if prompt is None:
+            return None
+        # a request in flight never reaches the max_len - 1 clamp, so the
+        # host's bookkeeping is its cache length
+        generated = tuple(self._out.get(rid, ()))
+        n = len(prompt) + len(generated)
+        if n <= 0:
+            return None
+        al = self.allocator
+        pages = al.extract_kv(self._slot_pages[s][:al.blocks_for(n)])
+        return KVFrontier(prompt=prompt, generated=generated, carry_tok=int(self.st.tok[s]),
+                          pages_kv=self.eng.extract_pages(self.cache, pages),
+                          page_size=al.page_size)
+
+    def _extract_frontier_state(self, rid: int) -> Optional[StateFrontier]:
+        """Scan-state checkpoint: the slot's slice of every cache leaf, the
+        batch axis kept as a singleton, copied to the host."""
+        hits = np.nonzero(self.slots.request_id == rid)[0]
+        if hits.size == 0:
+            return None
+        s = int(hits[0])
+        prompt = self._prompt_of.get(rid)
+        if prompt is None:
+            return None
+        state = type(self.cache)(*host_cast(to_host(leaf[:, s:s + 1] for leaf in self.cache)))
+        return StateFrontier(prompt=prompt, generated=tuple(self._out.get(rid, ())),
+                             carry_tok=int(self.st.tok[s]), state=state)
+
+    def extract_frontiers(self) -> List[Tuple[int, Any]]:
+        """Checkpoint every decoding request."""
+        out = []
+        for r in self.slots.request_id:
+            if r >= 0:
+                fr = self.extract_frontier(int(r))
+                if fr is not None:
+                    out.append((int(r), fr))
+        return out
+
+    def decoding_lens(self) -> Dict[int, int]:
+        """rid -> current frontier length of every decoding request, from
+        the host's bookkeeping (no device read)."""
+        out: Dict[int, int] = {}
+        for r in self.slots.request_id:
+            rid = int(r)
+            if rid >= 0 and rid in self._prompt_of:
+                out[rid] = len(self._prompt_of[rid]) + len(self._out.get(rid, ()))
+        return out
+
+    def _admit_restored(self, s: int, rid: int, fr, max_new: int) -> bool:
+        """Admit straight into decode from a frontier: the slot takes the
+        checkpointed KV (fresh pages) or state, and decodes on from the
+        carried token, with no prefill.  Counts an admission without a draw,
+        as JAX does, so later admissions' generators stay aligned.  Returns
+        False, with no state change, under pool pressure (paged only)."""
+        n = fr.tokens
+        gen = list(fr.generated)
+        if self.paged:
+            al = self.allocator
+            pages = al.inject_kv(al.blocks_for(len(fr.prompt) + max_new))
+            if pages is None:
+                return False
+            self.eng._inject_pages(self.cache, fr.pages_kv, pages[:al.blocks_for(n)])
+            self._bind_pages(s, rid, pages)
+        else:
+            self.eng._restore_slot(self.cache, fr.state, s)
+        self._prompt_of[rid] = tuple(fr.prompt)
+        self._set_tok(s, torch.tensor(int(fr.carry_tok), dtype=torch.int32))
+        self._lens_host[s] = n
+        self._out[rid] = list(gen)
+        self._admissions += 1
+        self.slots.admit(s, rid, max_new - len(gen))
+        # the checkpointed tokens replay through the next report: a streaming
+        # client reconciles by position and forwards only what it has not seen
+        self._restored.append((rid, gen))
+        self._pending_recovered += n
+        return True
+
+    def _drain_recovery(self, report: PumpReport) -> None:
+        report.recovered_tokens += self._pending_recovered
+        report.recomputed_prefill_tokens += self._pending_recomputed
+        self._pending_recovered = 0
+        self._pending_recomputed = 0
+
+    def _emit_restored(self, report: PumpReport) -> None:
+        for rid, toks in self._restored:
+            if rid in self._out and toks:
+                report.emitted[rid] = report.emitted.get(rid, 0) + len(toks)
+                report.tokens.setdefault(rid, []).extend(toks)
+        self._restored = []
+
     # -- legacy admission (mixed_step=False) ------------------------------------
-    def _admit_prefill(self, s: int, inp: np.ndarray) -> None:
+    def _admit_prefill(self, s: int, rid: int, inp: np.ndarray) -> None:
         """Contiguous legacy admission: one B=1 prefill dispatch, its cache
-        placed into slot ``s``, the first token sampled from its logits."""
+        placed into slot ``s``, the first token sampled from its logits.  A
+        scan-state session records the prompt, which its frontiers carry."""
         eng = self.eng
         logits, pcache = eng.prefill({"inputs": inp})
         eng._place_slot(self.cache, pcache, s)
         self._lens_host[s] = inp.shape[1]
         self._set_tok(s, eng._sample(logits, self._akey()))
+        if self.scan_state:
+            self._prompt_of[rid] = tuple(int(t) for t in np.asarray(inp)[0])
+        if rid in self._recompute:
+            self._pending_recomputed += int(inp.shape[1])
         eng.telemetry.prefills += 1
 
     def _admit_paged(self, s: int, rid: int, inp: np.ndarray, max_new: int) -> bool:
@@ -882,6 +1114,8 @@ class QueueSession:
             al.stats.misses += 1
         al.publish(tokens, pages[:nb_p], logits[0].float().cpu().numpy())
         al.stats.prefilled_tokens += plen - m
+        if rid in self._recompute:
+            self._pending_recomputed += plen - m
         eng.telemetry.prefills += 1
         self._set_tok(s, eng._sample(logits, self._akey()))
         self._lens_host[s] = plen
@@ -972,6 +1206,16 @@ class QueueSession:
                 break
             s = int(s)
             rid, inp, max_new = self._pop_next()
+            fr = self._frontiers.pop(rid, None)
+            if fr is not None:
+                if not self._admit_restored(s, rid, fr, max_new):
+                    # page pressure: requeue with the frontier intact, so the
+                    # retry still resumes instead of prefilling
+                    self._frontiers[rid] = fr
+                    self.queue.insert(0, (rid, inp, max_new))
+                    break
+                report.admitted.append(rid)
+                continue
             if self.paged:
                 if not self._admit_paged(s, rid, inp, max_new):
                     # page pressure: put it back and retry after decodes
@@ -979,16 +1223,19 @@ class QueueSession:
                     self.queue.insert(0, (rid, inp, max_new))
                     break
             else:
-                self._admit_prefill(s, inp)
+                self._admit_prefill(s, rid, inp)
             slots.admit(s, rid, max_new)
             report.admitted.append(rid)
+        self._emit_restored(report)
         report.admit_s = time.perf_counter() - t0
         report.occupancy = slots.occupancy
         if report.occupancy > 0.0:
             self._decode_chunk(report)
         self._paged_report_tail(report, stats0)
+        self._drain_recovery(report)
         report.wall_s = time.perf_counter() - t0
-        if report.chunk_steps:                        # an idle pump records nothing
+        # an idle pump records nothing, its recovery counts included (as JAX)
+        if report.chunk_steps:
             self._add_telemetry(report)
         return report
 
@@ -1010,7 +1257,14 @@ class QueueSession:
             if s in self._prefilling:
                 continue
             rid, inp, max_new = self._pop_next()
-            if self.paged:
+            fr = self._frontiers.pop(rid, None)
+            if fr is not None:
+                if not self._admit_restored(s, rid, fr, max_new):
+                    # page pressure: requeue with the frontier intact
+                    self._frontiers[rid] = fr
+                    self.queue.insert(0, (rid, inp, max_new))
+                    break
+            elif self.paged:
                 if not self._admit_paged_mixed(s, rid, inp, max_new):
                     # page pressure or a sibling mid-ingest: put it back and
                     # retry next pump (completions release pages)
@@ -1019,6 +1273,7 @@ class QueueSession:
             else:
                 self._admit_mixed(s, rid, inp, max_new)
             report.admitted.append(rid)
+        self._emit_restored(report)
         report.admit_s = time.perf_counter() - t0
 
         decode_active = slots.request_id >= 0
@@ -1027,6 +1282,7 @@ class QueueSession:
         sched = self._schedule_chunks()
         if not sched and not decode_active.any():
             self._paged_report_tail(report, stats0)
+            self._drain_recovery(report)
             report.wall_s = time.perf_counter() - t0
             return report
 
@@ -1080,6 +1336,8 @@ class QueueSession:
                 stt = self._prefilling[s]
                 stt["rem"] = stt["rem"][len(c):]
                 report.prefill_chunks += 1
+                if stt["rid"] in self._recompute:
+                    self._pending_recomputed += len(c)
                 if self.paged:
                     self.allocator.stats.prefilled_tokens += len(c)
                 if len(stt["rem"]) == 0:
@@ -1114,6 +1372,7 @@ class QueueSession:
             else:
                 self._decode_chunk(report)
         self._paged_report_tail(report, stats0)
+        self._drain_recovery(report)
         report.wall_s = time.perf_counter() - t0
         self._add_telemetry(report)
         return report
@@ -1268,6 +1527,8 @@ class QueueSession:
         tel.prefix_misses += report.prefix_misses
         tel.reused_tokens += report.reused_tokens
         tel.prefilled_tokens += report.prefilled_tokens
+        tel.recovered_tokens += report.recovered_tokens
+        tel.recomputed_prefill_tokens += report.recomputed_prefill_tokens
         tel.drafted_tokens += report.drafted_tokens
         tel.accepted_tokens += report.accepted_tokens
         tel.spec_rounds += report.spec_rounds

@@ -23,19 +23,48 @@ here:
   device copies the old one into — and repoints its block table.
 
 The allocator never touches device memory: the engine performs the page
-writes and copies and tells the allocator what it decided.  Durable-KV
-frontiers (``KVFrontier``, ``extract_kv``/``inject_kv``) come with their
-own slice of the port.
+writes and copies and tells the allocator what it decided.
+
+A **durable-KV frontier** (``KVFrontier``) is one decoding request taken
+out of a session: its tokens so far, its carried next token and a host
+copy of the pages that hold its KV.  ``extract_kv`` validates the pages
+to copy, ``inject_kv`` allocates the fresh pages a restore writes into.
+The host payload is numpy: a bf16 pool's leaves are held as float32
+(numpy has no bfloat16; every bf16 value is a float32 value, so the cast
+back to the pool's dtype on restore is exact), an fp32 pool's as they
+are.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Set, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
 TRASH_PAGE = 0   # page 0 is the write sink for idle/overrun slots; never allocated
+
+
+@dataclass
+class KVFrontier:
+    """One request's resumable decode state, taken out of a session: the
+    prompt, the tokens generated so far (their KV is in the pages), the
+    carried next token (sampled, its KV not yet written), and host copies
+    of the pages covering the frontier -- leaves shaped (L, n_blocks,
+    page_size, Hkv, Dh), the pool's layout minus the pool axis.  Injected
+    into fresh pages of any session with the same weights and page size,
+    decode resumes from ``tokens`` as the uninterrupted run would (greedy)."""
+
+    prompt: Tuple[int, ...]
+    generated: Tuple[int, ...]    # emitted tokens whose KV the pages hold
+    carry_tok: int                # next token to decode (KV not yet written)
+    pages_kv: Any                 # NamedTuple of numpy leaves (L, nb, ps, Hkv, Dh)
+    page_size: int
+
+    @property
+    def tokens(self) -> int:
+        """Content length the pages cover (prompt + generated)."""
+        return len(self.prompt) + len(self.generated)
 
 
 @dataclass
@@ -160,6 +189,38 @@ class BlockAllocator:
         self.deref(page)
         self.stats.cow_copies += 1
         return fresh
+
+    # -- durable-KV extraction / injection -----------------------------------
+    def extract_kv(self, pages: Sequence[int]) -> Tuple[int, ...]:
+        """Validate a page range for a frontier: every page live and none the
+        trash page.  Returns the pages unchanged; the engine copies their
+        contents.  The allocator is untouched (extraction is a read)."""
+        out = []
+        for p in pages:
+            p = int(p)
+            if p == TRASH_PAGE:
+                raise ValueError("cannot extract the trash page")
+            if self.refcount[p] <= 0:
+                raise ValueError(f"extract of unreferenced page {p}")
+            out.append(p)
+        return tuple(out)
+
+    def inject_kv(self, n_blocks: int) -> Optional[List[int]]:
+        """``n_blocks`` fresh refcount-1 pages for an injected frontier, all
+        or nothing: the capacity check comes first, so a grab that cannot
+        fully succeed evicts no cached page on its way to failing.  None,
+        with no state change, under pool pressure."""
+        if n_blocks > self.free_pages + self.cached_pages:
+            return None
+        pages: List[int] = []
+        for _ in range(n_blocks):
+            p = self.alloc()
+            if p is None:                 # unreachable after the check
+                for q in pages:
+                    self.deref(q)
+                return None
+            pages.append(p)
+        return pages
 
     # -- prefix cache --------------------------------------------------------
     def match_prefix(self, tokens: Sequence[int]) -> Tuple[int, List[int]]:

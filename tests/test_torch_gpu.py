@@ -2237,3 +2237,79 @@ def test_spec_launches_after_replays_equal_eager(cuda):
         counts.append(dict(kernel.LAUNCHES))
     assert counts[0] == counts[1]
     assert counts[0]["mixed_attention"] == 5 * model.cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# durable KV: frontiers extracted from and injected into the pools and slots
+# the captured steps read, on the graph model
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_inject_roundtrip_bit_exact(cuda, dtype):
+    """``extract_pages`` then ``_inject_pages`` into other pages of a second
+    pool: every page bit-equal (a bf16 leaf travels as float32 on the host,
+    which holds it exactly)."""
+    from repro_torch.models import DecoderKVCache
+    from repro_torch.serving import EngineConfig, ServingEngine
+
+    eng = ServingEngine(_graph_model(), EngineConfig(max_len=256, paged_kv=True), graphs=False)
+    gen = torch.Generator("cuda").manual_seed(3)
+    shape = (2, 12, 16, 2, 64)
+    pool = DecoderKVCache(*(torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                            for _ in range(2)))
+    pool2 = DecoderKVCache(*(torch.zeros(shape, device="cuda", dtype=dtype) for _ in range(2)))
+    src, dst = [5, 2, 9], [1, 11, 3]
+    kv = eng.extract_pages(pool, src)
+    assert all(leaf.dtype == np.float32 and leaf.shape == (2, 3, 16, 2, 64) for leaf in kv)
+    eng._inject_pages(pool2, kv, dst)
+    for a, b in zip(pool, pool2):
+        assert torch.equal(a[:, src], b[:, dst])
+        assert not b[:, [0, 4]].any()
+    with pytest.raises(ValueError, match="does not fit"):
+        eng._inject_pages(pool2, kv, dst[:2])
+
+
+@pytest.mark.parametrize("mixed", [True, False])
+def test_restore_into_captured_session_equals_eager(cuda, mixed):
+    """Frontiers taken mid-decode, restored into a fresh session whose
+    graphs were captured before the restore (the inject writes the pool
+    they read, in place), with two new requests beside them: the streams
+    and launches equal ``graphs=False``'s, and the pumps capture nothing."""
+    from repro_torch.serving import EngineConfig, ServingEngine
+
+    model = _graph_model()
+    reqs = _graph_requests(model.cfg.vocab_size, n=5, seed=4)
+    out = []
+    for graphs in (True, False):
+        eng = ServingEngine(model, EngineConfig(max_len=256, decode_batch=3, decode_chunk=4,
+                                                prefill_chunk=24, paged_kv=True,
+                                                mixed_step=mixed), graphs=graphs)
+        first = eng.new_session()
+        for rid, (p, _) in enumerate(reqs[:3]):
+            first.submit(rid, p[None], 40)
+        first.pump()
+        frs = dict(first.extract_frontiers())
+        assert sorted(frs) == [0, 1, 2]
+        for rid in frs:
+            first.cancel(rid)
+        eng.warm_mixed_traces([24])
+        eng.warm_decode()
+        captured = eng._graphs.captured if graphs else 0
+        sess = eng.new_session()
+        for m in (kernel, norm_kernel):
+            m.reset_launches()
+        for rid, (p, n) in enumerate(reqs):
+            sess.submit(rid, p[None], 40 if rid in frs else n, frontier=frs.get(rid))
+        rep = sess.pump()
+        assert rep.recovered_tokens == sum(fr.tokens for fr in frs.values())
+        while not sess.idle:
+            sess.pump()
+        torch.cuda.synchronize()
+        if graphs:
+            assert eng._graphs.captured == captured
+        assert sess.allocator.live_pages == 0
+        out.append(([sess.results[r] for r in range(len(reqs))], dict(kernel.LAUNCHES)))
+    for a, b in zip(out[0][0], out[1][0]):
+        np.testing.assert_array_equal(a, b)
+    assert out[0][1] == out[1][1]
