@@ -157,6 +157,34 @@ Phases (any failure exits non-zero; nothing is caught):
    restored in a fresh session with no prefill kernel, every launch held
    to ``expected_scan_launches`` of the restored decode steps; bytes,
    extract, restore and re-prefill times printed;
+4p. fleet drill: ``FleetRuntime`` (``repro_torch.fleet``) over
+   ``build_demo_fleet``'s two tiers and economics, cheap (4 slots) and
+   premium (8 slots), at qwen3-0.6b's full widths in bf16 (the tiers'
+   ``model_overrides``), max_len 1024, mixed admission: 32 requests of its
+   Poisson trace at 2 req/s of control-loop time (prompts 16..512, 16..32
+   new tokens), the cheap pool at zero from 6 to 16 s.  Every request
+   completes, none is dropped, at least one is retried; capacity mode on
+   more than 60% of the outage's ticks from 8 s, cost mode first and on
+   more than half of the ticks from 20 s; nothing completes on the dead tier in the outage;
+   every decision ``explains()`` itself; the mixed step and the
+   single-stage decode launch once a layer per step of the tiers'
+   engines, and nothing else; a reduced fp32 twin of the fleet on the
+   CPU takes the same decisions and placements (the loop runs on its own
+   clock).  Prints the mode trace, ticks and wall, each replica's graph
+   captures on its first pumps (count, seconds), the cost and goodput,
+   the policy step's host time on the card and the CPU.  Each request's
+   bf16 stream is held against a bare engine of the tier it completed on
+   (that tier's engine config): equal, or a near-tie at its first
+   divergence (the two tokens' margin under an fp32 copy of the weights
+   below ``BF16_TIE_SIGMAS`` times the bf16 logits' RMS error there),
+   printed with the count of equal streams;
+4q. durable-KV fleet drill: ``build_recovery_fleet``'s tier (paged, 3
+   slots, 8 requests of 512-token prompts, kills at 2 and 4 s, a
+   preemption notice at 3 s, the fleet KV store on) at full width in bf16:
+   none dropped, at least one retry, zero recomputed prefill tokens,
+   recovered tokens > 0, store puts and hits > 0; the paged mixed step
+   and the paged single-stage decode launch once a layer per step, and
+   nothing else;
 5. card vs CPU: the same kind of traffic at fp32 (full width, 4 layers,
    max_len 1024, prompts up to 900) on the card and on the CPU (plain
    versions); greedy streams must agree token for token, or each first
@@ -201,6 +229,13 @@ Phases (any failure exits non-zero; nothing is caught):
    margins); the kill and restore again with graphs=False must be
    token-exact with equal launch counts; paged, every frontier injected
    into a second pool is bit-equal below its frontier;
+5j. fleet exactness in fp32: ``build_demo_fleet`` (the cheap pool out from
+   6 to 16 s, 40 requests of 8-token prompts, 4..12 new) with phase 5's
+   model shape (full width cut to 4 layers, fp32, through the tiers'
+   ``model_overrides``), once with ``device="cuda"`` and once on the CPU:
+   the same mode trace, ``DecisionRecord``s and per-request records
+   (tier, replica, retries, timestamps), the outage checks of 4p, and
+   streams equal token for token or near-ties under ``NEAR_TIE``;
 6. timing: every kernel, its plain version and the one PyTorch call with
    the same result (scaled_dot_product_attention, used only as a
    yardstick; no one call reads a block table or computes the WKV6 or SSD
@@ -265,6 +300,12 @@ TOL = {torch.float32: dict(atol=2e-5, rtol=1e-3), torch.bfloat16: dict(atol=2e-2
 BF16_ROW_FRAC = 0.1
 ROW_FRAC = {}              # check -> worst bf16 row error as a share of its RMS
 NEAR_TIE = 1e-3            # logit margin below which an argmax flip is a near-tie
+# A bf16 flip between tokens a and b is a near-tie when their fp32 margin
+# (the same weights in fp32) is under this many times bf16's own logit
+# error at that context (its RMS over the vocabulary): each of two runs
+# picked its token by its own rounding noise, whose difference at a and b
+# has sqrt(2) times that RMS, so 6 is 4.2 of its standard deviations.
+BF16_TIE_SIGMAS = 6.0
 
 # main-path shapes of qwen3-0.6b at the default EngineConfig
 B, HKV, G, D = 8, 8, 2, 128
@@ -1617,15 +1658,19 @@ def warm_generate(engine, B_: int, steps: int, label: str) -> dict:
     return out
 
 
-def _margin(model, tokens, a: int, b: int) -> float:
-    """|logit(a) - logit(b)| after ``tokens`` (one B=1 mixed step, or a B=1
+def _logits_at(model, tokens) -> torch.Tensor:
+    """The (V,) logits after ``tokens`` (one B=1 mixed step, or a B=1
     prefill for a model without a mixed step)."""
     t = torch.as_tensor(np.asarray(tokens)[None], device=model.device)
     if model.supports_mixed_step:
         cache = model.empty_cache(1, len(tokens) + 1)
-        logits = model.step_mixed(t, cache, np.array([0]), np.array([len(tokens)]))[0]
-    else:
-        logits = model.prefill(t)[0][0]
+        return model.step_mixed(t, cache, np.array([0]), np.array([len(tokens)]))[0]
+    return model.prefill(t)[0][0]
+
+
+def _margin(model, tokens, a: int, b: int) -> float:
+    """|logit(a) - logit(b)| after ``tokens``."""
+    logits = _logits_at(model, tokens)
     return float((logits[a] - logits[b]).abs())
 
 
@@ -2431,6 +2476,357 @@ def durable_exact(label: str, card_model, cpu_model, ecfg, prompts, max_new) -> 
 # --------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phases 4p, 4q, 5j: the fleet's control loop over port replicas
+# ---------------------------------------------------------------------------
+
+FLEET_OUTAGE = (6.0, 16.0)
+
+
+def full_overrides(cfg, **more) -> dict:
+    """``TierSpec.model_overrides`` that bring ``cfg.reduce()`` back to
+    ``cfg``'s widths (the runtime serves ``get_config(arch).reduce()`` with
+    the overrides applied), plus ``more``."""
+    red = cfg.reduce()
+    out = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+           if f.name != "name" and getattr(cfg, f.name) != getattr(red, f.name)}
+    out.update(more)
+    return out
+
+
+def fleet_like(builder, *, device, overrides, workload=None, tier_kw=None, **kw):
+    """One of the fleet builders' runtimes, its tiers serving
+    ``model_overrides`` (and ``tier_kw[tier]``), its trace replaced by
+    ``workload(vocab)`` where given; failures, preemptions, capacity events
+    and the fleet config are the builder's."""
+    from repro_torch.fleet import runtime as fleet_runtime
+
+    base = getattr(fleet_runtime, builder)(device=device, **kw)
+    tiers = [dataclasses.replace(t, model_overrides=dict(overrides),
+                                 **(tier_kw or {}).get(t.name, {})) for t in base.tiers]
+    trace = base.workload if workload is None else workload(int(overrides["vocab_size"]))
+    events = {name: list(pool.events) for name, pool in base.pools.items() if pool.events}
+    return fleet_runtime.FleetRuntime(tiers, trace, base.cfg, failures=base.failures,
+                                      preemptions=base.preemptions, pool_events=events or None,
+                                      device=device)
+
+
+def demo_trace(n_requests, rate, prompt_len, max_new, seed=0):
+    """``build_demo_fleet``'s Poisson trace at another vocabulary and sizes."""
+    from repro_torch.core.simulator import steady
+    from repro_torch.fleet.workload import poisson_trace
+
+    return lambda vocab: poisson_trace(steady(rate), n_requests / rate * 1.5, vocab_size=vocab,
+                                       prompt_len=prompt_len, max_new=max_new, seed=seed,
+                                       n_max=n_requests)
+
+
+def run_fleet(rt, label: str) -> tuple:
+    """Warm (captures timed apart), zero the launch counters, run to idle.
+    Returns the report and a summary: ticks, wall, warm-up, mode trace,
+    decisions, the per-replica captures the tracer recorded, launches."""
+    t0 = time.perf_counter()
+    rt.warmup()
+    if rt.device.type == "cuda":
+        torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm_graphs_ = sum(e.captures[0] for e in rt._engines.values())
+    reset_launches()
+    t0 = time.perf_counter()
+    report = rt.run()
+    if rt.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    caps = {}
+    for ev in rt.tracer.select(name="engine.capture"):
+        g, s = caps.get(ev["replica"], (0, 0.0))
+        caps[ev["replica"]] = (g + ev["graphs"], s + ev["capture_s"])
+    check(len(report.requests.records) == len(rt.workload) and not report.requests.dropped,
+          f"{label}: {len(report.requests.records)} of {len(rt.workload)} completed, "
+          f"{len(report.requests.dropped)} dropped")
+    check(all(d.explains() for d in report.decisions),
+          f"{label}: a controller decision its record does not explain")
+    check(not rt.tracer.select(name="engine.compile"),
+          f"{label}: a measured pump met a step bucket warmup did not prepare")
+    s = report.summary()
+    replicas = sorted({r.replica for r in report.requests.records})
+    out = dict(
+        requests=len(report.requests.records), dropped=len(report.requests.dropped),
+        retries=report.requests.total_retries(), ticks=report.ticks, wall_s=wall,
+        warmup_s=warm_s, warmup_graphs=warm_graphs_,
+        mode_trace=[[t, m] for t, m in report.mode_trace],
+        decisions=len(report.decisions), replicas_serving=len(replicas),
+        replica_captures={k: dict(graphs=g, capture_s=c) for k, (g, c) in sorted(caps.items())},
+        capture_s=sum(c for _, c in caps.values()),
+        pump_wall_s=report.pump_wall_s,
+        total_cost_usd=s["total_cost_usd"], usd_per_1k_tokens=s["usd_per_1k_tokens"],
+        goodput_tokens=s["goodput_tokens"], goodput_tokens_per_s=s["goodput_tokens_per_s"],
+        goodput_tokens_per_s_wall=s["goodput_tokens_per_s_wall"],
+        slo_attainment=s["slo_attainment"], p50_ttft_s=s["p50_ttft_s"],
+        p95_ttft_s=s["p95_ttft_s"], recovered_tokens=s["recovered_tokens"],
+        recomputed_prefill_tokens=s["recomputed_prefill_tokens"], launches=launches)
+    print(f"  {label}: {report.ticks} ticks in {wall:.1f} s (warm-up {warm_s:.1f} s, "
+          f"{warm_graphs_} graphs), mode trace {out['mode_trace']}", flush=True)
+    if caps:
+        print(f"  {label}: graphs captured on first pumps, by replica: "
+              + json.dumps(out["replica_captures"]), flush=True)
+    return report, out
+
+
+def check_fleet_launches(rt, launches: dict, mixed: str, decode: str, label: str) -> dict:
+    """The fleet's kernels launched exactly layers x its engines' steps:
+    the mixed step once a layer per mixed step, the single-stage decode
+    once a layer per decode step; no other kernel."""
+    engines = list(rt._engines.values())
+    layers = engines[0].model.cfg.n_layers
+    steps = sum(e.telemetry.mixed_steps for e in engines)
+    decode_steps = sum(e.telemetry.chunks * e.cfg.decode_chunk for e in engines)
+    check(launches[mixed] == layers * steps,
+          f"{label}: {launches[mixed]} {mixed} launches for {steps} mixed steps of {layers} layers")
+    check(launches[decode] == layers * decode_steps,
+          f"{label}: {launches[decode]} {decode} launches for {decode_steps} decode steps of "
+          f"{layers} layers")
+    others = {k: v for k, v in launches.items() if v and k not in (mixed, decode)}
+    check(not others, f"{label}: kernels off the fleet's path launched: {others}")
+    return dict(mixed_steps=steps, decode_steps=decode_steps)
+
+
+def check_outage_modes(report, label: str, outage=FLEET_OUTAGE) -> dict:
+    """The failover drill's control checks (``tests/test_fleet_runtime.py``):
+    at least one retry; capacity mode on more than 60% of the outage's
+    ticks from 2 s in; cost mode first, and on more than half of the ticks
+    from 4 s after the recovery (there must be some); nothing completes on
+    the dead tier during the outage."""
+    from repro_torch.core import policy
+
+    modes = {r.t: r.mode for r in report.metrics.records}
+    during = [m for t, m in modes.items() if outage[0] + 2.0 <= t < outage[1]]
+    share = float(np.mean(np.array(during) == policy.CAPACITY_OPTIMIZED))
+    check(report.requests.total_retries() >= 1, f"{label}: the outage interrupted nothing")
+    check(share > 0.6, f"{label}: capacity mode on {share:.2f} of the outage's ticks")
+    check(report.mode_sequence()[0] == policy.COST_OPTIMIZED, f"{label}: did not start in cost")
+    post = [m for t, m in modes.items() if t >= outage[1] + 4.0]
+    cost_share = float(np.mean(np.array(post) == policy.COST_OPTIMIZED)) if post else 0.0
+    check(cost_share > 0.5, f"{label}: cost mode on {cost_share:.2f} of the {len(post)} ticks "
+                            f"from {outage[1] + 4.0} s (more than half wanted)")
+    for rec in report.requests.records:
+        check(not (outage[0] + 2.0 <= rec.complete_t <= outage[1] and rec.tier == "cheap"),
+              f"{label}: request {rec.rid} completed on the dead tier at {rec.complete_t}")
+    return dict(capacity_share_in_outage=share, cost_share_after_recovery=cost_share,
+                last_mode=report.mode_sequence()[-1])
+
+
+def policy_cost(rt) -> dict:
+    """Host milliseconds of one controller step on the card and on the CPU
+    (the tick's signals replayed 200 times; the card's step ends in one
+    read of its weights)."""
+    from repro_torch.core.controller import ModeController
+
+    req = np.array([rt.autoscalers[s.name].current for s in rt.tiers], np.int64)
+    pool = np.array([rt.pools[s.name].capacity_at(rt.t) for s in rt.tiers])
+    measured = rt.telemetry.measured_t_max(rt._nominal)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ctl = ModeController([t.profile() for t in rt.tiers], rt.cfg.controller, device=dev)
+        for i in range(10):
+            ctl.step(float(i), 2.0, req, pool, measured_t_max=measured)
+        t0 = time.perf_counter()
+        for i in range(200):
+            ctl.step(10.0 + i, 2.0 + (i % 3), req, pool, measured_t_max=measured)
+        out[f"{dev}_ms_per_step"] = (time.perf_counter() - t0) / 200 * 1e3
+    return out
+
+
+def bare_streams(model, ecfg, prompts_max_new) -> list:
+    """Every request through one bare engine of config ``ecfg``."""
+    from repro_torch.serving import EngineClient, InferenceRequest, ServingEngine
+
+    eng = ServingEngine(model, dataclasses.replace(ecfg), device=model.device)
+    client = EngineClient(eng, device=model.device)
+    hs = [client.submit(InferenceRequest(prompt=p, max_new=n)) for p, n in prompts_max_new]
+    client.drain()
+    return [h.result() for h in hs]
+
+
+def fp32_copy(model):
+    """The same weights in an fp32 model on the same device."""
+    from repro_torch.models import Model
+
+    twin = Model(dataclasses.replace(model.cfg, dtype="float32"), device=model.device)
+    twin.load_state_dict(model.state_dict())
+    return twin
+
+
+def bf16_divergence(model, model32, prompt, a, b, rid: int, label: str) -> dict:
+    """The first divergence of two bf16 streams of one prompt must be a
+    near-tie: the two tokens' fp32 margin under ``BF16_TIE_SIGMAS`` times
+    the RMS of the bf16 logits' error against fp32 at that context, and
+    that bound under the fp32 gap from the best token to the median one
+    (else any token would pass)."""
+    j = int(np.nonzero(a != b)[0][0])
+    ctx = list(prompt) + list(b[:j])
+    l16, l32 = _logits_at(model, ctx).float(), _logits_at(model32, ctx).float()
+    sigma = float((l16 - l32).pow(2).mean().sqrt())
+    m32 = float((l32[int(a[j])] - l32[int(b[j])]).abs())
+    bound, gap = BF16_TIE_SIGMAS * sigma, float(l32.max() - l32.median())
+    print(f"  {label}: stream {rid} diverges at generated token {j}: {a[j]} vs {b[j]}, fp32 "
+          f"margin {m32:.3e}, bf16 error RMS {sigma:.3e} (bound {bound:.3e}), fp32 best-to-median "
+          f"gap {gap:.3e}", flush=True)
+    check(bound < gap, f"{label}: stream {rid}: a bf16 bound of {bound:.3e} would pass any token "
+                       f"(best-to-median gap {gap:.3e})")
+    check(m32 < bound, f"{label}: stream {rid} diverges at a fp32 margin of {m32:.3e} >= "
+                       f"{bound:.3e}: not a bf16 near-tie")
+    return dict(rid=rid, position=j, tokens=[int(a[j]), int(b[j])], fp32_margin=m32,
+                bf16_error_rms=sigma, bound=bound, best_to_median=gap)
+
+
+def fleet_vs_bare(rt, report, requests, model, label: str) -> tuple:
+    """Each request's bf16 stream against a bare engine of the tier it
+    completed on: equal, or a near-tie at its first divergence
+    (``bf16_divergence``).  Returns the count of equal streams and the
+    near-ties."""
+    tier_of = {r.rid: r.tier for r in report.requests.records}
+    model32, ties, exact = fp32_copy(model), [], 0
+    for tier, eng in sorted(rt._engines.items()):
+        mine = [r for r in requests if tier_of[r.rid] == tier]
+        bare = bare_streams(model, eng.cfg, [(r.prompt[0], r.max_new) for r in mine])
+        for r, b in zip(mine, bare):
+            a = report.outputs[r.rid]
+            check(a.shape == b.shape, f"{label}: request {r.rid} has {a.shape} tokens, its bare "
+                                      f"engine {b.shape}")
+            if np.array_equal(a, b):
+                exact += 1
+            else:
+                ties.append(bf16_divergence(model, model32, r.prompt[0], a, b, r.rid, label))
+    return exact, ties
+
+
+def phase_fleet(name_line: str) -> dict:
+    """Phase 4p: ``build_demo_fleet``'s two tiers and economics at
+    qwen3-0.6b's full widths in bf16 (max_len 1024, decode batches 4 and
+    8, mixed admission), 32 requests of its Poisson trace at 2 req/s
+    (prompts 16..512, 16..32 new tokens), the cheap tier's pool at zero
+    from 6 to 16 s."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen3-0.6b")
+    over = full_overrides(cfg)
+    label = "fleet 4p"
+    rt = fleet_like("build_demo_fleet", device="cuda", overrides=over,
+                    workload=demo_trace(32, 2.0, (16, 512), (16, 32)),
+                    tier_kw={"cheap": dict(max_len=1024, decode_batch=4),
+                             "premium": dict(max_len=1024, decode_batch=8)},
+                    n_requests=32, rate=2.0, outage=FLEET_OUTAGE)
+    model = rt._engine_for(rt.tiers[0]).model
+    check(dataclasses.replace(model.cfg, name=cfg.name) == cfg,
+          f"{label}: the tiers' model is not qwen3-0.6b at full width: {model.cfg}")
+    requests = list(rt.workload)
+    report, out = run_fleet(rt, label)
+    out.update(check_outage_modes(report, label))
+    out.update(check_fleet_launches(rt, out["launches"], "mixed_attention", "decode_attention",
+                                    label))
+    for rid, toks in report.outputs.items():
+        check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), f"{label}: token out of vocab")
+    # the control loop runs on the loop's clock: a reduced fp32 twin of the
+    # fleet on the CPU must take the same decisions and placements
+    twin = fleet_like("build_demo_fleet", device="cpu",
+                      overrides=dict(vocab_size=cfg.vocab_size),
+                      workload=demo_trace(32, 2.0, (16, 512), (16, 32)),
+                      tier_kw={"cheap": dict(max_len=1024, decode_batch=4),
+                               "premium": dict(max_len=1024, decode_batch=8)},
+                      n_requests=32, rate=2.0, outage=FLEET_OUTAGE)
+    t0 = time.perf_counter()
+    twin_report = twin.run()
+    out["cpu_twin_s"] = time.perf_counter() - t0
+    same = (twin_report.mode_trace == report.mode_trace
+            and [dataclasses.asdict(d) for d in twin_report.decisions]
+            == [dataclasses.asdict(d) for d in report.decisions]
+            and [(r.rid, r.tier, r.replica, r.retries, r.complete_t)
+                 for r in twin_report.requests.records]
+            == [(r.rid, r.tier, r.replica, r.retries, r.complete_t)
+                for r in report.requests.records])
+    check(same, f"{label}: the reduced CPU twin took other decisions or placements")
+    exact, ties = fleet_vs_bare(rt, report, requests, model, label)
+    out.update(streams_equal_bare_engine=exact, bf16_near_ties=ties)
+    out["policy"] = policy_cost(rt)
+    out["card"] = name_line
+    print(f"  {label}: {exact} of {len(requests)} bf16 streams equal a bare engine's of their "
+          f"tier, {len(ties)} near-ties; policy step {out['policy']['cuda_ms_per_step']:.3f} ms "
+          f"on the card, {out['policy']['cpu_ms_per_step']:.3f} ms on the CPU", flush=True)
+    return out
+
+
+def phase_fleet_recovery(name_line: str) -> dict:
+    """Phase 4q: ``build_recovery_fleet``'s tier (paged, 3 slots, 512-token
+    prompts, kills at 2 and 4 s, a preemption notice at 3 s, the fleet KV
+    store on) at qwen3-0.6b's full widths in bf16, its burst re-drawn over
+    the full vocabulary."""
+    from repro_torch.configs import get_config
+    from repro_torch.fleet.workload import burst_of
+
+    cfg = get_config("qwen3-0.6b")
+    label = "fleet recovery 4q"
+    rt = fleet_like("build_recovery_fleet", device="cuda", overrides=full_overrides(cfg),
+                    workload=lambda vocab: burst_of(8, vocab_size=vocab, prompt_len=512,
+                                                    max_new=(12, 24), seed=0))
+    report, out = run_fleet(rt, label)
+    s = report.summary()
+    check(report.requests.total_retries() >= 1, f"{label}: no retry")
+    check(s["recomputed_prefill_tokens"] == 0,
+          f"{label}: {s['recomputed_prefill_tokens']} prefill tokens recomputed")
+    check(s["recovered_tokens"] > 0, f"{label}: nothing recovered from the store")
+    check(report.kv_store["puts"] > 0 and report.kv_store["hits"] > 0,
+          f"{label}: store puts {report.kv_store['puts']}, hits {report.kv_store['hits']}")
+    out.update(check_fleet_launches(rt, out["launches"], "mixed_attention_paged",
+                                    "decode_attention_paged", label))
+    out.update(kv_store=report.kv_store, kv_flush_s=report.telemetry["spot"]["kv_flush_s"],
+               kv_flush_tokens=report.telemetry["spot"]["kv_flush_tokens"], card=name_line)
+    return out
+
+
+def phase_fleet_exact() -> dict:
+    """Phase 5j: ``build_demo_fleet`` with the cheap tier out from 6 to 16
+    s, 40 requests, on phase 5's model shape (qwen3-0.6b at full width cut
+    to 4 layers, fp32), once on the card and once on the CPU: the same
+    mode trace, decisions and per-request records; streams equal token for
+    token or near-ties (``NEAR_TIE``) printed with their margins."""
+    from repro_torch.configs import get_config
+
+    over = full_overrides(get_config("qwen3-0.6b"), n_layers=4, dtype="float32")
+    label = "fleet exact 5j"
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        rt = fleet_like("build_demo_fleet", device=dev, overrides=over,
+                        workload=demo_trace(40, 2.0, (8, 8), (4, 12)),
+                        n_requests=40, rate=2.0, outage=FLEET_OUTAGE)
+        report, out = run_fleet(rt, f"{label} {dev}")
+        runs[dev] = (rt, report, out)
+    (crt, card, cout), (prt_, cpu, pout) = runs["cuda"], runs["cpu"]
+    check(card.mode_trace == cpu.mode_trace,
+          f"{label}: mode traces differ: {card.mode_trace} vs {cpu.mode_trace}")
+    check([dataclasses.asdict(d) for d in card.decisions]
+          == [dataclasses.asdict(d) for d in cpu.decisions], f"{label}: decisions differ")
+    check([dataclasses.asdict(r) for r in card.requests.records]
+          == [dataclasses.asdict(r) for r in cpu.requests.records],
+          f"{label}: per-request records (tier, replica, retries, timestamps) differ")
+    check_outage_modes(card, label)
+    requests = list(crt.workload)
+    exact, ties = compare_streams([r.prompt[0] for r in requests],
+                                  [card.outputs[r.rid] for r in requests],
+                                  [cpu.outputs[r.rid] for r in requests],
+                                  crt._engine_for(crt.tiers[0]).model,
+                                  prt_._engine_for(prt_.tiers[0]).model, ("card", "cpu"))
+    launches = cout["launches"]
+    steps = check_fleet_launches(crt, launches, "mixed_attention", "decode_attention", label)
+    return dict(**steps, requests=len(requests), exact_streams=exact, near_ties=ties,
+                mode_trace=cout["mode_trace"], decisions=cout["decisions"],
+                retries=cout["retries"], ticks=cout["ticks"], card_wall_s=cout["wall_s"],
+                cpu_wall_s=pout["wall_s"], card_warmup_s=cout["warmup_s"],
+                replica_captures=cout["replica_captures"], launches=launches,
+                layers=4, dtype="float32")
+
+
 def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[dtype]
@@ -2978,14 +3374,14 @@ ZAMBA2_PHASES = ("serve_zamba2", "generate_zamba2", "durable_zamba2")
 LAUNCH_PHASES = {
     "flash_attention": ("serve_legacy", "serve_legacy_paged", "generate") + ZAMBA2_PHASES,
     "decode_attention": ("serve_single", "card_vs_cpu", "zamba2_card_vs_cpu",
-                         "durable_exact_zamba2"),
+                         "durable_exact_zamba2", "fleet", "fleet_exact"),
     "decode_attention_splitk": ("serve",) + ZAMBA2_PHASES,
-    "mixed_attention": ("serve", "serve_single", "serve_spec"),
+    "mixed_attention": ("serve", "serve_single", "serve_spec", "fleet"),
     "decode_attention_paged": ("serve_single_paged", "card_vs_cpu_paged", "durable_exact_mixed",
-                               "durable_exact_legacy"),
+                               "durable_exact_legacy", "fleet_recovery"),
     "decode_attention_paged_splitk": ("serve_paged", "durable_kv"),
     "mixed_attention_paged": ("serve_paged", "serve_legacy_paged", "serve_single_paged",
-                              "serve_spec_paged", "durable_kv"),
+                              "serve_spec_paged", "durable_kv", "fleet_recovery"),
     "wkv6": ("serve_rwkv", "generate_rwkv", "durable_rwkv"),
     "ssd": ZAMBA2_PHASES,
     "rmsnorm": ZAMBA2_PHASES,
@@ -2998,7 +3394,8 @@ _VS = ("legacy_vs_mixed",)
 _SPEC = tuple(("spec_card_vs_cpu", f"{layout}_k{k}") for layout in ("contiguous", "paged")
               for k in (1, 4, 8))
 FP32_PHASES = {
-    "mixed_attention": ((("card_vs_cpu",), "mixed_attention"),)
+    "mixed_attention": ((("card_vs_cpu",), "mixed_attention"),
+                        (("fleet_exact",), "mixed_attention"))
     + tuple((run, "mixed_attention") for run in _SPEC if run[1].startswith("contiguous")),
     "mixed_attention_paged": ((("card_vs_cpu_paged",), "mixed_attention_paged"),
                               (_VS + ("paged",), "mixed_attention_paged"),
@@ -3142,6 +3539,20 @@ def main() -> int:
           flush=True)
     del model
     free_memory()
+    t0 = time.perf_counter()
+    runs["fleet"] = phase_fleet(name_line)
+    free_memory()
+    fleet_s = time.perf_counter() - t0
+    print(f"[4p/6] fleet drill at full width (bf16 qwen3-0.6b, cheap and premium tiers, the "
+          f"cheap pool out from 6 to 16 s) in {fleet_s:.1f} s on {name_line}: "
+          + json.dumps(runs["fleet"]), flush=True)
+    t0 = time.perf_counter()
+    runs["fleet_recovery"] = phase_fleet_recovery(name_line)
+    free_memory()
+    fleet_s += time.perf_counter() - t0
+    print(f"[4q/6] durable-KV fleet drill at full width (bf16, paged, kills at 2 and 4 s, a "
+          f"preemption at 3 s) in {time.perf_counter() - t0:.1f} s on {name_line}: "
+          + json.dumps(runs["fleet_recovery"]), flush=True)
 
     rcfg = get_config("rwkv6-7b")
     t0 = time.perf_counter()
@@ -3232,6 +3643,13 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f} s: " + json.dumps(runs[key]), flush=True)
     del cpu_model, card_model
     free_memory()
+    t0 = time.perf_counter()
+    runs["fleet_exact"] = phase_fleet_exact()
+    free_memory()
+    fleet_s += time.perf_counter() - t0
+    print(f"[5j/6] fleet exactness (demo fleet, 4-layer fp32 qwen3, the cheap pool out from 6 "
+          f"to 16 s) card vs cpu in {time.perf_counter() - t0:.1f} s: "
+          + json.dumps(runs["fleet_exact"]), flush=True)
     for key, tag, zcfg_, n_layers in (("rwkv", "5d", rcfg, 2), ("zamba2", "5e", zcfg, 12)):
         t0 = time.perf_counter()
         runs[f"{key}_card_vs_cpu"], cpu_model, card_model = phase_scan_card_vs_cpu(zcfg_, n_layers)
@@ -3284,6 +3702,7 @@ def main() -> int:
                if k.startswith("phase_") or k in ("ms_by_cols", "ms_by_rows", "ms_by_cluster",
                                                   "cluster", "bf16", "partial_ms", "q16")}))
     print(f"durable KV phases (4n, 4o, 5i): {durable_s:.1f} s")
+    print(f"fleet phases (4p, 4q, 5j): {fleet_s:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(name_line)
     print(json.dumps({"kernels": rows}))

@@ -25,4 +25,26 @@ def get_config(arch: str) -> ModelConfig:
     return importlib.import_module(_ARCH_MODULES[arch]).CONFIG
 
 
-__all__ = ["ARCH_IDS", "ModelConfig", "get_config"]
+# Serving arches that are not token LMs (the JAX package's diffusion-style
+# job tiers).  Their engine, ``serving/diffusion.py``, is not ported yet, so
+# the port names them only to refuse them with a clear message.
+JOB_ARCHES: Tuple[str, ...] = ("sd21",)
+
+
+def resolve_serving_arch(arch: str) -> ModelConfig:
+    """name -> the ``ModelConfig`` that serves it: the fleet's fail-fast
+    check of ``TierSpec.arch`` at construction.  An unknown arch raises
+    ``KeyError`` with the known names, as in JAX; a job arch raises
+    ``ValueError``: the port has no job engine yet."""
+    if arch in JOB_ARCHES:
+        raise ValueError(
+            f"serving arch {arch!r} is a diffusion job tier; the port has no "
+            "job engine yet (serving/diffusion.py is not ported)")
+    try:
+        return get_config(arch)
+    except KeyError:
+        known = sorted(_ARCH_MODULES) + sorted(JOB_ARCHES)
+        raise KeyError(f"unknown serving arch {arch!r}; known: {known}") from None
+
+
+__all__ = ["ARCH_IDS", "JOB_ARCHES", "ModelConfig", "get_config", "resolve_serving_arch"]

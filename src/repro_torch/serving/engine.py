@@ -139,6 +139,7 @@ class EngineConfig:
     paged_kv: bool = False          # block-based KV with prefix reuse
     page_size: int = 16             # tokens per KV page
     num_pages: int = 0              # 0 => auto-size from decode_batch/max_len
+    prefix_reuse: bool = True       # cross-request prompt-prefix sharing
     spec_k: int = 0                 # draft tokens per decode round (0 = off);
                                     # sessions retune it live
     spec_ngram: int = 3             # n-gram length of the default drafter
@@ -264,6 +265,13 @@ class ServingEngine:
         prepared, as the JAX engine counts its traces: by warming or by a
         first use."""
         return len(self._buckets)
+
+    @property
+    def captures(self) -> Tuple[int, float]:
+        """Graphs this engine's sessions captured, and the host seconds
+        their first calls and captures took: (0, 0.0) without graphs."""
+        g = self._graphs
+        return (0, 0.0) if g is None else (g.captured, g.capture_s)
 
     def new_session(self) -> "QueueSession":
         return QueueSession(self)
@@ -621,7 +629,8 @@ class QueueSession:
         self.tables = None
         self.allocator = None
         if self.paged:
-            self.allocator = BlockAllocator(engine.num_pages, engine.cfg.page_size)
+            self.allocator = BlockAllocator(engine.num_pages, engine.cfg.page_size,
+                                            enable_reuse=engine.cfg.prefix_reuse)
             self.tables = np.full((n_slots, engine.max_blocks), TRASH_PAGE, dtype=np.int32)
             self._slot_pages: List[List[int]] = [[] for _ in range(n_slots)]
             self._slot_of: Dict[int, int] = {}        # rid -> slot holding its pages
@@ -896,7 +905,7 @@ class QueueSession:
             self.slots.admit(s, rid, max_new)     # decoding immediately
             return True
 
-        if self._ingest_overlap(tokens):
+        if al.enable_reuse and self._ingest_overlap(tokens):
             # another slot is mid-ingest on this prompt (or one sharing whole
             # blocks with it): wait for its publish, then hit the cache
             return False

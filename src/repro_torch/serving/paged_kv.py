@@ -96,18 +96,21 @@ class BlockAllocator:
     ``num_pages - 1``.  All methods are O(pages touched).
     """
 
-    # prompt entries carry full (V,) logits; this cap bounds that host
-    # memory independently of pool size (oldest entry evicted first, its
-    # block-level entries and pages untouched)
-    MAX_PROMPT_ENTRIES = 1024
-
-    def __init__(self, num_pages: int, page_size: int):
+    def __init__(self, num_pages: int, page_size: int, *,
+                 enable_reuse: bool = True, max_prompt_entries: int = 1024):
         if num_pages < 2:
             raise ValueError(f"need >= 2 pages (1 is the trash page), got {num_pages}")
         if page_size < 1:
             raise ValueError(f"page_size must be positive, got {page_size}")
         self.num_pages = num_pages
         self.page_size = page_size
+        # False turns the prefix cache off: nothing is published, nothing
+        # matches, and a freed page goes straight back to the free list
+        self.enable_reuse = enable_reuse
+        # prompt entries carry full (V,) logits; this cap bounds that host
+        # memory independently of pool size (oldest entry evicted first, its
+        # block-level entries and pages untouched)
+        self.max_prompt_entries = max_prompt_entries
         self.refcount = np.zeros(num_pages, dtype=np.int64)
         self._free: List[int] = list(range(num_pages - 1, TRASH_PAGE, -1))
         self._lru: "OrderedDict[int, None]" = OrderedDict()
@@ -231,6 +234,8 @@ class BlockAllocator:
         to feed through the model for first-token logits (a complete match
         is served by ``lookup_prompt`` instead, which carries the logits).
         """
+        if not self.enable_reuse:
+            return 0, []
         toks = tokens if type(tokens) is tuple else tuple(int(t) for t in tokens)
         ps = self.page_size
         limit = (len(toks) - 1) // ps                   # proper-prefix cap
@@ -243,11 +248,15 @@ class BlockAllocator:
         return len(pages) * ps, pages
 
     def lookup_prompt(self, tokens: Sequence[int]) -> Optional[PromptEntry]:
+        if not self.enable_reuse:
+            return None
         toks = tokens if type(tokens) is tuple else tuple(int(t) for t in tokens)
         return self._prompts.get(toks)
 
     def match_len(self, tokens: Sequence[int]) -> int:
         """Reusable prefix length (dispatcher affinity score); read-only."""
+        if not self.enable_reuse:
+            return 0
         toks = tokens if type(tokens) is tuple else tuple(int(t) for t in tokens)
         if toks in self._prompts:
             return len(toks)
@@ -259,6 +268,8 @@ class BlockAllocator:
         block plus a full-prompt entry (all blocks + final logits).  First
         writer wins — an existing entry for the same prefix is kept, so
         pages referenced by the cache are never silently swapped."""
+        if not self.enable_reuse:
+            return
         toks = tuple(int(t) for t in tokens)
         ps = self.page_size
         for i in range(len(toks) // ps):
@@ -274,7 +285,7 @@ class BlockAllocator:
             key = ("p", toks)
             for p in entry.pages:
                 self._page_keys.setdefault(p, set()).add(key)
-            while len(self._prompts) > self.MAX_PROMPT_ENTRIES:
+            while len(self._prompts) > self.max_prompt_entries:
                 oldest = next(iter(self._prompts))
                 self._drop_key(("p", oldest))
 

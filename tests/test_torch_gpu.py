@@ -49,7 +49,9 @@ at Qs 2, 4, 8 and 16 (both layouts) token-exact with ``graphs=False``,
 launches equal and the mixed-step kernel once a layer per mixed and
 verify step, seeded temperature streams equal, replays after the
 lengths, tables and drafts change bit-equal to eager, N replays counting
-N graphs' launches, and the verdict as the graph's only output.
+N graphs' launches, and the verdict as the graph's only output; and the
+fleet's failover drill (the demo fleet, both layouts) with captured
+replicas against eager ones: decisions and tokens equal.
 
 Marked ``gpu``; each test asks the ``cuda`` fixture for the card, which
 skips when ``torch.cuda.is_available()`` is false.  This file imports no
@@ -2313,3 +2315,47 @@ def test_restore_into_captured_session_equals_eager(cuda, mixed):
     for a, b in zip(out[0][0], out[1][0]):
         np.testing.assert_array_equal(a, b)
     assert out[0][1] == out[1][1]
+
+
+# ---------------------------------------------------------------------------
+# the fleet on the card: captured replicas against eager ones
+# ---------------------------------------------------------------------------
+
+
+def _fleet_run(graphs, **kw):
+    """The demo fleet (fp32 reduced qwen3) on the card, its engines
+    captured (``graphs=True``) or eager."""
+    from repro_torch.fleet.runtime import build_demo_fleet
+    from repro_torch.serving import ServingEngine
+
+    rt = build_demo_fleet(device="cuda", **kw)
+    for spec in rt.tiers:
+        eng = rt._engine_for(spec)
+        rt._engines[spec.name] = ServingEngine(eng.model, eng.cfg, device="cuda", graphs=graphs)
+    return rt, rt.run()
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_captured_fleet_equals_eager(cuda, paged):
+    """The failover drill on the card: replicas whose steps are CUDA graphs
+    make the same decisions and serve the same tokens as eager replicas;
+    every decision explains itself, and only captured replicas record
+    ``engine.capture``."""
+    import dataclasses
+
+    runs = [_fleet_run(g, n_requests=24, rate=2.0, outage=(6.0, 12.0), paged=paged)
+            for g in (True, False)]
+    (crt, cap), (ert, eag) = runs
+    assert cap.mode_trace == eag.mode_trace
+    assert [dataclasses.asdict(d) for d in cap.decisions] == \
+        [dataclasses.asdict(d) for d in eag.decisions]
+    assert all(d.explains() for d in cap.decisions)
+    assert [dataclasses.asdict(r) for r in cap.requests.records] == \
+        [dataclasses.asdict(r) for r in eag.requests.records]
+    assert sorted(cap.outputs) == sorted(eag.outputs)
+    for rid in cap.outputs:
+        np.testing.assert_array_equal(cap.outputs[rid], eag.outputs[rid])
+    assert not cap.requests.dropped and cap.requests.total_retries() >= 1
+    assert crt.tracer.select(name="engine.capture")
+    assert not ert.tracer.select(name="engine.capture")
+    assert not crt.tracer.select(name="engine.compile")

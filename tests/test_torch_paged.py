@@ -258,11 +258,7 @@ def _cow(cls):
 
 
 def _prompt_cap(cls):
-    al = cls(num_pages=12, page_size=2)
-    if cls is BlockAllocator:
-        al.MAX_PROMPT_ENTRIES = 2                  # a class constant in the port
-    else:
-        al.max_prompt_entries = 2
+    al = cls(num_pages=12, page_size=2, max_prompt_entries=2)
     for i in range(3):
         p = al.alloc()
         al.publish([10 * i, 10 * i + 1], [p], np.zeros(4))
