@@ -185,6 +185,25 @@ Phases (any failure exits non-zero; nothing is caught):
    recovered tokens > 0, store puts and hits > 0; the paged mixed step
    and the paged single-stage decode launch once a layer per step, and
    nothing else;
+4r. the job engine alone: ``serving/diffusion.py``'s ``DiffusionEngine``
+   (the sd21 tier's) at its defaults (8 slots, 16x16 fp32 latents, 20
+   denoise steps, 5 a pump), 64 jobs of 64..320 digest tokens: its graph
+   warmed, every pump one replay of it (32 pumps); all complete with their
+   lengths; a second session fed in reverse order captures its own graph
+   and gives the same digests.  Prints jobs a second, pumps, each pump's
+   device ms by CUDA events, graphs and capture seconds;
+4s. the multi-model day fleet: ``build_multimodel_day_fleet`` over a 60 s
+   day, its llm tier qwen3-0.6b at full width in bf16 (paged, mixed
+   admission), its scan tier phase 4f's rwkv6-7b (full width and depth,
+   bf16, legacy admission, through the runtime's model cache), its jobs
+   tier the runtime's sd21 job engine: every request completes on its own
+   family's tier (all 12 jobs on the jobs tier), none dropped; at least
+   one ``ctl.capacity_trade`` borrow and its return; the paged mixed step
+   and the paged single-stage decode once a layer per step of the llm
+   engine, WKV6 once a layer per scan admission, nothing else; every job's
+   digest equals a standalone job engine's on the card; a reduced fp32
+   twin on the CPU takes the same decisions and placements.  Prints the
+   mode trace, cost, per-replica captures and the launches;
 5. card vs CPU: the same kind of traffic at fp32 (full width, 4 layers,
    max_len 1024, prompts up to 900) on the card and on the CPU (plain
    versions); greedy streams must agree token for token, or each first
@@ -236,6 +255,16 @@ Phases (any failure exits non-zero; nothing is caught):
    the same mode trace, ``DecisionRecord``s and per-request records
    (tier, replica, retries, timestamps), the outage checks of 4p, and
    streams equal token for token or near-ties under ``NEAR_TIE``;
+5k. job and fleet exactness in fp32: 4r's engine and jobs captured, eager
+   (``graphs=False``) and on the CPU in step: captured and eager latents
+   bit-equal and the card's within 2e-5 of the CPU's after every pump;
+   captured again with TF32 allowed for matmuls, the same digests; eight
+   jobs alone and beside other batchmates in other slots, the same
+   digests; then 4s's fleet at its default ``reduce()`` fp32 tiers on the
+   card and on the CPU: the same mode trace, ``DecisionRecord``s and
+   request records, the LLM and scan streams equal or near-ties under
+   ``NEAR_TIE``, every job's digest a standalone engine's on its device,
+   4s's checks on each run;
 6. timing: every kernel, its plain version and the one PyTorch call with
    the same result (scaled_dot_product_attention, used only as a
    yardstick; no one call reads a block table or computes the WKV6 or SSD
@@ -2827,6 +2856,348 @@ def phase_fleet_exact() -> dict:
                 layers=4, dtype="float32")
 
 
+# ---------------------------------------------------------------------------
+# phases 4r, 4s, 5k: the job tier and the multi-model fleet
+# ---------------------------------------------------------------------------
+
+JOB_COUNT = 64
+JOB_ATOL = 2e-5            # the job engine's latents, card against CPU (fp32)
+DAY_PERIOD_S = 60.0        # build_multimodel_day_fleet's day, cut from 120 s
+
+
+def job_list(n: int, dim: int, seed: int = 0) -> list:
+    """``n`` jobs (rid, prompt of 8..32 tokens under 1024, max_new): digests
+    of 64 tokens up to a little over one latent (dim * dim) and tiled past it."""
+    rng = np.random.default_rng(seed)
+    return [(rid, rng.integers(0, 1024, (1, int(rng.integers(8, 33)))),
+             64 + (rid * 37) % (dim * dim + 16)) for rid in range(n)]
+
+
+def run_jobs(eng, jobs, *, timed: bool = False) -> dict:
+    """Every job through a fresh session of ``eng``, pumped to idle.
+    Returns the results, the pumps, the denoise calls, the graph replays
+    (``CapturedStep.replay`` counted while it runs), the wall and, with
+    ``timed``, each denoise call's device ms by CUDA events."""
+    from repro_torch.serving import steps
+
+    sess = eng.new_session()
+    for rid, prompt, n in jobs:
+        sess.submit(rid, prompt, n)
+    calls, replays, events = [0], [0], []
+    call, replay = eng._denoise_call, steps.CapturedStep.replay
+
+    def counted_call(st, n_steps):
+        calls[0] += 1
+        if timed:
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        out = call(st, n_steps)
+        if timed:
+            ev[1].record()
+            events.append(ev)
+        return out
+
+    def counted_replay(self):
+        replays[0] += 1
+        return replay(self)
+
+    eng._denoise_call, steps.CapturedStep.replay = counted_call, counted_replay
+    pumps = 0
+    try:
+        t0 = time.perf_counter()
+        while not sess.idle:
+            sess.pump()
+            pumps += 1
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del eng._denoise_call
+        steps.CapturedStep.replay = replay
+    out = dict(results=sess.results, pumps=pumps, calls=calls[0], replays=replays[0], wall_s=wall)
+    if timed:
+        out["device_ms"] = [a.elapsed_time(b) for a, b in events]
+    return out
+
+
+def check_jobs_done(jobs, results, label: str) -> None:
+    check(sorted(results) == [rid for rid, _, _ in jobs],
+          f"{label}: {len(results)} of {len(jobs)} jobs completed")
+    for rid, _, n in jobs:
+        toks = results[rid]
+        check(toks.dtype == np.int64 and toks.shape == (n,) and bool((toks >= 0).all())
+              and bool((toks < 65536).all()), f"{label}: job {rid} gave {toks.shape} {toks.dtype}")
+
+
+def same_digests(a: dict, b: dict, rids=None) -> bool:
+    return all(a[r].tobytes() == b[r].tobytes() for r in (a if rids is None else rids))
+
+
+def phase_jobs(name_line: str) -> dict:
+    """Phase 4r: the job engine alone on the card at ``DiffusionConfig``'s
+    defaults (8 slots, 16x16 latents, 20 denoise steps, 5 a pump), 64
+    jobs: its graph warmed into the first session's state, so each pump
+    there is one replay; a second session, fed in reverse order, captures
+    its own on its first pump and must give the same digests."""
+    from repro_torch.serving import DiffusionConfig, DiffusionEngine
+
+    label = "jobs 4r"
+    cfg = DiffusionConfig()
+    eng = DiffusionEngine(cfg, device="cuda")
+    t0 = time.perf_counter()
+    warmed = eng.warm()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    check(warmed == 1, f"{label}: warm() captured {warmed} graphs")
+    jobs = job_list(JOB_COUNT, cfg.latent_dim)
+    first = run_jobs(eng, jobs, timed=True)
+    check_jobs_done(jobs, first["results"], label)
+    per_job = -(-cfg.denoise_steps // cfg.steps_per_pump)
+    want_pumps = per_job * -(-JOB_COUNT // cfg.batch)
+    check(first["pumps"] == first["calls"] == want_pumps,
+          f"{label}: {first['pumps']} pumps, {first['calls']} denoise calls, {want_pumps} wanted")
+    check(first["replays"] == first["calls"],
+          f"{label}: {first['replays']} graph replays for {first['calls']} denoise calls")
+    second = run_jobs(eng, jobs[::-1])
+    check(same_digests(first["results"], second["results"]),
+          f"{label}: digests differ between sessions fed in opposite orders")
+    check(second["replays"] == second["calls"] - 1,
+          f"{label}: the second session replayed {second['replays']} of {second['calls']} calls")
+    ms = np.array(first["device_ms"])
+    out = dict(jobs=JOB_COUNT, slots=cfg.batch, latent_dim=cfg.latent_dim,
+               denoise_steps=cfg.denoise_steps, steps_per_pump=cfg.steps_per_pump,
+               pumps=first["pumps"], replays=first["replays"], wall_s=first["wall_s"],
+               jobs_per_s=JOB_COUNT / first["wall_s"],
+               device_ms_per_pump=dict(median=float(np.median(ms)), min=float(ms.min()),
+                                       max=float(ms.max()), mean=float(ms.mean())),
+               reverse_order_wall_s=second["wall_s"], reverse_order_digests_equal=True,
+               graphs=eng.captures[0], capture_s=eng.captures[1], warm_s=warm_s,
+               digest_tokens=int(sum(n for _, _, n in jobs)), card=name_line)
+    print(f"  {label}: {JOB_COUNT} jobs in {first['pumps']} pumps, {out['jobs_per_s']:.1f} jobs/s, "
+          f"device {out['device_ms_per_pump']['median']:.4f} ms a pump (median), "
+          f"{eng.captures[0]} graphs in {eng.captures[1]:.3f} s", flush=True)
+    return out
+
+
+def day_fleet(device: str, overrides=None):
+    """``build_multimodel_day_fleet`` over a 60 s day, its tiers'
+    ``model_overrides`` replaced by ``overrides[tier]`` where given."""
+    from repro_torch.fleet import runtime as fleet_runtime
+
+    base = fleet_runtime.build_multimodel_day_fleet(period_s=DAY_PERIOD_S, device=device)
+    if not overrides:
+        return base
+    tiers = [dataclasses.replace(t, model_overrides=overrides.get(t.name, t.model_overrides))
+             for t in base.tiers]
+    return fleet_runtime.FleetRuntime(tiers, base.workload, base.cfg, device=device)
+
+
+def check_day_fleet(rt, report, launches: dict, label: str) -> dict:
+    """The multi-model fleet's own checks: every job completes on the jobs
+    tier (none on an LLM or scan replica), each family on its own tier; a
+    capacity borrow and its return; tokens inside each tier's vocabulary;
+    on the card, the kernels launched exactly layers x steps of each engine (the paged
+    mixed step and the paged single-stage decode for the LLM tier, WKV6 per
+    layer per admission for the scan tier) and nothing else.  Returns the
+    trades and the step counts."""
+    from repro_torch.configs import JOB_ARCHES
+
+    tiers = {t.name: t for t in rt.tiers}
+    tier_of = {r.rid: r.tier for r in report.requests.records}
+    for req in rt.workload:
+        want = next(n for n, t in tiers.items() if t.arch == req.model)
+        check(tier_of[req.rid] == want,
+              f"{label}: request {req.rid} ({req.model}) completed on tier {tier_of[req.rid]}")
+    jobs = [r.rid for r in rt.workload if r.model in JOB_ARCHES]
+    check(len(jobs) == 12, f"{label}: {len(jobs)} jobs in the trace")
+    trades = [(e["t"], e["action"], e["tier"], e["donor"])
+              for e in rt.tracer.select(name="ctl.capacity_trade")]
+    check(any(a == "borrow" for _, a, _, _ in trades) and any(a == "return" for _, a, _, _ in trades),
+          f"{label}: no capacity borrow and return: {trades}")
+    llm, scan = rt._engines["llm"], rt._engines["scan"]
+    for name, eng in (("llm", llm), ("scan", scan)):
+        vocab = eng.model.cfg.vocab_size
+        for rid, toks in report.outputs.items():
+            if tier_of[rid] == name:
+                check(bool(((toks >= 0) & (toks < vocab)).all()), f"{label}: token out of vocab")
+    L, Ls = llm.model.cfg.n_layers, scan.model.cfg.n_layers
+    mixed_steps = llm.telemetry.mixed_steps
+    decode_steps = llm.telemetry.chunks * llm.cfg.decode_chunk
+    want = {"mixed_attention_paged": L * mixed_steps, "decode_attention_paged": L * decode_steps,
+            "wkv6": Ls * scan.telemetry.prefills}
+    if rt.device.type == "cuda":            # the CPU runs the plain versions
+        check_launches(launches, want, label)
+    return dict(trades=trades, llm_mixed_steps=mixed_steps, llm_decode_steps=decode_steps,
+                scan_prefills=scan.telemetry.prefills, scan_decode_chunks=scan.telemetry.chunks,
+                job_pumps=len([e for e in rt.tracer.select(name="engine.pump")
+                               if e["tier"] == "jobs"]))
+
+
+def standalone_digests(rt, label: str) -> int:
+    """Every job's fleet output against a standalone job engine's digest of
+    its prompt (the tier's config, on the fleet's device, one session)."""
+    from repro_torch.configs import JOB_ARCHES
+    from repro_torch.serving import DiffusionEngine
+
+    eng = DiffusionEngine(rt._engines["jobs"].cfg, device=rt.device)
+    jobs = [(r.rid, r.prompt, r.max_new) for r in rt.workload if r.model in JOB_ARCHES]
+    alone = run_jobs(eng, jobs)["results"]
+    out = rt.outputs
+    check(same_digests(alone, out, [rid for rid, _, _ in jobs]),
+          f"{label}: a job's fleet digest differs from a standalone engine's")
+    return len(jobs)
+
+
+def phase_day_fleet(name_line: str, scan_model) -> dict:
+    """Phase 4s: ``build_multimodel_day_fleet`` over a 60 s day on the card:
+    the llm tier serves qwen3-0.6b at full width in bf16 (paged, mixed
+    admission), the scan tier ``scan_model`` (phase 4f's rwkv6-7b, full
+    width and depth, bf16, legacy admission), the jobs tier the runtime's
+    sd21 job engine.  A reduced fp32 twin on the CPU must take the same
+    decisions and placements."""
+    from repro_torch.configs import get_config
+
+    label = "multimodel 4s"
+    qcfg = get_config("qwen3-0.6b")
+    over = {"llm": full_overrides(qcfg), "scan": full_overrides(scan_model.cfg)}
+    rt = day_fleet("cuda", over)
+    scan = next(t for t in rt.tiers if t.name == "scan")
+    rt._model_cache[(scan.arch, scan.param_seed, tuple(sorted(over["scan"].items())))] = scan_model
+    llm_model = rt._engine_for(rt.tiers[0]).model
+    check(dataclasses.replace(llm_model.cfg, name=qcfg.name) == qcfg,
+          f"{label}: the llm tier's model is not qwen3-0.6b at full width: {llm_model.cfg}")
+    check(rt._engine_for(scan).model is scan_model, f"{label}: the scan tier built its own model")
+    report, out = run_fleet(rt, label)
+    out.update(check_day_fleet(rt, report, out["launches"], label))
+    out["standalone_digests_equal"] = standalone_digests(rt, label)
+    twin = day_fleet("cpu")
+    t0 = time.perf_counter()
+    twin_report = twin.run()
+    out["cpu_twin_s"] = time.perf_counter() - t0
+    same = (twin_report.mode_trace == report.mode_trace
+            and [dataclasses.asdict(d) for d in twin_report.decisions]
+            == [dataclasses.asdict(d) for d in report.decisions]
+            and [(r.rid, r.tier, r.replica, r.retries, r.complete_t)
+                 for r in twin_report.requests.records]
+            == [(r.rid, r.tier, r.replica, r.retries, r.complete_t)
+                for r in report.requests.records])
+    check(same, f"{label}: the reduced CPU twin took other decisions or placements")
+    out["card"] = name_line
+    print(f"  {label}: trades {out['trades']}; ${out['total_cost_usd']:.5f}; launches "
+          + json.dumps({k: v for k, v in out["launches"].items() if v}), flush=True)
+    return out
+
+
+def phase_jobs_exact() -> dict:
+    """Phase 5k, the job engine: 4r's engine and jobs on the card captured,
+    on the card eager (``graphs=False``) and on the CPU, pumped in step:
+    captured and eager latents bit-equal and card against CPU within
+    ``JOB_ATOL`` after every pump, the same completions; captured again
+    with TF32 allowed for matmuls, bit-equal; eight jobs each alone in a
+    fresh session and in reverse order beside other batchmates, their
+    digests unchanged."""
+    from repro_torch.serving import DiffusionConfig, DiffusionEngine
+
+    label = "jobs exact 5k"
+    cfg = DiffusionConfig()
+    engines = {"captured": DiffusionEngine(cfg, device="cuda"),
+               "eager": DiffusionEngine(cfg, device="cuda", graphs=False),
+               "cpu": DiffusionEngine(cfg, device="cpu")}
+    for eng in engines.values():
+        check(torch.equal(eng.w_mix.cpu(), engines["cpu"].w_mix)
+              and torch.equal(eng.w_cond.cpu(), engines["cpu"].w_cond),
+              f"{label}: the engines' weights differ across devices")
+    jobs = job_list(JOB_COUNT, cfg.latent_dim)
+    sessions = {k: e.new_session() for k, e in engines.items()}
+    for sess in sessions.values():
+        for rid, prompt, n in jobs:
+            sess.submit(rid, prompt, n)
+    worst, pumps = 0.0, 0
+    cap, eag, cpu = (sessions[k] for k in ("captured", "eager", "cpu"))
+    while not cap.idle:
+        reps = {k: s.pump() for k, s in sessions.items()}
+        pumps += 1
+        check(sorted(reps["captured"].completed) == sorted(reps["eager"].completed)
+              == sorted(reps["cpu"].completed), f"{label}: pump {pumps} completed other jobs")
+        check(np.array_equal(cap._rem, cpu._rem) and np.array_equal(cap._rem, eag._rem),
+              f"{label}: the remaining steps differ at pump {pumps}")
+        check(torch.equal(cap.state.lat, eag.state.lat),
+              f"{label}: captured and eager latents differ at pump {pumps}")
+        worst = max(worst, float((cap.state.lat.cpu() - cpu.state.lat).abs().max()))
+        check(worst <= JOB_ATOL, f"{label}: card latents {worst:.3e} from the CPU's at pump {pumps}")
+    check(eag.idle and cpu.idle, f"{label}: the eager or CPU session is not done")
+    check_jobs_done(jobs, cap.results, label)
+    check(same_digests(cap.results, eag.results), f"{label}: captured and eager digests differ")
+    equal_tokens = sum(int((cap.results[r] == cpu.results[r]).sum()) for r in cap.results)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32_run = run_jobs(DiffusionEngine(cfg, device="cuda"), jobs)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    check(same_digests(cap.results, tf32_run["results"]),
+          f"{label}: digests change with TF32 allowed for matmuls")
+    picked = jobs[::8]
+    for job in picked:
+        alone = run_jobs(engines["captured"], [job])["results"]
+        check(same_digests(alone, cap.results, [job[0]]),
+              f"{label}: job {job[0]} alone in slot 0 gives another digest")
+    mixed = run_jobs(engines["captured"], picked[::-1] + [j for j in jobs[1::9]])["results"]
+    check(same_digests(mixed, cap.results), f"{label}: other slots and batchmates change a digest")
+    return dict(jobs=JOB_COUNT, pumps=pumps, max_abs_err_card_vs_cpu=worst, atol=JOB_ATOL,
+                captured_equals_eager=True, tf32_digests_equal=True,
+                digest_tokens_equal_card_vs_cpu=equal_tokens,
+                digest_tokens=int(sum(n for _, _, n in jobs)),
+                slot_and_batchmate_jobs=len(picked))
+
+
+def phase_day_fleet_exact() -> dict:
+    """Phase 5k, the fleet: ``build_multimodel_day_fleet`` over a 60 s day
+    at its default ``reduce()`` tiers (fp32), once on the card and once on
+    the CPU: the same mode trace, ``DecisionRecord``s and per-request
+    records; the LLM and scan streams equal token for token or near-ties
+    under ``NEAR_TIE``; every job's digest equal to a standalone engine's
+    on its device; 4s's checks on each run."""
+    from repro_torch.configs import JOB_ARCHES
+
+    label = "multimodel exact 5k"
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        rt = day_fleet(dev)
+        report, out = run_fleet(rt, f"{label} {dev}")
+        out.update(check_day_fleet(rt, report, out["launches"], f"{label} {dev}"))
+        out["standalone_digests_equal"] = standalone_digests(rt, f"{label} {dev}")
+        runs[dev] = (rt, report, out)
+    (crt, card, cout), (prt_, cpu, pout) = runs["cuda"], runs["cpu"]
+    check(card.mode_trace == cpu.mode_trace,
+          f"{label}: mode traces differ: {card.mode_trace} vs {cpu.mode_trace}")
+    check([dataclasses.asdict(d) for d in card.decisions]
+          == [dataclasses.asdict(d) for d in cpu.decisions], f"{label}: decisions differ")
+    check([dataclasses.asdict(r) for r in card.requests.records]
+          == [dataclasses.asdict(r) for r in cpu.requests.records],
+          f"{label}: per-request records (tier, replica, retries, timestamps) differ")
+    streams = {}
+    for tier in ("llm", "scan"):
+        arch = next(t.arch for t in crt.tiers if t.name == tier)
+        reqs = [r for r in crt.workload if r.model == arch]
+        streams[tier] = compare_streams([r.prompt[0] for r in reqs],
+                                        [card.outputs[r.rid] for r in reqs],
+                                        [cpu.outputs[r.rid] for r in reqs],
+                                        crt._engines[tier].model, prt_._engines[tier].model,
+                                        ("card", "cpu"))
+    jobs = [r.rid for r in crt.workload if r.model in JOB_ARCHES]
+    equal_tokens = sum(int((card.outputs[r] == cpu.outputs[r]).sum()) for r in jobs)
+    return dict(requests=len(crt.workload), ticks=cout["ticks"], mode_trace=cout["mode_trace"],
+                decisions=cout["decisions"], trades=cout["trades"],
+                llm_exact_streams=streams["llm"][0], llm_near_ties=streams["llm"][1],
+                scan_exact_streams=streams["scan"][0], scan_near_ties=streams["scan"][1],
+                jobs=len(jobs), job_digest_tokens_equal_card_vs_cpu=equal_tokens,
+                job_digest_tokens=int(sum(card.outputs[r].size for r in jobs)),
+                card_wall_s=cout["wall_s"], cpu_wall_s=pout["wall_s"],
+                card_warmup_s=cout["warmup_s"], replica_captures=cout["replica_captures"],
+                launches=cout["launches"], dtype="float32")
+
+
 def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[dtype]
@@ -3378,18 +3749,19 @@ LAUNCH_PHASES = {
     "decode_attention_splitk": ("serve",) + ZAMBA2_PHASES,
     "mixed_attention": ("serve", "serve_single", "serve_spec", "fleet"),
     "decode_attention_paged": ("serve_single_paged", "card_vs_cpu_paged", "durable_exact_mixed",
-                               "durable_exact_legacy", "fleet_recovery"),
+                               "durable_exact_legacy", "fleet_recovery", "multimodel",
+                               "multimodel_exact"),
     "decode_attention_paged_splitk": ("serve_paged", "durable_kv"),
     "mixed_attention_paged": ("serve_paged", "serve_legacy_paged", "serve_single_paged",
-                              "serve_spec_paged", "durable_kv", "fleet_recovery"),
-    "wkv6": ("serve_rwkv", "generate_rwkv", "durable_rwkv"),
+                              "serve_spec_paged", "durable_kv", "fleet_recovery", "multimodel"),
+    "wkv6": ("serve_rwkv", "generate_rwkv", "durable_rwkv", "multimodel"),
     "ssd": ZAMBA2_PHASES,
     "rmsnorm": ZAMBA2_PHASES,
     "rmsnorm_fused": ZAMBA2_PHASES,
 }
 # the fp32 phases whose launches each fp32 route reports: by kernel row,
 # (the run, the counter read) for phases 5, 5b, 5c (its legacy runs and its
-# card generate), 5d, 5e, 5h (its speculating runs) and 5i
+# card generate), 5d, 5e, 5h (its speculating runs), 5i, 5j and 5k
 _VS = ("legacy_vs_mixed",)
 _SPEC = tuple(("spec_card_vs_cpu", f"{layout}_k{k}") for layout in ("contiguous", "paged")
               for k in (1, 4, 8))
@@ -3399,7 +3771,8 @@ FP32_PHASES = {
     + tuple((run, "mixed_attention") for run in _SPEC if run[1].startswith("contiguous")),
     "mixed_attention_paged": ((("card_vs_cpu_paged",), "mixed_attention_paged"),
                               (_VS + ("paged",), "mixed_attention_paged"),
-                              (("durable_exact_mixed",), "mixed_attention_paged"))
+                              (("durable_exact_mixed",), "mixed_attention_paged"),
+                              (("multimodel_exact",), "mixed_attention_paged"))
     + tuple((run, "mixed_attention_paged") for run in _SPEC if run[1].startswith("paged")),
     "decode_attention_splitk": tuple(
         ((ph,), name) for ph in ("card_vs_cpu", "card_vs_cpu_paged", "zamba2_card_vs_cpu")
@@ -3408,7 +3781,8 @@ FP32_PHASES = {
                              for key in ("contiguous", "paged", "generate"))
     + tuple(((ph,), "flash_attention")
             for ph in ("zamba2_card_vs_cpu", "durable_exact_legacy", "durable_exact_zamba2")),
-    "wkv6": tuple(((ph,), "wkv6") for ph in ("rwkv_card_vs_cpu", "durable_exact_rwkv")),
+    "wkv6": tuple(((ph,), "wkv6")
+                  for ph in ("rwkv_card_vs_cpu", "durable_exact_rwkv", "multimodel_exact")),
     "ssd": tuple(((ph,), "ssd") for ph in ("zamba2_card_vs_cpu", "durable_exact_zamba2")),
 }
 
@@ -3553,6 +3927,12 @@ def main() -> int:
     print(f"[4q/6] durable-KV fleet drill at full width (bf16, paged, kills at 2 and 4 s, a "
           f"preemption at 3 s) in {time.perf_counter() - t0:.1f} s on {name_line}: "
           + json.dumps(runs["fleet_recovery"]), flush=True)
+    t0 = time.perf_counter()
+    runs["jobs"] = phase_jobs(name_line)
+    free_memory()
+    jobs_s = time.perf_counter() - t0
+    print(f"[4r/6] job engine alone (sd21 tier's DiffusionEngine at its defaults, {JOB_COUNT} jobs) "
+          f"in {jobs_s:.1f} s on {name_line}: " + json.dumps(runs["jobs"]), flush=True)
 
     rcfg = get_config("rwkv6-7b")
     t0 = time.perf_counter()
@@ -3575,6 +3955,13 @@ def main() -> int:
     print(f"[4o/6] durable state on rwkv6-7b: 2 frontiers out and restored with zero prefill in "
           f"{time.perf_counter() - t0:.1f} s on {name_line}: " + json.dumps(runs["durable_rwkv"]),
           flush=True)
+    t0 = time.perf_counter()
+    runs["multimodel"] = phase_day_fleet(name_line, model)
+    free_memory()
+    jobs_s += time.perf_counter() - t0
+    print(f"[4s/6] multi-model day fleet (a {DAY_PERIOD_S:.0f} s day: qwen3-0.6b paged and "
+          f"rwkv6-7b at full width in bf16, the sd21 job tier) in {time.perf_counter() - t0:.1f} s "
+          f"on {name_line}: " + json.dumps(runs["multimodel"]), flush=True)
     del model
     free_memory()
 
@@ -3650,6 +4037,14 @@ def main() -> int:
     print(f"[5j/6] fleet exactness (demo fleet, 4-layer fp32 qwen3, the cheap pool out from 6 "
           f"to 16 s) card vs cpu in {time.perf_counter() - t0:.1f} s: "
           + json.dumps(runs["fleet_exact"]), flush=True)
+    t0 = time.perf_counter()
+    runs["jobs_exact"] = phase_jobs_exact()
+    runs["multimodel_exact"] = phase_day_fleet_exact()
+    free_memory()
+    jobs_s += time.perf_counter() - t0
+    print(f"[5k/6] job and fleet exactness (the job engine captured, eager and on the CPU; the "
+          f"day fleet at its reduce() fp32 tiers card vs cpu) in {time.perf_counter() - t0:.1f} s: "
+          + json.dumps({k: runs[k] for k in ("jobs_exact", "multimodel_exact")}), flush=True)
     for key, tag, zcfg_, n_layers in (("rwkv", "5d", rcfg, 2), ("zamba2", "5e", zcfg, 12)):
         t0 = time.perf_counter()
         runs[f"{key}_card_vs_cpu"], cpu_model, card_model = phase_scan_card_vs_cpu(zcfg_, n_layers)
@@ -3703,6 +4098,7 @@ def main() -> int:
                                                   "cluster", "bf16", "partial_ms", "q16")}))
     print(f"durable KV phases (4n, 4o, 5i): {durable_s:.1f} s")
     print(f"fleet phases (4p, 4q, 5j): {fleet_s:.1f} s")
+    print(f"job and multi-model phases (4r, 4s, 5k): {jobs_s:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(name_line)
     print(json.dumps({"kernels": rows}))

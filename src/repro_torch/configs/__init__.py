@@ -1,12 +1,15 @@
-"""Architecture config registry of the port: ``get_config(arch)``.
+"""Architecture config registry of the port: ``get_config(arch)``, and
+``resolve_serving_arch``, the fleet's lookup of a ``TierSpec.arch``.
 
-Only the arches whose serving path is ported are listed; the others join
-as their families are ported.
+Only the token-LM arches whose serving path is ported are listed; the
+others join as their families are ported.  The job arch ``sd21`` (the
+paper's Stable Diffusion 2.1 deployment units) is served by
+``serving/diffusion.py``.
 """
 from __future__ import annotations
 
 import importlib
-from typing import Tuple
+from typing import Tuple, Union
 
 from repro_torch.configs.base import ModelConfig
 
@@ -25,21 +28,21 @@ def get_config(arch: str) -> ModelConfig:
     return importlib.import_module(_ARCH_MODULES[arch]).CONFIG
 
 
-# Serving arches that are not token LMs (the JAX package's diffusion-style
-# job tiers).  Their engine, ``serving/diffusion.py``, is not ported yet, so
-# the port names them only to refuse them with a clear message.
+# Serving arches that are NOT token LMs: they resolve to a job-engine
+# descriptor (the paper's Table-1 deployment units) instead of a
+# ``ModelConfig``, and the fleet serves them with ``DiffusionEngine``.
 JOB_ARCHES: Tuple[str, ...] = ("sd21",)
 
 
-def resolve_serving_arch(arch: str) -> ModelConfig:
-    """name -> the ``ModelConfig`` that serves it: the fleet's fail-fast
-    check of ``TierSpec.arch`` at construction.  An unknown arch raises
-    ``KeyError`` with the known names, as in JAX; a job arch raises
-    ``ValueError``: the port has no job engine yet."""
+def resolve_serving_arch(arch: str) -> Union[ModelConfig, tuple]:
+    """name -> what serves it: a ``ModelConfig`` for token-LM arches, or
+    the DU-profile tuple for diffusion-style job arches (``sd21``).
+
+    The fleet's fail-fast check of ``TierSpec.arch`` at construction: an
+    unknown arch raises ``KeyError`` with the known names, as in JAX."""
     if arch in JOB_ARCHES:
-        raise ValueError(
-            f"serving arch {arch!r} is a diffusion job tier; the port has no "
-            "job engine yet (serving/diffusion.py is not ported)")
+        mod = importlib.import_module(f"repro_torch.configs.{arch}")
+        return mod.paper_deployment_units()
     try:
         return get_config(arch)
     except KeyError:
@@ -47,4 +50,13 @@ def resolve_serving_arch(arch: str) -> ModelConfig:
         raise KeyError(f"unknown serving arch {arch!r}; known: {known}") from None
 
 
-__all__ = ["ARCH_IDS", "JOB_ARCHES", "ModelConfig", "get_config", "resolve_serving_arch"]
+def serving_family(arch: str) -> str:
+    """Model family string for a serving arch (``"job"`` for job-engine
+    arches like sd21): what model-compatibility routing keys on."""
+    if arch in JOB_ARCHES:
+        return "job"
+    return get_config(arch).family
+
+
+__all__ = ["ARCH_IDS", "JOB_ARCHES", "ModelConfig", "get_config", "resolve_serving_arch",
+           "serving_family"]

@@ -12,6 +12,10 @@ r, k, v, w and g projects its own mixed input.  So do a Mamba-2 layer's
 (``A_log``, ``D`` and ``dt_bias`` stay fp32); the hybrid's one ``shared``
 block is fused as a dense layer is.  An untied ``lm_head`` is kept.
 
+``diffusion_params_from_jax`` does the same for the job engine's two
+leaves (``DiffusionEngine.w_mix``, ``w_cond``), for
+``serving.diffusion.DiffusionEngine.load_params``.
+
 ``frontier_fields`` and ``frontier_from_fields`` carry durable-KV
 frontiers across, the counterpart of ``params_from_jax`` for state: a
 ``KVFrontier`` or ``StateFrontier`` of either package becomes plain fields
@@ -72,6 +76,15 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     for li in range(cfg.n_layers):
         _decoder_layer(state, f"layers.{li}.", lay, lay["attn"], lay["mlp"], li, cfg)
     return state
+
+
+def diffusion_params_from_jax(w_mix, w_cond) -> Dict[str, torch.Tensor]:
+    """The JAX ``DiffusionEngine``'s ``w_mix`` (D, D) and ``w_cond`` (D,),
+    as numpy, -> ``DiffusionEngine.load_params``' float32 CPU tensors."""
+    w_mix, w_cond = np.asarray(w_mix, np.float32), np.asarray(w_cond, np.float32)
+    if w_mix.ndim != 2 or w_mix.shape[0] != w_mix.shape[1] or w_cond.shape != w_mix.shape[:1]:
+        raise ValueError(f"w_mix {w_mix.shape} and w_cond {w_cond.shape} are not (D, D) and (D,)")
+    return {"w_mix": torch.tensor(w_mix), "w_cond": torch.tensor(w_cond)}
 
 
 def _decoder_layer(state: Dict[str, torch.Tensor], pre: str, lay: Mapping, at: Mapping,

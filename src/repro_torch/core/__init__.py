@@ -9,6 +9,5 @@ orchestration (§3), the counterpart of the JAX package's ``core``.
   router        — weighted routing, spillover, queue latency, hedging
   simulator     — discrete-event cluster simulator (Figs. 5-7 testbed)
   metrics       — per-tick and per-request accounting
-
-``allocation`` (the LP/greedy solvers of Eq.(1)-(3)) is not ported yet.
+  allocation    — LP/greedy exact solvers for Eq.(1)-(3) (beyond paper)
 """

@@ -15,7 +15,11 @@ tensors indexed by deployment unit and computes on their device.
 Everything is float32, as the JAX functions compute without x64: a float64
 input is rounded to float32 first (``as_f32``), and booleans stay boolean.
 The controller's weights feed the dispatcher's largest-deficit rounding, so
-a last-bit difference from the reference would move a request.
+a last-bit difference from the reference would move a request.  So every
+sum over the units runs left to right, one add at a time (``_sum``): a CUDA
+reduction pairs three or more terms in another order than the CPU's and
+rounds differently, and the card must take the CPU's decisions.  For
+the same reason no function divides a device tensor by a host scalar.
 """
 from __future__ import annotations
 
@@ -48,6 +52,14 @@ def _zero(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def _sum(x: torch.Tensor) -> torch.Tensor:
+    """((x0 + x1) + x2) + ... over a 1-D tensor, the same bits on every device."""
+    out = _zero(x)
+    for v in x.unbind():
+        out = out + v
+    return out
+
+
 def cost_weights(cost_per_inference: torch.Tensor, available: torch.Tensor) -> torch.Tensor:
     """Eq. (5): weights proportional to inverse cost over available units.
 
@@ -56,7 +68,7 @@ def cost_weights(cost_per_inference: torch.Tensor, available: torch.Tensor) -> t
     cost = as_f32(cost_per_inference)
     inv = torch.where(as_bool(available, cost.device), 1.0 / torch.clamp(cost, min=1e-30),
                       _zero(cost))
-    total = inv.sum()
+    total = _sum(inv)
     return torch.where(total > 0, inv / torch.clamp(total, min=1e-30), _zero(cost))
 
 
@@ -68,7 +80,7 @@ def latency_aware_cost_weights(cost_per_inference: torch.Tensor, latency_s: torc
     score = torch.where(as_bool(available, cost.device),
                         1.0 / torch.clamp(cost * as_f32(latency_s, cost.device), min=1e-30),
                         _zero(cost))
-    total = score.sum()
+    total = _sum(score)
     return torch.where(total > 0, score / torch.clamp(total, min=1e-30), _zero(cost))
 
 
@@ -85,7 +97,7 @@ def t_target(t_max: torch.Tensor, available: torch.Tensor) -> torch.Tensor:
     t = as_f32(t_max)
     av = as_bool(available, t.device)
     n = av.to(torch.float32).sum()
-    return torch.where(av, t, _zero(t)).sum() / torch.clamp(n, min=1.0)
+    return _sum(torch.where(av, t, _zero(t))) / torch.clamp(n, min=1.0)
 
 
 def t_adjusted(t_max: torch.Tensor, available: torch.Tensor) -> torch.Tensor:
@@ -100,14 +112,14 @@ def t_adjusted(t_max: torch.Tensor, available: torch.Tensor) -> torch.Tensor:
 def supply(requested: torch.Tensor, t_max: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Eq. (6-supply): T^s(t) = Σ w_i · T_i · DU_i^r(t)."""
     w = as_f32(weights)
-    return (w * as_f32(t_max, w.device) * as_f32(requested, w.device)).sum()
+    return _sum(w * as_f32(t_max, w.device) * as_f32(requested, w.device))
 
 
 def throughput_constraint_ok(requested: torch.Tensor, t_max: torch.Tensor,
                              demand: torch.Tensor) -> torch.Tensor:
     """Eq. (2): Σ DU_i^r · T_i ≥ T^d."""
     t = as_f32(t_max)
-    return (as_f32(requested, t.device) * t).sum() >= as_f32(demand, t.device)
+    return _sum(as_f32(requested, t.device) * t) >= as_f32(demand, t.device)
 
 
 def capacity_constraint_ok(requested: torch.Tensor, pool: torch.Tensor) -> torch.Tensor:
@@ -119,7 +131,9 @@ def capacity_constraint_ok(requested: torch.Tensor, pool: torch.Tensor) -> torch
 def total_cost_rate(requested: torch.Tensor, cost_per_hour: torch.Tensor) -> torch.Tensor:
     """Eq. (1) objective: Σ DU_i^r · DU_i^c  (as $/s of provisioned fleet)."""
     c = as_f32(cost_per_hour)
-    return (as_f32(requested, c.device) * c).sum() / 3600.0
+    # a tensor divisor: CUDA divides by a host scalar as a product with its
+    # reciprocal, which rounds otherwise than the CPU's division
+    return _sum(as_f32(requested, c.device) * c) / torch.tensor(3600.0, device=c.device)
 
 
 def switch_mode(requested: torch.Tensor, pool: torch.Tensor, t_max: torch.Tensor,

@@ -44,7 +44,10 @@ EWMAs and KV flush seconds).  Where it differs, and why:
   belong to a session, so only the first replica of a tier finds them
   warm; every later replica captures on its first pump, which the tracer
   records as ``engine.capture`` (graphs and host seconds).
-* Job tiers (diffusion) are not ported: their arches raise at construction.
+* A job tier (``JOB_ARCHES``: the paper's sd21 DUs) is served by
+  ``serving/diffusion.py``'s ``DiffusionEngine``, whose pump is one graph
+  replay on the card; its first replica finds its graph warm, later ones
+  capture on their first pump as LLM replicas do.
 
     PYTHONPATH=src python -m repro_torch.fleet.runtime --smoke [--device cpu]
 """
@@ -572,8 +575,20 @@ class FleetRuntime:
         return self._busy()
 
     # -- engines / replicas --------------------------------------------------
-    def _engine_for(self, spec: TierSpec) -> ServingEngine:
+    def _engine_for(self, spec: TierSpec):
         if spec.name not in self._engines:
+            from repro_torch.configs import JOB_ARCHES
+
+            if spec.arch in JOB_ARCHES:
+                # diffusion-style job tier: whole-output DUs behind the same
+                # session/pump surface, no KV cache, no token streaming
+                from repro_torch.serving.diffusion import DiffusionConfig, DiffusionEngine
+
+                self._engines[spec.name] = DiffusionEngine(DiffusionConfig(
+                    batch=spec.decode_batch, max_len=spec.max_len,
+                    seed=spec.param_seed), device=self.device)
+                return self._engines[spec.name]
+
             import dataclasses
 
             import torch
@@ -1328,14 +1343,18 @@ class FleetRuntime:
         chunk with speculation off (the controller drives the live depth
         between 0 and the tier's ceiling), the mixed-step grid of both
         chunk budgets (one Q quantum per budget x every pow-2 attention
-        window), and the verify grid of a speculating tier.  On the card
-        they are captured into the state the tier's next session takes, so
-        no measured pump of that replica captures; on the CPU they run once
-        and register their buckets, as the JAX warmup compiles its traces."""
+        window), and the verify grid of a speculating tier; a job tier's
+        denoise step.  On the card they are captured into the state the
+        tier's next session takes, so no measured pump of that replica
+        captures; on the CPU they run once and register their buckets, as
+        the JAX warmup compiles its traces."""
         if self._warmed:
             return
         for spec in self.tiers:
             eng = self._engine_for(spec)
+            if getattr(eng, "is_job_engine", False):
+                eng.warm()
+                continue
             eng.warm_decode()
             if eng.mixed:
                 budgets = [spec.prefill_chunk,
@@ -1693,10 +1712,7 @@ def build_multimodel_day_fleet(
     exactly when the LLM pool is idle — so with ``capacity_trading`` on,
     the jobs tier (ceiling 1) borrows pool ceiling from the sleeping LLM
     tier, traced as ``ctl.capacity_trade`` decisions, and returns it
-    before the morning ramp.
-
-    The port has no job engine yet, so a ``job_arch`` from ``JOB_ARCHES``
-    (the default) makes the runtime raise ``ValueError`` at construction."""
+    before the morning ramp."""
     from repro_torch.configs import get_config
     from repro_torch.fleet.workload import (INTERACTIVE, burst_of, day_cycle_trace,
                                             poisson_trace)

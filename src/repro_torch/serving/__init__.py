@@ -5,6 +5,11 @@ from repro_torch.serving.api import (  # noqa: F401
     RequestStatus,
 )
 from repro_torch.serving.backends import CacheBackend, StateFrontier  # noqa: F401
+from repro_torch.serving.diffusion import (  # noqa: F401
+    DiffusionConfig,
+    DiffusionEngine,
+    DiffusionSession,
+)
 from repro_torch.serving.engine import (  # noqa: F401
     DecodeSlots,
     EngineConfig,

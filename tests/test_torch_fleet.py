@@ -274,10 +274,11 @@ def test_fleet_default_device_is_the_card():
 def test_fleet_arches_fail_fast():
     with pytest.raises(KeyError, match="unknown serving arch"):
         FleetRuntime([TierSpec(name="a", arch="nope")], [], device="cpu")
-    with pytest.raises(ValueError, match="job"):
-        FleetRuntime([TierSpec(name="a", arch="sd21")], [], device="cpu")
-    with pytest.raises(ValueError, match="job"):
-        prt.build_multimodel_day_fleet(device="cpu")
+    # a job arch builds: the sd21 tier is served by the port's job engine
+    jobs = FleetRuntime([TierSpec(name="a", arch="sd21")], [], device="cpu")
+    assert jobs._engine_for(jobs.tiers[0]).is_job_engine
+    assert [t.arch for t in prt.build_multimodel_day_fleet(device="cpu").tiers] == \
+        ["qwen3-0.6b", "rwkv6-7b", "sd21"]
     with pytest.raises(ValueError, match="duplicate"):
         FleetRuntime([TierSpec(name="a"), TierSpec(name="a")], [], device="cpu")
 

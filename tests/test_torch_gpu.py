@@ -51,7 +51,12 @@ verify step, seeded temperature streams equal, replays after the
 lengths, tables and drafts change bit-equal to eager, N replays counting
 N graphs' launches, and the verdict as the graph's only output; and the
 fleet's failover drill (the demo fleet, both layouts) with captured
-replicas against eager ones: decisions and tokens equal.
+replicas against eager ones: decisions and tokens equal; and the job tier
+(``serving/diffusion.py``): each pump of a warmed session one replay of its
+denoise graph, latents bit-equal to eager, a job's latent bit-identical in
+every slot beside any batchmates, card latents within 2e-5 of the CPU's
+with TF32 allowed or not, and the multi-model day fleet on the card (the
+CPU run's decisions, every job's digest a standalone engine's).
 
 Marked ``gpu``; each test asks the ``cuda`` fixture for the card, which
 skips when ``torch.cuda.is_available()`` is false.  This file imports no
@@ -2359,3 +2364,169 @@ def test_captured_fleet_equals_eager(cuda, paged):
     assert crt.tracer.select(name="engine.capture")
     assert not ert.tracer.select(name="engine.capture")
     assert not crt.tracer.select(name="engine.compile")
+
+
+# ---------------------------------------------------------------------------
+# the job tier on the card (serving/diffusion.py)
+# ---------------------------------------------------------------------------
+
+
+def _job_list(n, dim, seed=0):
+    rng = np.random.default_rng(seed)
+    return [(rid, rng.integers(0, 1024, (1, int(rng.integers(8, 33)))),
+             64 + (rid * 37) % (dim * dim + 16)) for rid in range(n)]
+
+
+def _job_sessions(engines, jobs):
+    sessions = [e.new_session() for e in engines]
+    for sess in sessions:
+        for rid, prompt, n in jobs:
+            sess.submit(rid, prompt, n)
+    return sessions
+
+
+def _job_results(eng, jobs):
+    (sess,) = _job_sessions([eng], jobs)
+    while not sess.idle:
+        sess.pump()
+    return sess.results
+
+
+def test_diffusion_captured_equals_eager(cuda):
+    """Each pump of a warmed session is one replay of its denoise graph and
+    leaves the latents bit-equal to an eager engine's; a second session
+    captures its own graph on its first pump; digests equal."""
+    from repro_torch.serving import DiffusionConfig, DiffusionEngine
+    from repro_torch.serving import steps
+
+    cfg = DiffusionConfig()
+    cap = DiffusionEngine(cfg, device=cuda)
+    eag = DiffusionEngine(cfg, device=cuda, graphs=False)
+    assert cap.graphs and not eag.graphs and cap.warm() == 1 and eag.warm() == 0
+    jobs = _job_list(24, cfg.latent_dim)
+    cs, es = _job_sessions([cap, eag], jobs)
+    replays, replay = [0], steps.CapturedStep.replay
+
+    def counted(self):
+        replays[0] += 1
+        return replay(self)
+
+    steps.CapturedStep.replay = counted
+    pumps = 0
+    try:
+        while not cs.idle:
+            a, b = cs.pump(), es.pump()
+            pumps += 1
+            assert sorted(a.completed) == sorted(b.completed)
+            assert torch.equal(cs.state.lat, es.state.lat)
+    finally:
+        steps.CapturedStep.replay = replay
+    assert es.idle and replays[0] == pumps == 12 and cap.captures[0] == 1
+    for rid in cs.results:
+        assert cs.results[rid].tobytes() == es.results[rid].tobytes()
+    again = _job_results(cap, jobs[::-1])
+    assert cap.captures[0] == 2
+    assert all(again[r].tobytes() == cs.results[r].tobytes() for r in again)
+
+
+def test_diffusion_slot_and_batchmate_independent(cuda):
+    """One job's latent is bit-identical in every slot beside random
+    batchmates on the card, and its digest alone equals its digest in a
+    full batch of others."""
+    from repro_torch.serving import DiffusionConfig, DiffusionEngine
+    from repro_torch.serving.diffusion import denoise
+
+    cfg = DiffusionConfig()
+    eng = DiffusionEngine(cfg, device=cuda)
+    B, D = cfg.batch, cfg.latent_dim
+    lat0, cond0 = eng.seed_job(np.array([[5, 6, 7]]))
+    rng = np.random.default_rng(1)
+    outs = set()
+    for slot in range(B):
+        lat = torch.tensor(rng.standard_normal((B, D, D), dtype=np.float32), device=cuda)
+        cond = torch.tensor(rng.standard_normal((B, D), dtype=np.float32), device=cuda)
+        rem = torch.tensor(rng.integers(0, 21, B), dtype=torch.int32, device=cuda)
+        lat[slot], cond[slot], rem[slot] = torch.tensor(lat0), torch.tensor(cond0), 20
+        out, _ = denoise(lat, cond, rem, eng.w_mix, eng.w_cond, 20)
+        outs.add(out[slot].cpu().numpy().tobytes())
+    assert len(outs) == 1
+    jobs = _job_list(3 * B, D, seed=2)
+    full = _job_results(eng, jobs)
+    for job in jobs[::5]:
+        assert _job_results(eng, [job])[job[0]].tobytes() == full[job[0]].tobytes()
+
+
+@pytest.mark.parametrize("tf32", [False, True], ids=["ieee", "tf32_allowed"])
+def test_diffusion_card_vs_cpu(cuda, tf32):
+    """Card latents within 2e-5 of the CPU's after every pump, the same
+    completions, whatever TF32 setting the process has."""
+    from repro_torch.serving import DiffusionConfig, DiffusionEngine
+
+    cfg = DiffusionConfig()
+    keep = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        card, cpu = (DiffusionEngine(cfg, device=d) for d in (cuda, "cpu"))
+        jobs = _job_list(20, cfg.latent_dim, seed=3)
+        cs, ps = _job_sessions([card, cpu], jobs)
+        while not cs.idle:
+            a, b = cs.pump(), ps.pump()
+            assert sorted(a.completed) == sorted(b.completed)
+            np.testing.assert_array_equal(cs._rem, ps._rem)
+            np.testing.assert_allclose(cs.state.lat.cpu().numpy(), ps.state.lat.numpy(),
+                                       rtol=0, atol=2e-5)
+        assert ps.idle and sorted(cs.results) == sorted(ps.results)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = keep
+
+
+def test_diffusion_tier_in_fleet_on_card(cuda):
+    """The multi-model day fleet (reduced tiers) on the card: nothing
+    dropped, every job on the jobs tier with a standalone engine's digest,
+    the CPU run's decisions and records."""
+    import dataclasses
+
+    from repro_torch.fleet.runtime import build_multimodel_day_fleet
+    from repro_torch.serving import DiffusionEngine
+
+    runs = [build_multimodel_day_fleet(period_s=60, device=d) for d in (cuda, "cpu")]
+    reports = [rt.run() for rt in runs]
+    (rt, card), (_, cpu) = zip(runs, reports)
+    assert not card.requests.dropped and len(card.requests.records) == len(rt.workload)
+    assert card.mode_trace == cpu.mode_trace
+    assert [dataclasses.asdict(d) for d in card.decisions] == \
+        [dataclasses.asdict(d) for d in cpu.decisions]
+    assert [dataclasses.asdict(r) for r in card.requests.records] == \
+        [dataclasses.asdict(r) for r in cpu.requests.records]
+    jobs = [(r.rid, r.prompt, r.max_new) for r in rt.workload if r.model == "sd21"]
+    tier_of = {r.rid: r.tier for r in card.requests.records}
+    assert len(jobs) == 12 and {tier_of[rid] for rid, _, _ in jobs} == {"jobs"}
+    alone = _job_results(DiffusionEngine(rt._engines["jobs"].cfg, device=cuda), jobs)
+    for rid, _, _ in jobs:
+        assert card.outputs[rid].tobytes() == alone[rid].tobytes()
+    assert rt._engines["jobs"].graphs and not rt.tracer.select(name="engine.compile")
+
+
+def test_policy_on_card_equals_cpu(cuda):
+    """The controller's policy on the card gives the CPU's bits with three
+    to eight units (sums run left to right on both), so a fleet of three
+    tiers takes the same decisions on either device."""
+    from repro_torch.core import policy
+
+    rng = np.random.default_rng(0)
+    for n in range(3, 9):
+        for _ in range(20):
+            args = [rng.uniform(1e-3, 2.0, n).astype(np.float32),          # cost per inference
+                    rng.uniform(0.1, 5.0, n).astype(np.float32),           # cost per hour
+                    rng.uniform(0.5, 150.0, n).astype(np.float32),         # t_max
+                    rng.integers(0, 12, n), rng.integers(0, 12, n) * (rng.random(n) < 0.8),
+                    np.float32(rng.uniform(1.0, 900.0))]
+            outs = [policy.policy_step(*(torch.as_tensor(np.asarray(a), device=d) for a in args))
+                    for d in (cuda, "cpu")]
+            for a, b in zip(*outs):
+                assert a.cpu().numpy().tobytes() == b.numpy().tobytes()
+            lat = torch.as_tensor(rng.uniform(0.1, 3.0, n).astype(np.float32))
+            av = torch.as_tensor(rng.random(n) < 0.8)
+            cw = [policy.latency_aware_cost_weights(torch.as_tensor(args[0], device=d),
+                                                    lat.to(d), av.to(d)) for d in (cuda, "cpu")]
+            assert cw[0].cpu().numpy().tobytes() == cw[1].numpy().tobytes()

@@ -171,6 +171,23 @@ def test_paper_tables_1_and_2():
         assert abs(du.cost_per_inference - paper) / paper < 0.02
 
 
+def test_sums_run_left_to_right():
+    """Every sum over the units is the float32 left fold, so the card (whose
+    reductions pair terms in their own order) takes the CPU's decisions."""
+    rng = np.random.default_rng(0)
+    for n in range(1, 9):
+        for _ in range(50):
+            x = (rng.uniform(0.0, 1.0, n) * 10.0 ** rng.integers(-3, 4, n)).astype(np.float32)
+            want = np.float32(0.0)
+            for v in x:
+                want = np.float32(want + v)
+            assert policy._sum(torch.tensor(x)).item() == want
+    cost = torch.tensor([0.3, 0.7, 0.1, 0.9, 0.2], dtype=torch.float32)
+    w = policy.cost_weights(cost, torch.ones(5, dtype=torch.bool))
+    inv = 1.0 / cost
+    np.testing.assert_array_equal(w.numpy(), (inv / policy._sum(inv)).numpy())
+
+
 def test_speculation_k_grants():
     assert speculation_k(policy.COST_OPTIMIZED, 4, None) == 4
     assert speculation_k(policy.COST_OPTIMIZED, 4, 0.5) == 4
