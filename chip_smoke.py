@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch port: serve qwen3-0.6b, rwkv6-7b and
-zamba2-2.7b on one NVIDIA GPU.
+"""Chip smoke test of the PyTorch port: serve qwen3-0.6b, rwkv6-7b,
+zamba2-2.7b, qwen3-4b, starcoder2-15b, llava-next-mistral-7b and
+llama3-405b (cut to 4 layers), and prefill hubert-xlarge, on one NVIDIA
+GPU.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
@@ -72,7 +74,14 @@ Phases (any failure exits non-zero; nothing is caught):
    putting row limits on each side of every chunk edge, at every cluster
    size, through phase 6's window and tables cut to it, and at the
    recovery tier's shape (Q 8), and with NaN past every cache_len + Q and
-   in every row of the tier's pool not held;
+   in every row of the tier's pool not held; the breadth arches' group
+   sizes ((Hkv, G, D) = (8, 4, 128), (4, 12, 128), (8, 16, 128)) in both
+   dtypes: the single-stage, split-K and mixed kernels over B=8 caches of
+   4096 keys (the mixed step at Q 8 and 13), contiguous and through phase
+   4b's pool, the causal flash prefill (B=1 S=2000, B=2 S=333), and
+   hubert's non-causal flash prefill (Hq = Hkv = 16, D 80, B=1 S=2000 and
+   B=4 S=500); at G 12 NaN past every length and in every pool row not
+   held leaves every output finite and bit-equal to the clean run's;
 4. serve: EngineClient serves full-width qwen3-0.6b (28 layers, bf16,
    seeded random weights) at the default EngineConfig: 16 requests,
    prompts 16..2000 tokens, 32 new tokens each; the engine's steps run as
@@ -204,6 +213,27 @@ Phases (any failure exits non-zero; nothing is caught):
    digest equals a standalone job engine's on the card; a reduced fp32
    twin on the CPU takes the same decisions and placements.  Prints the
    mode trace, cost, per-replica captures and the launches;
+4t. qwen3-4b (36 layers, d 2560, 32 q / 8 kv heads of 128, G 4, 8.0
+   GB bf16) at full width and depth: phase 4's traffic, mixed admission,
+   at the default EngineConfig; then the captured decode chunk replayed 7
+   times between CUDA events (``decode_step_ms``): a decode step's device
+   ms beside the bytes bound of its weights read once at 3.35 TB/s (the
+   embedding gather not counted), which it may not beat;
+4u. starcoder2-15b (40 layers, d 6144, 48 q / 4 kv heads, G 12, GELU MLP,
+   untied head, 31.9 GB) at full width and depth: 4t's checks, then
+   phase 4b's traffic paged;
+4v. llava-next-mistral-7b (32 layers, G 4, 14.5 GB): ``generate`` at B=2
+   with 576 seeded N(0, 1) patch embeddings ahead of 64 text tokens
+   (prompt_len 640, 32 steps; one flash launch a layer, one split-K
+   launch a layer a step, nothing else), then 4t's checks on text;
+4w. llama3-405b at full width (d 16384, 128 q / 8 kv heads, G 16, d_ff
+   53248, vocab 128256, untied), depth cut to ``LLAMA3_LAYERS`` = 4 of
+   126 layers (about 34 GB): 4t's checks;
+4x. hubert-xlarge (48 layers, d 1280, 16 heads of 80, GELU, non-causal,
+   1.9 GB): ``ServingEngine`` refuses it; ``Model.prefill(embeds=...,
+   all_logits=True)`` of seeded frame embeddings at B=1 S=2000 and B=4
+   S=500, logits (B, S, 504) finite, one flash launch a layer a call and
+   nothing else. Each model is freed before the next;
 5. card vs CPU: the same kind of traffic at fp32 (full width, 4 layers,
    max_len 1024, prompts up to 900) on the card and on the CPU (plain
    versions); greedy streams must agree token for token, or each first
@@ -265,6 +295,14 @@ Phases (any failure exits non-zero; nothing is caught):
    request records, the LLM and scan streams equal or near-ties under
    ``NEAR_TIE``, every job's digest a standalone engine's on its device,
    4s's checks on each run;
+5l. the breadth arches in fp32, card against CPU: starcoder2-15b at full
+   width cut to 2 layers, 8 requests (prompts 16..160, 16 new) at
+   max_len 1024, mixed and paged (streams equal or near-ties under
+   ``NEAR_TIE``, the single-stage decode held to layers x decode steps);
+   llava-next-mistral-7b cut to 2 layers, ``generate`` at B=2 with 576
+   patches ahead of 64 tokens, 32 steps (rows equal or near-ties); and
+   hubert-xlarge cut to 4 layers, all-position logits at B=1 S=500
+   within atol 1e-4 of the CPU's;
 6. timing: every kernel, its plain version and the one PyTorch call with
    the same result (scaled_dot_product_attention, used only as a
    yardstick; no one call reads a block table or computes the WKV6 or SSD
@@ -599,6 +637,12 @@ def phase_kernels() -> dict:
             errs[name][dt] = max(errs[name].get(dt, 0.0), err)
     for name, err in mixed_cluster_checks(torch.Generator("cuda").manual_seed(11)).items():
         errs[name]["torch.float32"] = max(errs[name]["torch.float32"], err)
+    breadth, done = breadth_kernel_checks(torch.Generator("cuda").manual_seed(13))
+    for name, e in breadth.items():
+        for dt, err in e.items():
+            errs[name][dt] = max(errs[name].get(dt, 0.0), err)
+    print(f"  breadth group sizes (G 4, 12, 16 at D 128; non-causal D 80): "
+          f"{json.dumps(breadth)}; poison checks at G 12 passed: {json.dumps(done)}", flush=True)
     torch.cuda.synchronize()
     return errs
 
@@ -1028,6 +1072,16 @@ def _nan_rows(t: torch.Tensor, dead: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _live_rows(kp, tbl, lens_np) -> torch.Tensor:
+    """The pool rows (flattened over pages) a sequence holds below its length."""
+    live = torch.zeros(kp.shape[0] * PAGE, dtype=torch.bool, device="cuda")
+    for b, n in enumerate(lens_np):
+        pos = torch.arange(int(n), device="cuda")
+        live[tbl[b, pos // PAGE].long() * PAGE + pos % PAGE] = True
+    check(not bool(live[:PAGE].any()), "poison: the trash page holds live keys")
+    return live
+
+
 def poison_checks(gen) -> list:
     """Each attention kernel of the tensor-core redesign, in both dtypes, at
     its main-path shape with NaN wherever the kernel must not look: the
@@ -1067,10 +1121,7 @@ def poison_checks(gen) -> list:
         for Q in (21, 500):
             kp, vp, tbl = paged_inputs(gen, np.full(B, start + Q), PAGE, dtype)
             row = tbl[0].as_strided((1, tbl.shape[1]), (0, 1))
-            pos = torch.arange(start + Q, device="cuda")
-            live = torch.zeros(kp.shape[0] * PAGE, dtype=torch.bool, device="cuda")
-            live[row[0, pos // PAGE].long() * PAGE + pos % PAGE] = True
-            check(not bool(live[:PAGE].any()), "poison: the trash page holds live keys")
+            live = _live_rows(kp, row, [start + Q])
             kn, vn = _nan_rows(kp, ~live), _nan_rows(vp, ~live)
             qm = _rand(gen, (1, Q, HKV * G, D), dtype)
             cl = torch.tensor([start], dtype=torch.int32, device="cuda")
@@ -1114,11 +1165,7 @@ def poison_checks(gen) -> list:
                    _nan_rows(k, dead), _nan_rows(v, dead), k, v)
         del k, v
     kp, vp, tbl = paged_inputs(gen, lens_np, PAGE, dtype)
-    live = torch.zeros(kp.shape[0] * PAGE, dtype=torch.bool, device="cuda")
-    for b, n in enumerate(lens_np):
-        pos = torch.arange(int(n), device="cuda")
-        live[tbl[b, pos // PAGE].long() * PAGE + pos % PAGE] = True
-    check(not bool(live[:PAGE].any()), "poison: the trash page holds live keys")
+    live = _live_rows(kp, tbl, lens_np)
     q = _rand(gen, (B, HKV * G, D), dtype)
     same_split(f"paged pool={kp.shape[0]}x{PAGE} K={K} {dtype}",
                lambda k_, v_: kernel.paged_splitk_partial_cuda(q, k_, v_, tbl, lens, k_splits=K),
@@ -1142,11 +1189,7 @@ def poison_checks(gen) -> list:
             del k, v
         tier_np = np.array([129, 384, 543])
         kp, vp, tbl = tier_inputs(gen, tier_np, dtype)
-        live = torch.zeros(kp.shape[0] * PAGE, dtype=torch.bool, device="cuda")
-        for b, n in enumerate(tier_np):
-            pos = torch.arange(int(n), device="cuda")
-            live[tbl[b, pos // PAGE].long() * PAGE + pos % PAGE] = True
-        check(not bool(live[:PAGE].any()), "poison: the trash page holds live keys")
+        live = _live_rows(kp, tbl, tier_np)
         q = _rand(gen, (TIER_B, TIER_HKV * TIER_G, TIER_D), dtype)
         lens1 = torch.as_tensor(tier_np, dtype=torch.int32, device="cuda")
         same(f"decode_attention_paged tier pool={kp.shape[0]}x{PAGE} {dtype}",
@@ -1173,11 +1216,7 @@ def poison_checks(gen) -> list:
     del k, v, kn, vn
     tq, tier_np = 8, np.array([120, 255 - 8, 536])
     kp, vp, tbl = tier_inputs(gen, tier_np + tq, dtype)
-    live = torch.zeros(kp.shape[0] * PAGE, dtype=torch.bool, device="cuda")
-    for b, n in enumerate(tier_np + tq):
-        pos = torch.arange(int(n), device="cuda")
-        live[tbl[b, pos // PAGE].long() * PAGE + pos % PAGE] = True
-    check(not bool(live[:PAGE].any()), "poison: the trash page holds live keys")
+    live = _live_rows(kp, tbl, tier_np + tq)
     q = _rand(gen, (TIER_B, tq, TIER_HKV * TIER_G, TIER_D), dtype)
     cl = torch.as_tensor(tier_np, dtype=torch.int32, device="cuda")
     same(f"mixed_attention_paged fp32 tier pool={kp.shape[0]}x{PAGE}",
@@ -1186,15 +1225,141 @@ def poison_checks(gen) -> list:
     return done
 
 
-def paged_inputs(gen, lens_np, ps, dtype, max_len=S_MAX):
+# (Hkv, G, D) of the dense-family breadth arches (phases 4t-4w, 5l):
+# qwen3-4b and llava-next-mistral-7b, starcoder2-15b, llama3-405b; and
+# hubert-xlarge's non-causal prefill (4x): Hq = Hkv = 16 heads of 80
+BREADTH_GROUPS = ((8, 4, 128), (4, 12, 128), (8, 16, 128))
+HUBERT_H, HUBERT_D = 16, 80
+
+
+def breadth_kernel_checks(gen) -> tuple:
+    """The attention kernels at the breadth arches' group sizes, both dtypes:
+    at each (Hkv, G, D) of ``BREADTH_GROUPS``, the single-stage decode, the
+    one-launch split-K decode (K 8) and the mixed step (Q 8 and 13, whose
+    Q·G rows no tile divides at G 12) over B=8 caches of 4096 keys, and the
+    paged three over phase 4b's pool geometry (the mixed step through the
+    tables cut to 2048 keys); the causal flash prefill at B=1 S=2000 and
+    B=2 S=333; hubert's non-causal flash prefill at B=1 S=2000 and B=4
+    S=500.  Then poison at G 12 (starcoder2): NaN past every length of the
+    cache and in every pool row not held, each output finite and bit-equal
+    to the clean run's.  Returns (max abs err per kernel and dtype, the
+    poison checks passed)."""
+    from repro_torch.kernels.decode_attention import kernel, ref
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+
+    errs, done = {}, []
+
+    def note(name, dtype, err):
+        errs.setdefault(name, {})
+        errs[name][str(dtype)] = max(errs[name].get(str(dtype), 0.0), err)
+
+    def same(name, got, want):
+        check(bool(torch.isfinite(got).all()), f"poison {name}: non-finite output")
+        check(bool(torch.equal(got, want)), f"poison {name}: output differs from the clean run "
+                                            f"by {_err(got, want):.3e}")
+        done.append(name)
+
+    lens_np = np.array([1, 17, 511, 512, 1025, 2049, 3000, S_MAX])
+    lens = torch.as_tensor(lens_np, dtype=torch.int32, device="cuda")
+    for hkv, g, d in BREADTH_GROUPS:
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = f"Hkv={hkv} G={g} D={d}"
+            k, v = _rand(gen, (B, S_MAX, hkv, d), dtype), _rand(gen, (B, S_MAX, hkv, d), dtype)
+            q = _rand(gen, (B, hkv * g, d), dtype)
+            note("decode_attention", dtype, _close(
+                f"decode_attention {tag}", kernel.decode_attention_cuda(q, k, v, lens),
+                ref.decode_attention(q, k, v, lens), dtype))
+            note("decode_attention_splitk", dtype,
+                 fused_splitk_check(f"splitk {tag}", q, k, v, lens, dtype, 8))
+            for Q in (8, 13):
+                qm = _rand(gen, (B, Q, hkv * g, d), dtype)
+                cl = torch.as_tensor(np.maximum(lens_np - Q, 0), dtype=torch.int32, device="cuda")
+                note("mixed_attention", dtype, _close(
+                    f"mixed Q={Q} {tag}", kernel.mixed_attention_cuda(qm, k, v, cl),
+                    ref.mixed_attention(qm, k, v, cl), dtype))
+            if g == 12:
+                dead = (torch.arange(S_MAX, device="cuda")[None, :] >= lens[:, None]).reshape(-1)
+                kn, vn = _nan_rows(k, dead), _nan_rows(v, dead)
+                same(f"decode_attention {tag} {dtype}", kernel.decode_attention_cuda(q, kn, vn, lens),
+                     kernel.decode_attention_cuda(q, k, v, lens))
+                same(f"splitk {tag} {dtype}",
+                     kernel.decode_attention_splitk_cuda(q, kn, vn, lens, k_splits=8),
+                     kernel.decode_attention_splitk_cuda(q, k, v, lens, k_splits=8))
+                Q, W = 13, 2048
+                qm = _rand(gen, (B, Q, hkv * g, d), dtype)
+                cl = torch.tensor([0, 1, 17, 511, 512, 1000, 1500, W - Q], dtype=torch.int32,
+                                  device="cuda")
+                dead = (torch.arange(S_MAX, device="cuda")[None, :]
+                        >= (cl[:, None] + Q)).reshape(-1)
+                kn, vn = _nan_rows(k, dead), _nan_rows(v, dead)
+                same(f"mixed_attention Q={Q} window={W} {tag} {dtype}",
+                     kernel.mixed_attention_cuda(qm, kn[:, :W], vn[:, :W], cl),
+                     kernel.mixed_attention_cuda(qm, k[:, :W], v[:, :W], cl))
+                del kn, vn
+            del k, v
+
+            kp, vp, tbl = paged_inputs(gen, lens_np, PAGE, dtype, hkv=hkv, d=d)
+            note("decode_attention_paged", dtype, _close(
+                f"decode_attention_paged {tag}", kernel.decode_attention_paged_cuda(
+                    q, kp, vp, tbl, lens), ref.decode_attention_paged(q, kp, vp, tbl, lens),
+                dtype))
+            _, fused = paged_splitk_check(tag, q, kp, vp, tbl, lens, dtype)
+            note("decode_attention_paged_splitk", dtype, fused)
+            if g == 12:
+                live = _live_rows(kp, tbl, lens_np)
+                kn, vn = _nan_rows(kp, ~live), _nan_rows(vp, ~live)
+                same(f"decode_attention_paged {tag} {dtype}",
+                     kernel.decode_attention_paged_cuda(q, kn, vn, tbl, lens),
+                     kernel.decode_attention_paged_cuda(q, kp, vp, tbl, lens))
+                same(f"paged splitk {tag} {dtype}",
+                     kernel.decode_attention_paged_splitk_cuda(q, kn, vn, tbl, lens, k_splits=8),
+                     kernel.decode_attention_paged_splitk_cuda(q, kp, vp, tbl, lens, k_splits=8))
+                del kn, vn
+            del kp, vp
+            Q, W = 8, 2048
+            cl_np = np.array([0, 1, 15, 16, 17, 999, 1500, W - Q])
+            kp, vp, tbl = paged_inputs(gen, cl_np + Q, PAGE, dtype, hkv=hkv, d=d)
+            cl = torch.as_tensor(cl_np, dtype=torch.int32, device="cuda")
+            qm = _rand(gen, (B, Q, hkv * g, d), dtype)
+            view = tbl[:, :W // PAGE]
+            note("mixed_attention_paged", dtype, _close(
+                f"mixed_attention_paged Q={Q} {tag}", kernel.mixed_attention_paged_cuda(
+                    qm, kp, vp, view, cl), ref.mixed_attention_paged(qm, kp, vp, view, cl), dtype))
+            if g == 12:
+                live = _live_rows(kp, tbl, cl_np + Q)
+                same(f"mixed_attention_paged Q={Q} {tag} {dtype}",
+                     kernel.mixed_attention_paged_cuda(qm, _nan_rows(kp, ~live),
+                                                       _nan_rows(vp, ~live), view, cl),
+                     kernel.mixed_attention_paged_cuda(qm, kp, vp, view, cl))
+            del kp, vp
+
+            for b, s_ in ((1, 2000), (2, 333)):
+                qf = _rand(gen, (b, s_, hkv * g, d), dtype)
+                kf, vf = _rand(gen, (b, s_, hkv, d), dtype), _rand(gen, (b, s_, hkv, d), dtype)
+                note("flash_attention", dtype, _close(
+                    f"flash_attention causal B={b} S={s_} {tag}",
+                    flash_kernel.flash_attention_cuda(qf, kf, vf, causal=True),
+                    flash_ref.flash_attention(qf, kf, vf, causal=True), dtype))
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, s_ in ((1, 2000), (4, 500)):
+            qf, kf, vf = (_rand(gen, (b, s_, HUBERT_H, HUBERT_D), dtype) for _ in range(3))
+            note("flash_attention", dtype, _close(
+                f"flash_attention non-causal B={b} S={s_} Hq=Hkv={HUBERT_H} D={HUBERT_D}",
+                flash_kernel.flash_attention_cuda(qf, kf, vf, causal=False),
+                flash_ref.flash_attention(qf, kf, vf, causal=False), dtype))
+    return errs, done
+
+
+def paged_inputs(gen, lens_np, ps, dtype, max_len=S_MAX, hkv=HKV, d=D):
     """The auto-sized pool of an engine at ``max_len`` (1 + ceil(1.5·B·nb)
-    pages) and (B, nb) tables over it: shuffled pages, rows 5 and 6 sharing
-    row 4's first 768 tokens of pages (prefix reuse), TRASH_PAGE (0) past
-    each length."""
+    pages of ``hkv`` heads of ``d``) and (B, nb) tables over it: shuffled
+    pages, rows 5 and 6 sharing row 4's first 768 tokens of pages (prefix
+    reuse), TRASH_PAGE (0) past each length."""
     nb = max_len // ps
     P = 1 + math.ceil(1.5 * B * nb)
-    kp = _rand(gen, (P, ps, HKV, D), dtype)
-    vp = _rand(gen, (P, ps, HKV, D), dtype)
+    kp = _rand(gen, (P, ps, hkv, d), dtype)
+    vp = _rand(gen, (P, ps, hkv, d), dtype)
     rng = np.random.default_rng(ps)
     tbl = rng.permutation(np.arange(1, P))[: B * nb].reshape(B, nb)
     tbl[5:7, : 768 // ps] = tbl[4, : 768 // ps]
@@ -1342,10 +1507,12 @@ def free_memory() -> None:
 
 
 def phase_serve(name_line: str, model, *, paged: bool, legacy: bool = False,
-                graphs=None) -> dict:
+                graphs=None, step_timing: bool = False) -> dict:
     """Phase 4 (contiguous) or 4b (paged) over the full-width model, or
     with ``legacy`` 4c / 4d through the legacy (mixed_step=False) admission;
-    with ``graphs=False`` its steps run eagerly (``serve_ab.py``)."""
+    with ``graphs=False`` its steps run eagerly (``serve_ab.py``); with
+    ``step_timing`` the captured decode step is timed after the drain
+    (``decode_step_ms``)."""
     from repro_torch.serving import EngineConfig
 
     cfg = model.cfg
@@ -1422,6 +1589,8 @@ def phase_serve(name_line: str, model, *, paged: bool, legacy: bool = False,
         torch.cuda.synchronize()
         alone = time.perf_counter() - t0
         out.update(prefill_alone_s=alone, prefill_share_of_wall=alone / wall)
+    if step_timing:
+        out.update(decode_step_ms(engine, handles[0]._client.session))
     if paged:
         session = handles[0]._client.session
         al = session.allocator
@@ -2498,6 +2667,329 @@ def durable_exact(label: str, card_model, cpu_model, ecfg, prompts, max_new) -> 
                 exact_vs_cpu=exact_cpu, near_ties_vs_cpu=ties_cpu,
                 eager=dict(exact_streams=len(prompts), launches_equal=True),
                 launches=cap["launches"], **walls)
+
+
+# --------------------------------------------------------------------------
+# phases 4t-4x and 5l: the dense-family breadth arches
+# --------------------------------------------------------------------------
+
+# llama3-405b at full width is cut to this many of its 126 layers (4w, about
+# 34 GB resident in bf16)
+LLAMA3_LAYERS = 4
+
+
+def step_weight_bytes(model) -> int:
+    """Bytes of weights one decode step reads, each once: every parameter
+    but the embedding table (a step gathers B of its rows), plus the table
+    once when it is the tied head."""
+    n = sum(p.numel() * p.element_size() for name, p in model.named_parameters()
+            if name != "embed")
+    if model.cfg.tie_embeddings and model.cfg.input_mode == "tokens":
+        n += model.embed.numel() * model.embed.element_size()
+    return n
+
+
+def decode_step_ms(engine, session, reps: int = 7) -> dict:
+    """Device ms of one captured decode step: the session's decode-chunk
+    graph (``decode_chunk`` steps over all its slots) replayed ``reps``
+    times between CUDA events after its traffic drained, over
+    ``decode_chunk``; beside it the weights' bytes bound of one step at
+    3.35 TB/s, which no step can beat."""
+    steps = max(1, engine.cfg.decode_chunk)
+    ms = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        engine._decode_call(session.st, steps)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b) / steps)
+    nbytes = step_weight_bytes(engine.model)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    med = float(np.median(ms))
+    check(med >= bound, f"a decode step of {med:.3f} ms beats its weights' bytes bound of "
+                        f"{bound:.3f} ms: a wrong count")
+    return dict(step_ms_median=med, step_ms_min=float(min(ms)), step_weights_gb=nbytes / 1e9,
+                step_bound_ms=bound, step_over_bound=med / bound)
+
+
+def breadth_model(arch: str, n_layers: int = 0, dtype: str = "", device="cuda", seed: int = 0):
+    """A breadth arch at full width (``n_layers``/``dtype`` replaced when
+    given), seeded random weights on ``device``; prints its size."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers, dtype=dtype or cfg.dtype)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device).manual_seed(seed)
+    model = Model(cfg, device=device).init_(gen)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    print(f"  {arch}: {cfg.n_layers} layers, {sum(p.numel() for p in model.parameters()) / 1e9:.3f}"
+          f" G parameters ({cfg.dtype}) initialised in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return model
+
+
+def phase_serve_breadth(name_line: str, model, *, paged: bool) -> dict:
+    """Phase 4's traffic (4b's when ``paged``) with mixed admission on a
+    breadth arch, then the captured decode step's device ms beside its
+    bytes bound."""
+    out = phase_serve(name_line, model, paged=paged, step_timing=True)
+    cfg = model.cfg
+    out.update(arch=cfg.name, group=cfg.n_heads // cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
+               mlp=cfg.mlp_type, tied=cfg.tie_embeddings)
+    return out
+
+
+def vlm_batch(cfg, B_: int, n_text: int, seed: int) -> dict:
+    """``generate``'s batch for a vlm: ``N_PATCH_EMBEDS`` patch embeddings
+    (seeded N(0, 1), float32 on the host) ahead of ``n_text`` tokens."""
+    from repro_torch.configs import llava_next_mistral_7b
+
+    rng = np.random.default_rng(seed)
+    n_p = llava_next_mistral_7b.N_PATCH_EMBEDS
+    return {"inputs": rng.integers(0, cfg.vocab_size, (B_, n_text)),
+            "patches": rng.standard_normal((B_, n_p, cfg.d_model)).astype(np.float32)}
+
+
+def phase_generate_vlm(name_line: str, model) -> dict:
+    """Phase 4v's generate: B=2, 576 patch embeddings ahead of 64 text
+    tokens (prompt_len 640), 32 steps, the decode loop captured."""
+    from repro_torch.serving import EngineConfig
+
+    cfg = model.cfg
+    label = f"generate {cfg.name}"
+    B_, n_text, steps = 2, 64, 32
+    batch = vlm_batch(cfg, B_, n_text, 40)
+    plen = batch["patches"].shape[1] + n_text
+    engine = make_engine_class()(model, EngineConfig(), device=model.device)
+    capture = warm_generate(engine, B_, steps, label)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = engine.generate(batch, steps, plen)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check(out.shape == (B_, steps), f"{label}: shape {out.shape}")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()), f"{label}: out-of-vocab token")
+    check(int(engine.nonfinite) == 0, f"{label}: {int(engine.nonfinite)} non-finite logits")
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"{label}: {launches['flash_attention']} flash launches, not {cfg.n_layers}")
+    check(launches["decode_attention_splitk"] == cfg.n_layers * steps,
+          f"{label}: {launches['decode_attention_splitk']} split-K launches for {steps} steps "
+          f"of {cfg.n_layers} layers")
+    check(sum(launches.values()) == cfg.n_layers * (steps + 1), f"{label}: other kernels: {launches}")
+    return dict(batch=B_, patches=plen - n_text, text_tokens=n_text, prompt_len=plen,
+                steps=steps, layers=cfg.n_layers, dtype=cfg.dtype, wall_s=wall,
+                tokens_per_s=B_ * steps / wall, launches=launches, capture=capture,
+                card=name_line)
+
+
+def phase_encoder(name_line: str, model) -> dict:
+    """Phase 4x: hubert-xlarge prefills seeded frame embeddings at B=1
+    S=2000 and B=4 S=500, all-position logits (V 504) finite, one
+    non-causal flash launch per layer per call; ``ServingEngine`` refuses
+    the model (it does not decode)."""
+    from repro_torch.serving import EngineConfig, ServingEngine
+
+    cfg = model.cfg
+    try:
+        ServingEngine(model, EngineConfig(), device=model.device)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, f"{cfg.name}: ServingEngine took a model that does not decode")
+    rng = np.random.default_rng(41)
+
+    def embeds(B_, S_):
+        return torch.as_tensor(rng.standard_normal((B_, S_, cfg.d_model)), dtype=torch.float32,
+                               device=model.device)
+
+    model.prefill(embeds=embeds(1, 64), all_logits=True)      # cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    calls = []
+    for B_, S_ in ((1, 2000), (4, 500)):
+        e = embeds(B_, S_)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = model.prefill(embeds=e, all_logits=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(tuple(logits.shape) == (B_, S_, cfg.vocab_size), f"hubert logits {logits.shape}")
+        check(bool(torch.isfinite(logits).all()), f"hubert B={B_} S={S_}: non-finite logits")
+        calls.append(dict(batch=B_, frames=S_, wall_s=wall, frames_per_s=B_ * S_ / wall))
+    launches = read_launches()
+    check(launches["flash_attention"] == 2 * cfg.n_layers,
+          f"hubert: {launches['flash_attention']} flash launches for 2 prefills of "
+          f"{cfg.n_layers} layers")
+    check(sum(launches.values()) == 2 * cfg.n_layers, f"hubert: other kernels: {launches}")
+    return dict(layers=cfg.n_layers, dtype=cfg.dtype, causal=cfg.causal, calls=calls,
+                engine_refused=refused, launches=launches,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=name_line)
+
+
+def phase_breadth(name_line: str) -> dict:
+    """Phases 4t-4x, each model freed before the next: qwen3-4b (4t),
+    starcoder2-15b contiguous and paged (4u), llava-next-mistral-7b's
+    generate with patches and phase 4's text traffic (4v), llama3-405b at
+    ``LLAMA3_LAYERS`` layers (4w), hubert-xlarge's prefill (4x)."""
+    runs = {}
+
+    def line(tag, what, key):
+        print(f"[{tag}/6] {what} on {name_line}: " + json.dumps(runs[key]), flush=True)
+
+    for arch, tag, key, layers in (("qwen3-4b", "4t", "serve_qwen3_4b", 0),
+                                   ("starcoder2-15b", "4u", "serve_starcoder2", 0)):
+        t0 = time.perf_counter()
+        model = breadth_model(arch, layers)
+        runs[key] = phase_serve_breadth(name_line, model, paged=False)
+        free_memory()
+        line(tag, f"served full-width {arch} (mixed admission) in "
+             f"{time.perf_counter() - t0:.1f} s", key)
+    t0 = time.perf_counter()
+    runs["serve_starcoder2_paged"] = phase_serve_breadth(name_line, model, paged=True)
+    free_memory()
+    line("4u", f"served full-width starcoder2-15b (paged, mixed admission) in "
+         f"{time.perf_counter() - t0:.1f} s", "serve_starcoder2_paged")
+    del model
+    free_memory()
+
+    t0 = time.perf_counter()
+    model = breadth_model("llava-next-mistral-7b")
+    runs["generate_llava"] = phase_generate_vlm(name_line, model)
+    free_memory()
+    line("4v", f"generate on full-width llava-next-mistral-7b (576 patches ahead of 64 tokens) in "
+         f"{time.perf_counter() - t0:.1f} s", "generate_llava")
+    t0 = time.perf_counter()
+    runs["serve_llava"] = phase_serve_breadth(name_line, model, paged=False)
+    del model
+    free_memory()
+    line("4v", f"served full-width llava-next-mistral-7b on text (mixed admission) in "
+         f"{time.perf_counter() - t0:.1f} s", "serve_llava")
+
+    t0 = time.perf_counter()
+    model = breadth_model("llama3-405b", LLAMA3_LAYERS)
+    runs["serve_llama3"] = phase_serve_breadth(name_line, model, paged=False)
+    runs["serve_llama3"]["depth_cut"] = f"{LLAMA3_LAYERS} of 126 layers"
+    del model
+    free_memory()
+    line("4w", f"served llama3-405b at full width, depth cut to {LLAMA3_LAYERS} of 126 layers "
+         f"(mixed admission) in {time.perf_counter() - t0:.1f} s", "serve_llama3")
+
+    t0 = time.perf_counter()
+    model = breadth_model("hubert-xlarge")
+    runs["prefill_hubert"] = phase_encoder(name_line, model)
+    del model
+    free_memory()
+    line("4x", f"hubert-xlarge prefill at full width (non-causal, all-position logits) in "
+         f"{time.perf_counter() - t0:.1f} s", "prefill_hubert")
+    return runs
+
+
+def exact_serve(label: str, card_model, cpu_model, ecfg, prompts, max_new) -> dict:
+    """One fp32 traffic on the card (captured) and on the CPU: streams equal
+    token for token, or diverging at a near-tie (``compare_streams``)."""
+    card_h, card_wall, card_eng = serve(card_model, ecfg, prompts, max_new, torch.device("cuda"),
+                                        label=label)
+    launches = read_launches()
+    paged = ecfg.paged_kv
+    for k_ in (("decode_attention_paged", "mixed_attention_paged") if paged
+               else ("decode_attention", "mixed_attention")):
+        check(launches[k_] > 0, f"{label}: kernel {k_} never launched")
+    check_decode_launches(launches, card_eng, card_model.cfg.n_layers,
+                          "decode_attention_paged" if paged else "decode_attention", label)
+    cpu_h, cpu_wall, cpu_eng = serve(cpu_model, ecfg, prompts, max_new, torch.device("cpu"))
+    vocab = card_model.cfg.vocab_size
+    check_handles(card_h, card_eng, max_new, vocab, f"{label} card fp32")
+    check_handles(cpu_h, cpu_eng, max_new, vocab, f"{label} cpu fp32")
+    exact, ties = compare_streams(prompts, [h.result() for h in card_h],
+                                  [h.result() for h in cpu_h], card_model, cpu_model,
+                                  ("card", "cpu"))
+    return dict(requests=len(prompts), exact_streams=exact, near_ties=ties,
+                layers=card_model.cfg.n_layers, max_len=ecfg.max_len, launches=launches,
+                card_wall_s=card_wall, cpu_wall_s=cpu_wall)
+
+
+def _vlm_margin(model, batch, row: int, generated, a: int, b: int) -> float:
+    """|logit(a) - logit(b)| after row ``row``'s patches, text and ``generated``."""
+    toks = np.concatenate([batch["inputs"][row], generated])[None]
+    logits, _ = model.prefill(torch.as_tensor(toks, device=model.device),
+                              patches=torch.as_tensor(batch["patches"][row:row + 1],
+                                                      device=model.device))
+    return float((logits[0, a] - logits[0, b]).abs())
+
+
+def phase_breadth_exact() -> dict:
+    """Phase 5l, fp32, card against CPU: starcoder2-15b at full width cut to
+    2 layers (G 12), 8 requests (prompts 16-160 tokens, 16 new) mixed and
+    paged at max_len 1024; llava-next-mistral-7b cut to 2 layers, generate
+    at B=2 with 576 patches ahead of 64 tokens, 32 steps; hubert-xlarge cut
+    to 4 layers, all-position logits at B=1 S=500 within atol 1e-4."""
+    from repro_torch.models import Model
+    from repro_torch.serving import EngineConfig
+
+    runs = {}
+
+    def pair(arch, n_layers):
+        cpu = breadth_model(arch, n_layers, "float32", device="cpu", seed=1)
+        card = Model(cpu.cfg, device="cuda")
+        card.load_state_dict(cpu.state_dict())
+        return cpu, card
+
+    cpu_model, card_model = pair("starcoder2-15b", 2)
+    prompts = prompts_for(np.random.default_rng(51), 8, 16, 160, cpu_model.cfg.vocab_size)
+    for key, paged in (("exact_starcoder2", False), ("exact_starcoder2_paged", True)):
+        runs[key] = exact_serve(f"5l starcoder2{' paged' if paged else ''}", card_model, cpu_model,
+                                EngineConfig(max_len=1024, paged_kv=paged), prompts, 16)
+    del cpu_model, card_model
+    free_memory()
+
+    from repro_torch.serving import ServingEngine
+
+    cpu_model, card_model = pair("llava-next-mistral-7b", 2)
+    batch = vlm_batch(cpu_model.cfg, 2, 64, 52)
+    plen, steps = batch["patches"].shape[1] + 64, 32
+    ecfg = EngineConfig(max_len=1024)
+    reset_launches()
+    card = make_engine_class()(card_model, ecfg, device=torch.device("cuda")).generate(
+        batch, steps, plen)
+    launches = read_launches()
+    cpu = ServingEngine(cpu_model, ecfg, device="cpu").generate(batch, steps, plen)
+    check(launches["flash_attention"] == 2 and launches["decode_attention"] == 2 * steps,
+          f"5l llava generate launches: {launches}")
+    exact, ties = 0, []
+    for r in range(2):
+        if np.array_equal(card[r], cpu[r]):
+            exact += 1
+            continue
+        j = int(np.nonzero(card[r] != cpu[r])[0][0])
+        m = _vlm_margin(cpu_model, batch, r, cpu[r, :j], int(card[r, j]), int(cpu[r, j]))
+        ties.append(dict(row=r, position=j, card_token=int(card[r, j]),
+                         cpu_token=int(cpu[r, j]), margin_cpu=m))
+        check(m < NEAR_TIE, f"5l llava row {r} diverges at a margin of {m:.3e} >= {NEAR_TIE}")
+    runs["exact_llava"] = dict(batch=2, prompt_len=plen, steps=steps, exact_rows=exact,
+                               near_ties=ties, launches=launches)
+    del cpu_model, card_model
+    free_memory()
+
+    cpu_model, card_model = pair("hubert-xlarge", 4)
+    e = np.random.default_rng(53).standard_normal((1, 500, cpu_model.cfg.d_model)).astype(
+        np.float32)
+    reset_launches()
+    got, _ = card_model.prefill(embeds=torch.as_tensor(e, device="cuda"), all_logits=True)
+    launches = read_launches()
+    want, _ = cpu_model.prefill(embeds=torch.as_tensor(e), all_logits=True)
+    err = float((got.cpu() - want).abs().max())
+    check(err <= 1e-4, f"5l hubert all-position logits differ from the CPU's by {err:.3e}")
+    check(launches["flash_attention"] == 4, f"5l hubert launches: {launches}")
+    runs["exact_hubert"] = dict(batch=1, frames=500, layers=4, max_abs_err=err, launches=launches)
+    del cpu_model, card_model
+    free_memory()
+    return runs
 
 
 # --------------------------------------------------------------------------
@@ -3742,18 +4234,23 @@ REPLACES = {
 }
 # the main-path runs whose launches each kernel reports
 ZAMBA2_PHASES = ("serve_zamba2", "generate_zamba2", "durable_zamba2")
+# the breadth arches' contiguous mixed-admission serving phases (4t, 4u, 4v, 4w)
+BREADTH_SERVE = ("serve_qwen3_4b", "serve_starcoder2", "serve_llava", "serve_llama3")
 LAUNCH_PHASES = {
-    "flash_attention": ("serve_legacy", "serve_legacy_paged", "generate") + ZAMBA2_PHASES,
+    "flash_attention": ("serve_legacy", "serve_legacy_paged", "generate") + ZAMBA2_PHASES
+    + ("generate_llava", "prefill_hubert"),
     "decode_attention": ("serve_single", "card_vs_cpu", "zamba2_card_vs_cpu",
-                         "durable_exact_zamba2", "fleet", "fleet_exact"),
-    "decode_attention_splitk": ("serve",) + ZAMBA2_PHASES,
-    "mixed_attention": ("serve", "serve_single", "serve_spec", "fleet"),
+                         "durable_exact_zamba2", "fleet", "fleet_exact", "exact_starcoder2",
+                         "exact_llava"),
+    "decode_attention_splitk": ("serve",) + ZAMBA2_PHASES + BREADTH_SERVE + ("generate_llava",),
+    "mixed_attention": ("serve", "serve_single", "serve_spec", "fleet") + BREADTH_SERVE,
     "decode_attention_paged": ("serve_single_paged", "card_vs_cpu_paged", "durable_exact_mixed",
                                "durable_exact_legacy", "fleet_recovery", "multimodel",
-                               "multimodel_exact"),
-    "decode_attention_paged_splitk": ("serve_paged", "durable_kv"),
+                               "multimodel_exact", "exact_starcoder2_paged"),
+    "decode_attention_paged_splitk": ("serve_paged", "durable_kv", "serve_starcoder2_paged"),
     "mixed_attention_paged": ("serve_paged", "serve_legacy_paged", "serve_single_paged",
-                              "serve_spec_paged", "durable_kv", "fleet_recovery", "multimodel"),
+                              "serve_spec_paged", "durable_kv", "fleet_recovery", "multimodel",
+                              "serve_starcoder2_paged"),
     "wkv6": ("serve_rwkv", "generate_rwkv", "durable_rwkv", "multimodel"),
     "ssd": ZAMBA2_PHASES,
     "rmsnorm": ZAMBA2_PHASES,
@@ -3767,12 +4264,14 @@ _SPEC = tuple(("spec_card_vs_cpu", f"{layout}_k{k}") for layout in ("contiguous"
               for k in (1, 4, 8))
 FP32_PHASES = {
     "mixed_attention": ((("card_vs_cpu",), "mixed_attention"),
-                        (("fleet_exact",), "mixed_attention"))
+                        (("fleet_exact",), "mixed_attention"),
+                        (("exact_starcoder2",), "mixed_attention"))
     + tuple((run, "mixed_attention") for run in _SPEC if run[1].startswith("contiguous")),
     "mixed_attention_paged": ((("card_vs_cpu_paged",), "mixed_attention_paged"),
                               (_VS + ("paged",), "mixed_attention_paged"),
                               (("durable_exact_mixed",), "mixed_attention_paged"),
-                              (("multimodel_exact",), "mixed_attention_paged"))
+                              (("multimodel_exact",), "mixed_attention_paged"),
+                              (("exact_starcoder2_paged",), "mixed_attention_paged"))
     + tuple((run, "mixed_attention_paged") for run in _SPEC if run[1].startswith("paged")),
     "decode_attention_splitk": tuple(
         ((ph,), name) for ph in ("card_vs_cpu", "card_vs_cpu_paged", "zamba2_card_vs_cpu")
@@ -3780,7 +4279,8 @@ FP32_PHASES = {
     "flash_attention": tuple((_VS + (key,), "flash_attention")
                              for key in ("contiguous", "paged", "generate"))
     + tuple(((ph,), "flash_attention")
-            for ph in ("zamba2_card_vs_cpu", "durable_exact_legacy", "durable_exact_zamba2")),
+            for ph in ("zamba2_card_vs_cpu", "durable_exact_legacy", "durable_exact_zamba2",
+                       "exact_llava", "exact_hubert")),
     "wkv6": tuple(((ph,), "wkv6")
                   for ph in ("rwkv_card_vs_cpu", "durable_exact_rwkv", "multimodel_exact")),
     "ssd": tuple(((ph,), "ssd") for ph in ("zamba2_card_vs_cpu", "durable_exact_zamba2")),
@@ -3989,6 +4489,10 @@ def main() -> int:
     del model
     free_memory()
 
+    t0 = time.perf_counter()
+    runs.update(phase_breadth(name_line))
+    breadth_s = time.perf_counter() - t0
+
     small = dataclasses.replace(cfg, n_layers=4, dtype="float32")
     cpu_model = Model(small, device="cpu").init_(torch.Generator().manual_seed(1))
     card_model = Model(small, device="cuda")
@@ -4064,6 +4568,14 @@ def main() -> int:
               flush=True)
         del cpu_model, card_model
         free_memory()
+    t0 = time.perf_counter()
+    runs.update(phase_breadth_exact())
+    breadth_s += time.perf_counter() - t0
+    print(f"[5l/6] breadth arches fp32 card vs cpu (starcoder2-15b 2 layers mixed and paged, "
+          f"llava-next-mistral-7b 2 layers generate with patches, hubert-xlarge 4 layers) in "
+          f"{time.perf_counter() - t0:.1f} s: " + json.dumps(
+              {k: runs[k] for k in ("exact_starcoder2", "exact_starcoder2_paged", "exact_llava",
+                                    "exact_hubert")}), flush=True)
 
     lvm = runs["legacy_vs_mixed"]
     eager = {"5": runs["card_vs_cpu"]["eager"], "5b": runs["card_vs_cpu_paged"]["eager"],
@@ -4099,6 +4611,7 @@ def main() -> int:
     print(f"durable KV phases (4n, 4o, 5i): {durable_s:.1f} s")
     print(f"fleet phases (4p, 4q, 5j): {fleet_s:.1f} s")
     print(f"job and multi-model phases (4r, 4s, 5k): {jobs_s:.1f} s")
+    print(f"breadth phases (4t-4x, 5l): {breadth_s:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(name_line)
     print(json.dumps({"kernels": rows}))

@@ -1,8 +1,9 @@
 """Architecture config registry of the port: ``get_config(arch)``, and
 ``resolve_serving_arch``, the fleet's lookup of a ``TierSpec.arch``.
 
-Only the token-LM arches whose serving path is ported are listed; the
-others join as their families are ported.  The job arch ``sd21`` (the
+Only the arches whose path is ported are listed: the dense, vlm and
+encoder transformers (hubert-xlarge prefills only), rwkv6 and zamba2;
+the MoE arches join when their family is ported.  The job arch ``sd21`` (the
 paper's Stable Diffusion 2.1 deployment units) is served by
 ``serving/diffusion.py``.
 """
@@ -15,8 +16,13 @@ from repro_torch.configs.base import ModelConfig
 
 _ARCH_MODULES = {
     "qwen3-0.6b": "repro_torch.configs.qwen3_0_6b",
+    "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
+    "llama3-405b": "repro_torch.configs.llama3_405b",
+    "qwen3-4b": "repro_torch.configs.qwen3_4b",
+    "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
     "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
+    "llava-next-mistral-7b": "repro_torch.configs.llava_next_mistral_7b",
 }
 
 ARCH_IDS: Tuple[str, ...] = tuple(_ARCH_MODULES)

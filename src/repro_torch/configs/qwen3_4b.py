@@ -1,0 +1,21 @@
+"""qwen3-4b [dense] — 36L d_model=2560 32H (GQA kv=8) d_ff=9728 vocab=151936.
+
+qk_norm + GQA (G 4), explicit head_dim=128, rope theta 1e6, tied embeddings, bf16.
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-4b",
+    family="dense",
+    n_layers=36,
+    d_model=2560,
+    n_heads=32,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=9728,
+    vocab_size=151_936,
+    qk_norm=True,
+    rope_theta=1_000_000.0,
+    tie_embeddings=True,
+    subquadratic=False,
+)

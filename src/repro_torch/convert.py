@@ -10,7 +10,9 @@ the per-head ``qk_norm`` weight.  An rwkv layer's leaves keep their JAX
 names and dtypes (``ln_x_w``/``ln_x_b`` stay fp32) with no fusion: each of
 r, k, v, w and g projects its own mixed input.  So do a Mamba-2 layer's
 (``A_log``, ``D`` and ``dt_bias`` stay fp32); the hybrid's one ``shared``
-block is fused as a dense layer is.  An untied ``lm_head`` is kept.
+block is fused as a dense layer is.  An untied ``lm_head`` is kept; a
+GELU layer's ``w_up``/``w_down`` stay unfused; the encoder's ``head``
+becomes ``encoder_head``, and it has no ``embed``.
 
 ``diffusion_params_from_jax`` does the same for the job engine's two
 leaves (``DiffusionEngine.w_mix``, ``w_cond``), for
@@ -54,11 +56,12 @@ def _t(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
 def params_from_jax(tree: Mapping, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """numpy JAX params -> ``Model`` state dict (CPU tensors in cfg.dtype)."""
     dtype = cfg.torch_dtype
-    state = {
-        "embed": _t(tree["embed"], dtype),
-        "final_norm": _t(tree["final_norm"], dtype),
-    }
-    if not cfg.tie_embeddings:
+    state = {"final_norm": _t(tree["final_norm"], dtype)}
+    if cfg.input_mode == "tokens":
+        state["embed"] = _t(tree["embed"], dtype)
+    if cfg.family == "encoder":
+        state["encoder_head"] = _t(tree["head"], dtype)
+    elif not cfg.tie_embeddings:
         state["lm_head"] = _t(tree["lm_head"], dtype)
     lay = tree["layers"]
     if cfg.family in ("rwkv", "hybrid"):
@@ -104,7 +107,10 @@ def _decoder_layer(state: Dict[str, torch.Tensor], pre: str, lay: Mapping, at: M
     if cfg.qk_norm:
         state[pre + "attn.qk_norm"] = attention.fuse_qk_norm(
             leaf(at, "q_norm"), leaf(at, "k_norm"), cfg.n_heads, cfg.n_kv_heads).contiguous()
-    state[pre + "w_gu"] = layers.fuse_gate_up_weights(leaf(mlp, "w_gate"), leaf(mlp, "w_up"))
+    if cfg.mlp_type == "gelu":
+        state[pre + "w_up"] = leaf(mlp, "w_up")
+    else:
+        state[pre + "w_gu"] = layers.fuse_gate_up_weights(leaf(mlp, "w_gate"), leaf(mlp, "w_up"))
     state[pre + "w_down"] = leaf(mlp, "w_down")
 
 

@@ -2,9 +2,11 @@
 
 Counterparts of the JAX package's ``models/layers.py``: ``rms_norm``,
 ``group_norm`` (rwkv's per-head ``ln_x``), ``rope_frequencies``/
-``apply_rope``, ``fuse_gate_up_weights`` and ``swiglu_fused``.  The casts
-follow the JAX code: norms, rope and silu run in fp32 and cast back to the
-working dtype; ``silu(g)`` is cast before the product with ``u``.
+``apply_rope``, ``fuse_gate_up_weights``, ``swiglu_fused`` and
+``gelu_mlp`` (the gelu branch of the JAX ``transformer.mlp_block``).  The
+casts follow the JAX code: norms, rope, silu and gelu run in fp32 and cast
+back to the working dtype; ``silu(g)`` is cast before the product with
+``u``.
 """
 from __future__ import annotations
 
@@ -59,4 +61,13 @@ def swiglu_fused(x: torch.Tensor, w_gu: torch.Tensor, w_down: torch.Tensor) -> t
     """SwiGLU with the gate/up pair as ONE matmul against ``w_gu``."""
     g, u = (x @ w_gu).chunk(2, dim=-1)
     h = F.silu(g.float()).to(x.dtype) * u
+    return h @ w_down
+
+
+def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    """The two-matrix GELU MLP: ``x @ w_up``, the tanh-form GELU in fp32
+    (``jax.nn.gelu``'s default ``approximate=True``; the erf form differs
+    by up to 4.7e-4) cast back, then ``@ w_down``."""
+    h = x @ w_up
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
     return h @ w_down

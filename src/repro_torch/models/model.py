@@ -1,8 +1,10 @@
-"""Model facade of the port (dense, rwkv and hybrid families): prefill,
-decode and mixed steps.
+"""Model facade of the port (dense, vlm, encoder, rwkv and hybrid
+families): prefill, decode and mixed steps.
 
     model = Model(cfg, device="cuda").init_(torch.Generator("cuda").manual_seed(0))
     logits, pcache = model.prefill(tokens)                       # (B, V), (L, B, ...)
+    logits, pcache = model.prefill(tokens, patches=patches)      # vlm: (B, Np, d) ahead
+    logits, pcache = model.prefill(embeds=x, all_logits=True)    # encoder: (B, S, V)
     cache = model.empty_cache(batch, max_len)
     logits = model.decode(tokens, cache, cache_len)              # (B, V)
     logits = model.step_mixed(tokens, cache, cache_lens, new_lens)
@@ -20,8 +22,12 @@ K-1, conv_ch) conv tails, (L, B, H, P, N) fp32 Mamba-2 states and one
 updated in place (the JAX engine donated them).  The rwkv and hybrid
 families have no mixed step and no paged KV (``step_mixed``,
 ``prefill_paged`` and ``empty_page_pool`` raise ``ValueError``, as in
-JAX).  ``device`` defaults to the card; a missing
-card raises.
+JAX).  The encoder family (hubert) takes frame embeddings in place of
+tokens, attends without a causal mask and does not decode: ``decode``,
+``step_mixed``, ``prefill_paged`` and ``empty_page_pool`` raise
+``ValueError``.  A vlm prefills its patch embeddings ahead of the text
+and then decodes and steps on text as a dense model does.  ``device``
+defaults to the card; a missing card raises.
 """
 from __future__ import annotations
 
@@ -47,10 +53,12 @@ Cache = Union[DecoderKVCache, rwkv6.RWKVLayerCache, zamba2.Zamba2Cache]
 
 
 class Model(nn.Module):
-    """Embedding, an ``nn.ModuleList`` of ``DecoderLayer``s (dense),
-    ``RWKVLayer``s (rwkv) or ``Mamba2Layer``s (hybrid, with the one
-    ``shared`` attention ``DecoderLayer``) and the final norm; the head is
-    the tied embedding, or ``lm_head`` (d, V) when untied.  Parameters are allocated
+    """Embedding (none for embeds input), an ``nn.ModuleList`` of
+    ``DecoderLayer``s (dense, vlm, encoder), ``RWKVLayer``s (rwkv) or
+    ``Mamba2Layer``s (hybrid, with the one ``shared`` attention
+    ``DecoderLayer``) and the final norm; the head is the encoder's
+    ``encoder_head`` (d, V) (JAX's ``head`` leaf), the tied embedding, or
+    ``lm_head`` (d, V) when untied.  Parameters are allocated
     empty on ``device``: call ``init_`` (seeded) or ``load_state_dict``
     (``convert.params_from_jax``) before use."""
 
@@ -61,8 +69,9 @@ class Model(nn.Module):
         self.device = resolve_device(device)
         dtype = cfg.torch_dtype
         kw = dict(device=self.device, dtype=dtype)
-        self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model, **kw),
-                                  requires_grad=False)
+        if cfg.input_mode == "tokens":
+            self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model, **kw),
+                                      requires_grad=False)
         self.final_norm = nn.Parameter(torch.ones(cfg.d_model, **kw), requires_grad=False)
         layer_cls = {"rwkv": rwkv6.RWKVLayer, "hybrid": mamba2.Mamba2Layer}.get(
             cfg.family, transformer.DecoderLayer)
@@ -70,7 +79,10 @@ class Model(nn.Module):
             layer_cls(cfg, device=self.device, dtype=dtype) for _ in range(cfg.n_layers))
         if self.is_hybrid:
             self.shared = transformer.DecoderLayer(cfg, device=self.device, dtype=dtype)
-        if not cfg.tie_embeddings:
+        if self.is_encoder:
+            self.encoder_head = nn.Parameter(torch.empty(cfg.d_model, cfg.vocab_size, **kw),
+                                             requires_grad=False)
+        elif not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty(cfg.d_model, cfg.vocab_size, **kw),
                                         requires_grad=False)
 
@@ -83,17 +95,26 @@ class Model(nn.Module):
         return self.cfg.family == "hybrid"
 
     @property
+    def is_encoder(self) -> bool:
+        return self.cfg.family == "encoder"
+
+    @property
     def head(self) -> torch.Tensor:
-        """The (d, V) output matrix: ``embed.T`` when tied, else ``lm_head``."""
+        """The (d, V) output matrix: the encoder's ``encoder_head``, else ``embed.T``
+        when tied, else ``lm_head``."""
+        if self.is_encoder:
+            return self.encoder_head
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
 
     @torch.no_grad()
     def init_(self, generator: torch.Generator) -> "Model":
         """Seeded random weights (the JAX init's distributions): embedding
-        N(0, 0.02²), matrices N(0, 1/fan_in) (``lm_head`` too), norms at
-        one; the rwkv layers as ``rwkv6.init_rwkv_layer_``, the Mamba-2
-        layers as ``mamba2.init_mamba2_layer_``."""
-        transformer._normal_(self.embed, 0.02, generator)
+        N(0, 0.02²), matrices N(0, 1/fan_in) (``lm_head`` and
+        ``encoder_head`` too), norms at one; the rwkv layers as
+        ``rwkv6.init_rwkv_layer_``, the Mamba-2 layers as
+        ``mamba2.init_mamba2_layer_``."""
+        if self.cfg.input_mode == "tokens":
+            transformer._normal_(self.embed, 0.02, generator)
         self.final_norm.fill_(1.0)
         for layer in self.layers:
             if self.is_rwkv:
@@ -104,22 +125,46 @@ class Model(nn.Module):
                 transformer.init_layer_(layer, self.cfg, generator)
         if self.is_hybrid:
             transformer.init_layer_(self.shared, self.cfg, generator)
-        if not self.cfg.tie_embeddings:
-            transformer._normal_(self.lm_head, 1.0 / math.sqrt(self.cfg.d_model), generator)
+        if self.is_encoder or not self.cfg.tie_embeddings:
+            transformer._normal_(self.head, 1.0 / math.sqrt(self.cfg.d_model), generator)
         return self
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         return transformer.logits_from_hidden(self.head, self.final_norm, x, self.cfg)
 
     # -- serving ------------------------------------------------------------
-    @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
-        """tokens (B, S).  Returns the LAST position's logits (B, V) — the
-        all-position logits of a 2000-token prompt at full width would be
-        1.2 GB of fp32 — and the prompt cache: KV (L, B, S, Hkv, Dh), for
-        rwkv the states and shift rows after the last token, for hybrid the
-        conv tails, states and (G, B, S, Hkv, Dh) shared-attention KV."""
+    def _embed(self, tokens, patches, embeds) -> torch.Tensor:
+        """The JAX batch forms: token embeddings; a vlm's ``patches`` (B, Np,
+        d) cast to the working dtype and concatenated ahead of them; or the
+        encoder's ``embeds`` (B, S, d) cast to ``cfg.dtype``."""
+        cfg = self.cfg
+        if self.is_encoder:
+            if embeds is None or tokens is not None:
+                raise ValueError(f"{cfg.name}: an encoder prefills embeds=, not tokens")
+            return torch.as_tensor(embeds, device=self.device).to(cfg.torch_dtype)
+        if embeds is not None:
+            raise ValueError(f"{cfg.name}: embeds= is the encoder family's input")
         x = self.embed[torch.as_tensor(tokens, device=self.device)]
+        if patches is not None:
+            if cfg.family != "vlm":
+                raise ValueError(f"{cfg.name}: patches= is the vlm family's input")
+            x = torch.cat([torch.as_tensor(patches, device=self.device).to(x.dtype), x], dim=1)
+        return x
+
+    @torch.no_grad()
+    def prefill(self, tokens: Optional[torch.Tensor] = None, *,
+                patches: Optional[torch.Tensor] = None, embeds: Optional[torch.Tensor] = None,
+                all_logits: bool = False) -> Tuple[torch.Tensor, Cache]:
+        """tokens (B, S); a vlm also takes ``patches`` (B, Np, d), prefilled
+        ahead of the text at positions [0, Np); the encoder takes ``embeds``
+        (B, S, d) in place of tokens.  Returns the LAST position's logits
+        (B, V) — the all-position logits of a 2000-token prompt at full width
+        would be 1.2 GB of fp32 — or with ``all_logits`` every position's (B,
+        S, V) (the encoder's output), and the prompt cache: KV (L, B, S, Hkv,
+        Dh), for rwkv the states and shift rows after the last token, for
+        hybrid the conv tails, states and (G, B, S, Hkv, Dh) shared-attention
+        KV."""
+        x = self._embed(tokens, patches, embeds)
         if self.is_rwkv:
             x, cache = rwkv6.run_rwkv_seq(self.layers, x, self.cfg)
         elif self.is_hybrid:
@@ -127,6 +172,8 @@ class Model(nn.Module):
         else:
             x, (k, v) = transformer.run_layers_seq(self.layers, x, self.cfg)
             cache = DecoderKVCache(k=k, v=v)
+        if all_logits:
+            return self._logits(x), cache
         return self._logits(x[:, -1:])[:, 0], cache
 
     @torch.no_grad()
@@ -159,7 +206,10 @@ class Model(nn.Module):
         ``cache`` is the page pool of ``empty_page_pool``, read and written
         through the tables.  An rwkv cache holds no positions, so
         ``cache_len`` is not read, as in JAX; the hybrid's shared attention
-        reads it."""
+        reads it.  The encoder family raises ``ValueError``."""
+        if not self.cfg.supports_decode:
+            raise ValueError(f"{self.cfg.name}: decode unsupported (family "
+                             f"{self.cfg.family!r} does not decode)")
         x = self.embed[tokens]
         if self.is_rwkv:
             if page_table is not None:

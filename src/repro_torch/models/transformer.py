@@ -2,11 +2,13 @@
 the prefill, decode and mixed layer loops, the logits head, and the check
 of which configs the port serves.
 
-Counterpart of the JAX package's ``models/transformer.py`` for the dense
-family.  The JAX stack scans over stacked (L, ...) leaves and builds the
-fused ``wqkv``/``w_gu`` once per jitted dispatch; the port keeps one
-``DecoderLayer`` module per layer, holding those fused matrices from the
-moment weights load, so no step ever rebuilds them.  The layer loops are
+Counterpart of the JAX package's ``models/transformer.py`` for the dense,
+vlm and encoder families.  The JAX stack scans over stacked (L, ...) leaves
+and builds the fused ``wqkv``/``w_gu`` once per jitted dispatch; the port
+keeps one ``DecoderLayer`` module per layer, holding those fused matrices
+from the moment weights load, so no step ever rebuilds them.  A GELU layer
+(``mlp_type="gelu"``) holds ``w_up``/``w_down`` unfused, as JAX has no
+``w_gu`` for it.  The layer loops are
 Python loops (no scan grouping or remat: the port serves, it does not
 train yet); each layer writes its KV slice in place.
 """
@@ -23,7 +25,8 @@ from repro_torch.models import attention, layers
 
 
 class DecoderLayer(nn.Module):
-    """ln1 → attention → residual → ln2 → SwiGLU (fused [w_gate|w_up])."""
+    """ln1 → attention → residual → ln2 → SwiGLU (fused [w_gate|w_up]), or
+    with ``mlp_type="gelu"`` the GELU MLP (``w_up``, ``w_down``)."""
 
     def __init__(self, cfg: ModelConfig, *, device, dtype):
         super().__init__()
@@ -31,15 +34,21 @@ class DecoderLayer(nn.Module):
         self.ln1 = nn.Parameter(torch.ones(cfg.d_model, **kw), requires_grad=False)
         self.ln2 = nn.Parameter(torch.ones(cfg.d_model, **kw), requires_grad=False)
         self.attn = attention.Attention(cfg, device=device, dtype=dtype)
-        self.w_gu = nn.Parameter(torch.empty(cfg.d_model, 2 * cfg.d_ff, **kw), requires_grad=False)
+        if cfg.mlp_type == "gelu":
+            self.w_up = nn.Parameter(torch.empty(cfg.d_model, cfg.d_ff, **kw), requires_grad=False)
+        else:
+            self.w_gu = nn.Parameter(torch.empty(cfg.d_model, 2 * cfg.d_ff, **kw),
+                                     requires_grad=False)
         self.w_down = nn.Parameter(torch.empty(cfg.d_ff, cfg.d_model, **kw), requires_grad=False)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves the dense token-LM family with SwiGLU and tied
-    embeddings, the rwkv family (token input, decoding) and the hybrid
-    family (token input, decoding, a SwiGLU shared block with full
-    attention after every ``attention_every`` Mamba-2 layers), for now."""
+    """The port serves the dense and vlm token-LM families and prefills the
+    encoder family (SwiGLU or GELU, tied or untied, full attention), and
+    serves the rwkv family (token input, decoding) and the hybrid family
+    (token input, decoding, a SwiGLU shared block with full attention after
+    every ``attention_every`` Mamba-2 layers).  MoE and sliding-window
+    attention are not ported yet."""
     if cfg.family in ("rwkv", "hybrid"):
         if cfg.input_mode != "tokens" or not cfg.supports_decode:
             raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is ported for "
@@ -51,12 +60,18 @@ def check_supported(cfg: ModelConfig) -> None:
                 f"{cfg.name}: the hybrid family is ported with a SwiGLU shared block, full "
                 f"attention and whole groups of attention_every layers")
         return
-    if (cfg.family != "dense" or cfg.is_moe or cfg.mlp_type != "swiglu"
-            or cfg.input_mode != "tokens" or not cfg.tie_embeddings):
+    if (cfg.family not in ("dense", "vlm", "encoder") or cfg.is_moe
+            or cfg.mlp_type not in ("swiglu", "gelu")):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense SwiGLU token-LM family with tied embeddings, the "
-            f"rwkv family and the hybrid family are ported (family {cfg.family!r}, "
-            f"mlp {cfg.mlp_type!r})")
+            f"{cfg.name}: only the dense, vlm and encoder families with a SwiGLU or GELU MLP, "
+            f"the rwkv family and the hybrid family are ported (family {cfg.family!r}, "
+            f"mlp {cfg.mlp_type!r}, experts {cfg.n_experts})")
+    encoder = cfg.family == "encoder"
+    if cfg.input_mode != ("embeds" if encoder else "tokens") or (encoder and cfg.supports_decode):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is ported with "
+            f"{'embeds input and no decode' if encoder else 'token input'} "
+            f"(input_mode {cfg.input_mode!r}, supports_decode {cfg.supports_decode})")
     if cfg.sliding_window > 0:
         raise NotImplementedError(
             f"{cfg.name}: sliding-window attention is not ported yet (it comes with mixtral)")
@@ -73,11 +88,12 @@ def _normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
 def init_layer_(layer: DecoderLayer, cfg: ModelConfig, generator: torch.Generator) -> None:
     """Seeded random init of one layer: every matrix N(0, 1/fan_in) as
     ``dense_init``, norms at one.  q/k/v share fan-in d_model, so the fused
-    ``wqkv`` is drawn in one piece; likewise ``w_gu``."""
+    ``wqkv`` is drawn in one piece; likewise ``w_gu`` (or a GELU layer's
+    ``w_up``)."""
     d = cfg.d_model
     _normal_(layer.attn.wqkv, 1.0 / math.sqrt(d), generator)
     _normal_(layer.attn.wo, 1.0 / math.sqrt(cfg.q_dim), generator)
-    _normal_(layer.w_gu, 1.0 / math.sqrt(d), generator)
+    _normal_(layer.w_up if cfg.mlp_type == "gelu" else layer.w_gu, 1.0 / math.sqrt(d), generator)
     _normal_(layer.w_down, 1.0 / math.sqrt(cfg.d_ff), generator)
     layer.ln1.fill_(1.0)
     layer.ln2.fill_(1.0)
@@ -86,7 +102,11 @@ def init_layer_(layer: DecoderLayer, cfg: ModelConfig, generator: torch.Generato
 
 
 def _mlp(layer: DecoderLayer, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """ln2, the layer's MLP (GELU or fused SwiGLU), residual: the one MLP
+    of every layer loop."""
     h = layers.rms_norm(x, layer.ln2, cfg.norm_eps)
+    if cfg.mlp_type == "gelu":
+        return x + layers.gelu_mlp(h, layer.w_up, layer.w_down)
     return x + layers.swiglu_fused(h, layer.w_gu, layer.w_down)
 
 
@@ -153,7 +173,7 @@ def run_layers_mixed(
 
 def logits_from_hidden(head: torch.Tensor, final_norm: torch.Tensor, x: torch.Tensor,
                        cfg: ModelConfig) -> torch.Tensor:
-    """Final norm, then the (d, V) head -- ``embed.T`` when tied, ``lm_head``
-    otherwise: (B, S, d) -> (B, S, V)."""
+    """Final norm, then the (d, V) head -- the encoder's ``encoder_head``, else
+    ``embed.T`` when tied, ``lm_head`` otherwise: (B, S, d) -> (B, S, V)."""
     x = layers.rms_norm(x, final_norm, cfg.norm_eps)
     return x @ head

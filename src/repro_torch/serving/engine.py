@@ -234,6 +234,9 @@ class ServingEngine:
         if cfg.paged_kv and not model.supports_paged_kv:
             raise ValueError(
                 f"paged_kv=True but {model.cfg.name} has no pageable KV cache")
+        if not model.cfg.supports_decode:
+            raise ValueError(f"{model.cfg.name} (family {model.cfg.family!r}) does not decode: "
+                             f"prefill it through Model.prefill")
         self.model = model
         self.cfg = cfg
         self.telemetry = EngineTelemetry()
@@ -381,15 +384,21 @@ class ServingEngine:
 
     # -- single-shot steps and fixed-batch generation ---------------------------
     def prefill(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Any]:
-        """``batch['inputs']`` (B, S) -> last-position logits (B, V) and the
-        prompt cache: KV (L, B, S, Hkv, Dh), or the rwkv states and shift
-        rows after the prompt."""
+        """``batch['inputs']`` (B, S), with a vlm's ``batch['patches']`` (B,
+        Np, d) ahead of them -> last-position logits (B, V) and the prompt
+        cache: KV (L, B, Np + S, Hkv, Dh), or the rwkv states and shift rows
+        after the prompt."""
+        patches = batch.get("patches")
+        if patches is not None:
+            patches = torch.as_tensor(patches, device=self.device)
         return self.model.prefill(torch.as_tensor(np.asarray(batch["inputs"]),
-                                                  device=self.device))
+                                                  device=self.device), patches=patches)
 
     def generate(self, prompt: Dict[str, Any], steps: int, prompt_len: int) -> np.ndarray:
         """Greedy/temperature generation for a fixed batch of prompts.
-        ``prompt['inputs']`` is (B, S_prompt); returns (B, steps) tokens:
+        ``prompt['inputs']`` is (B, S_prompt), with a vlm's
+        ``prompt['patches']`` (B, Np, d) ahead of them (``prompt_len`` is
+        then Np + S_prompt); returns (B, steps) tokens:
         one prefill, the cache padded into a ``max_len`` buffer, then
         ``steps`` decode steps at one shared length.  A temperature above 0
         draws from a ``torch.Generator`` seeded with ``cfg.seed``."""
