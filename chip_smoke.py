@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port: serve qwen3-0.6b, rwkv6-7b,
-zamba2-2.7b, qwen3-4b, starcoder2-15b, llava-next-mistral-7b and
-llama3-405b (cut to 4 layers), and prefill hubert-xlarge, on one NVIDIA
+zamba2-2.7b, qwen3-4b, starcoder2-15b, llava-next-mistral-7b,
+llama3-405b (cut to 4 layers), mixtral-8x22b (cut to 4 layers) and
+arctic-480b (cut to 2 layers), and prefill hubert-xlarge, on one NVIDIA
 GPU.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
@@ -81,7 +82,10 @@ Phases (any failure exits non-zero; nothing is caught):
    4b's pool, the causal flash prefill (B=1 S=2000, B=2 S=333), and
    hubert's non-causal flash prefill (Hq = Hkv = 16, D 80, B=1 S=2000 and
    B=4 S=500); at G 12 NaN past every length and in every pool row not
-   held leaves every output finite and bit-equal to the clean run's;
+   held leaves every output finite and bit-equal to the clean run's; the
+   same checks at the MoE arches' group sizes ((8, 6, 128) mixtral, (8,
+   7, 128) arctic), with the poison checks at G 6 and 7, and the causal
+   flash prefill at mixtral's window (4096) over S = 6000;
 4. serve: EngineClient serves full-width qwen3-0.6b (28 layers, bf16,
    seeded random weights) at the default EngineConfig: 16 requests,
    prompts 16..2000 tokens, 32 new tokens each; the engine's steps run as
@@ -234,6 +238,25 @@ Phases (any failure exits non-zero; nothing is caught):
    all_logits=True)`` of seeded frame embeddings at B=1 S=2000 and B=4
    S=500, logits (B, S, 504) finite, one flash launch a layer a call and
    nothing else. Each model is freed before the next;
+4y. mixtral-8x22b at full width (d 6144, 48 q / 8 kv heads of 128, G 6,
+   8 experts top-2 of d_ff 16384, window 4096, vocab 32768, untied),
+   depth cut to ``MIXTRAL_LAYERS`` = 4 of 56 layers (20.4 GB): phase 4's
+   traffic at the default EngineConfig, which takes legacy admission (no
+   mixed step with a window): one windowed flash launch a layer an
+   admission, one split-K launch a layer a decode step, 4t's decode-step
+   timing (bound 6.10 ms: every expert is read every step); then
+   EngineConfig(max_len=8192), 4 prompts of 4100-6000 tokens and 64 new
+   each (the flash prefill windowed past the window, the ring of 4096
+   rows wrapping), the same launch checks, and on the card a decode
+   step after prefill(S) placed in the ring against prefill(S + 1) at S =
+   4100 and 6000 (``ring_check``, at the capacity factor E / k where no
+   expert overflows) within ``RING_BF16_REL`` of the logits' RMS, which
+   the JAX package's placement must exceed;
+4z. arctic-480b at full width (d 7168, 56 q / 8 kv heads, G 7, 128
+   experts top-2 of d_ff 4864 and a dense SwiGLU residual of 7168),
+   depth cut to ``ARCTIC_LAYERS`` = 2 of 35 layers (55.1 GB): phase 4's
+   traffic (mixed) and 4b's (paged), one q-chunk launch a layer a mixed
+   step, 4t's decode-step timing (bound 16.45 ms);
 5. card vs CPU: the same kind of traffic at fp32 (full width, 4 layers,
    max_len 1024, prompts up to 900) on the card and on the CPU (plain
    versions); greedy streams must agree token for token, or each first
@@ -303,6 +326,15 @@ Phases (any failure exits non-zero; nothing is caught):
    patches ahead of 64 tokens, 32 steps (rows equal or near-ties); and
    hubert-xlarge cut to 4 layers, all-position logits at B=1 S=500
    within atol 1e-4 of the CPU's;
+5m. the MoE arches in fp32, card against CPU, each card run again with
+   graphs=False (token-exact, equal launches): both ``reduce()`` configs
+   at the default capacity factor (experts overflow), max_len 256, 8
+   requests (prompts 16..200, 48 new): mixtral (window 64, so the rings
+   wrap; head_dim widened to 64, the flash kernel's narrowest) through
+   legacy admission, arctic mixed and paged; mixtral at full width cut to
+   1 layer, 6 requests (prompts 16..300, 8 new) through 2 slots; streams
+   equal or near-ties under ``NEAR_TIE``; then ``ring_check`` on that
+   model at S = 4100 and 6000 within ``RING_FP32_ATOL``;
 6. timing: every kernel, its plain version and the one PyTorch call with
    the same result (scaled_dot_product_attention, used only as a
    yardstick; no one call reads a block table or computes the WKV6 or SSD
@@ -321,7 +353,10 @@ Phases (any failure exits non-zero; nothing is caught):
    each at every cluster size; ``flash_rows_kernel<float>`` as the
    split-K decode, ``flash_fwd_kernel``, ``wkv6_kernel``, ``ssd_kernel``)
    at phase 6's shapes as an ``fp32`` sub-row with their launches in
-   phases 5-5e; bounds
+   phases 5-5e; the bf16 attention kernels at the MoE arches' group
+   sizes (``moe_groups``: the split-K and single-stage decodes, the mixed
+   step, the causal flash prefill, and at G 6 the windowed one over 6000
+   tokens); bounds
    from the bytes and operations of the inputs timed (the bf16 scans'
    flops at the 3xTF32 rate).
 
@@ -339,6 +374,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -643,6 +679,13 @@ def phase_kernels() -> dict:
             errs[name][dt] = max(errs[name].get(dt, 0.0), err)
     print(f"  breadth group sizes (G 4, 12, 16 at D 128; non-causal D 80): "
           f"{json.dumps(breadth)}; poison checks at G 12 passed: {json.dumps(done)}", flush=True)
+    moe, done = moe_kernel_checks(torch.Generator("cuda").manual_seed(17))
+    for name, e in moe.items():
+        for dt, err in e.items():
+            errs[name][dt] = max(errs[name].get(dt, 0.0), err)
+    print(f"  MoE group sizes (G 6, 7 at D 128; the flash prefill at window {MOE_WINDOW} over "
+          f"S {MOE_FLASH_S}): {json.dumps(moe)}; poison checks at G 6 and 7 passed: "
+          f"{json.dumps(done)}", flush=True)
     torch.cuda.synchronize()
     return errs
 
@@ -1230,20 +1273,52 @@ def poison_checks(gen) -> list:
 # hubert-xlarge's non-causal prefill (4x): Hq = Hkv = 16 heads of 80
 BREADTH_GROUPS = ((8, 4, 128), (4, 12, 128), (8, 16, 128))
 HUBERT_H, HUBERT_D = 16, 80
+# (Hkv, G, D) of the MoE arches (phases 4y, 4z, 5m): mixtral-8x22b (48 q / 8
+# kv heads) and arctic-480b (56 / 8); no mma tile (16 or 64 rows) divides
+# Q·G at G 6 or 7.  Mixtral's windowed prefill past its window: B=1, S 6000,
+# window 4096.
+MOE_GROUPS = ((8, 6, 128), (8, 7, 128))
+MOE_FLASH_S, MOE_WINDOW = 6000, 4096
 
 
-def breadth_kernel_checks(gen) -> tuple:
+def moe_kernel_checks(gen) -> tuple:
+    """The attention kernels at the MoE arches' group sizes, both dtypes:
+    ``breadth_kernel_checks`` over ``MOE_GROUPS`` with its poison checks at
+    G 6 and G 7, then the causal flash prefill with mixtral's window (4096)
+    at B=1 S=6000 at each group size."""
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+
+    errs, done = breadth_kernel_checks(gen, MOE_GROUPS, poison_groups=(6, 7), hubert=False)
+    for hkv, g, d in MOE_GROUPS:
+        for dtype in (torch.bfloat16, torch.float32):
+            S_ = MOE_FLASH_S
+            qf = _rand(gen, (1, S_, hkv * g, d), dtype)
+            kf, vf = _rand(gen, (1, S_, hkv, d), dtype), _rand(gen, (1, S_, hkv, d), dtype)
+            err = _close(f"flash_attention causal window={MOE_WINDOW} B=1 S={S_} Hkv={hkv} "
+                         f"G={g} D={d}", flash_kernel.flash_attention_cuda(
+                             qf, kf, vf, causal=True, window=MOE_WINDOW),
+                         flash_ref.flash_attention(qf, kf, vf, causal=True, window=MOE_WINDOW),
+                         dtype)
+            errs["flash_attention"][str(dtype)] = max(errs["flash_attention"][str(dtype)], err)
+            del qf, kf, vf
+    return errs, done
+
+
+def breadth_kernel_checks(gen, groups=BREADTH_GROUPS, *, poison_groups=(12,),
+                          hubert: bool = True) -> tuple:
     """The attention kernels at the breadth arches' group sizes, both dtypes:
-    at each (Hkv, G, D) of ``BREADTH_GROUPS``, the single-stage decode, the
+    at each (Hkv, G, D) of ``groups``, the single-stage decode, the
     one-launch split-K decode (K 8) and the mixed step (Q 8 and 13, whose
     Q·G rows no tile divides at G 12) over B=8 caches of 4096 keys, and the
     paged three over phase 4b's pool geometry (the mixed step through the
     tables cut to 2048 keys); the causal flash prefill at B=1 S=2000 and
-    B=2 S=333; hubert's non-causal flash prefill at B=1 S=2000 and B=4
-    S=500.  Then poison at G 12 (starcoder2): NaN past every length of the
-    cache and in every pool row not held, each output finite and bit-equal
-    to the clean run's.  Returns (max abs err per kernel and dtype, the
-    poison checks passed)."""
+    B=2 S=333; with ``hubert``, hubert's non-causal flash prefill at B=1
+    S=2000 and B=4 S=500.  Then poison at each G of ``poison_groups`` (12,
+    starcoder2's, by default): NaN past every length of the cache and in
+    every pool row not held, each output finite and bit-equal to the clean
+    run's.  Returns (max abs err per kernel and dtype, the poison checks
+    passed)."""
     from repro_torch.kernels.decode_attention import kernel, ref
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.flash_attention import ref as flash_ref
@@ -1262,7 +1337,7 @@ def breadth_kernel_checks(gen) -> tuple:
 
     lens_np = np.array([1, 17, 511, 512, 1025, 2049, 3000, S_MAX])
     lens = torch.as_tensor(lens_np, dtype=torch.int32, device="cuda")
-    for hkv, g, d in BREADTH_GROUPS:
+    for hkv, g, d in groups:
         for dtype in (torch.bfloat16, torch.float32):
             tag = f"Hkv={hkv} G={g} D={d}"
             k, v = _rand(gen, (B, S_MAX, hkv, d), dtype), _rand(gen, (B, S_MAX, hkv, d), dtype)
@@ -1278,7 +1353,7 @@ def breadth_kernel_checks(gen) -> tuple:
                 note("mixed_attention", dtype, _close(
                     f"mixed Q={Q} {tag}", kernel.mixed_attention_cuda(qm, k, v, cl),
                     ref.mixed_attention(qm, k, v, cl), dtype))
-            if g == 12:
+            if g in poison_groups:
                 dead = (torch.arange(S_MAX, device="cuda")[None, :] >= lens[:, None]).reshape(-1)
                 kn, vn = _nan_rows(k, dead), _nan_rows(v, dead)
                 same(f"decode_attention {tag} {dtype}", kernel.decode_attention_cuda(q, kn, vn, lens),
@@ -1306,7 +1381,7 @@ def breadth_kernel_checks(gen) -> tuple:
                 dtype))
             _, fused = paged_splitk_check(tag, q, kp, vp, tbl, lens, dtype)
             note("decode_attention_paged_splitk", dtype, fused)
-            if g == 12:
+            if g in poison_groups:
                 live = _live_rows(kp, tbl, lens_np)
                 kn, vn = _nan_rows(kp, ~live), _nan_rows(vp, ~live)
                 same(f"decode_attention_paged {tag} {dtype}",
@@ -1326,7 +1401,7 @@ def breadth_kernel_checks(gen) -> tuple:
             note("mixed_attention_paged", dtype, _close(
                 f"mixed_attention_paged Q={Q} {tag}", kernel.mixed_attention_paged_cuda(
                     qm, kp, vp, view, cl), ref.mixed_attention_paged(qm, kp, vp, view, cl), dtype))
-            if g == 12:
+            if g in poison_groups:
                 live = _live_rows(kp, tbl, cl_np + Q)
                 same(f"mixed_attention_paged Q={Q} {tag} {dtype}",
                      kernel.mixed_attention_paged_cuda(qm, _nan_rows(kp, ~live),
@@ -1341,7 +1416,7 @@ def breadth_kernel_checks(gen) -> tuple:
                     f"flash_attention causal B={b} S={s_} {tag}",
                     flash_kernel.flash_attention_cuda(qf, kf, vf, causal=True),
                     flash_ref.flash_attention(qf, kf, vf, causal=True), dtype))
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float32) if hubert else ():
         for b, s_ in ((1, 2000), (4, 500)):
             qf, kf, vf = (_rand(gen, (b, s_, HUBERT_H, HUBERT_D), dtype) for _ in range(3))
             note("flash_attention", dtype, _close(
@@ -1395,17 +1470,23 @@ def make_engine_class():
     class CheckedEngine(ServingEngine):
         """Counts non-finite logits on the device, with no host sync; records
         the drafter's calls and, per verify step, the host seconds issuing
-        it and a pair of CUDA events around it (``verify_steps``)."""
+        it and a pair of CUDA events around it (``verify_steps``); with
+        ``samples`` a list (an engine that runs its steps eagerly), every
+        sampling call's logits and tokens in order."""
 
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             self.nonfinite = torch.zeros((), dtype=torch.int64, device=self.device)
             self.drafter = RecordingDrafter(self.drafter)
             self.verify_steps = []
+            self.samples = None
 
         def _sample(self, logits, generator=None):
             self.nonfinite += (~torch.isfinite(logits)).sum()
-            return super()._sample(logits, generator)
+            out = super()._sample(logits, generator)
+            if self.samples is not None:
+                self.samples.append((logits.detach().clone(), out.detach().clone()))
+            return out
 
         def _verify(self, logits, drafts, generator):
             self.nonfinite += (~torch.isfinite(logits)).sum()
@@ -1444,16 +1525,22 @@ def warm_graphs(engine, label: str) -> dict:
     return out
 
 
-def serve(model, ecfg, prompts, max_new, device, *, graphs=None, label="serve"):
+def serve(model, ecfg, prompts, max_new, device, *, graphs=None, label="serve",
+          record: bool = False):
     """Serve ``prompts`` through EngineClient; returns (handles, wall_s,
     engine).  On the card the steps run as CUDA graphs unless ``graphs`` is
     False, captured before the clock starts (``engine.capture`` holds what
-    ``warm_graphs`` measured); launch counters are zeroed after the capture."""
+    ``warm_graphs`` measured); launch counters are zeroed after the capture.
+    With ``record`` (steps run eagerly) ``engine.samples`` holds every
+    sampling call's logits and tokens."""
     from repro_torch.serving import EngineClient, InferenceRequest
 
     engine = make_engine_class()(model, ecfg, device=device, graphs=graphs)
     engine.capture = warm_graphs(engine, label) if engine.graphs else None
     engine.verify_steps = []
+    if record:
+        check(not engine.graphs, f"{label}: a captured step's sampling calls are not recorded")
+        engine.samples = []
     reset_launches()
     client = EngineClient(engine, device=device)
     if device.type == "cuda":
@@ -1509,15 +1596,16 @@ def free_memory() -> None:
 def phase_serve(name_line: str, model, *, paged: bool, legacy: bool = False,
                 graphs=None, step_timing: bool = False) -> dict:
     """Phase 4 (contiguous) or 4b (paged) over the full-width model, or
-    with ``legacy`` 4c / 4d through the legacy (mixed_step=False) admission;
-    with ``graphs=False`` its steps run eagerly (``serve_ab.py``); with
-    ``step_timing`` the captured decode step is timed after the drain
-    (``decode_step_ms``)."""
+    with ``legacy`` 4c / 4d through the legacy (mixed_step=False) admission
+    (a model without a mixed step, mixtral's sliding window, takes it at the
+    default EngineConfig); with ``graphs=False`` its steps run eagerly
+    (``serve_ab.py``); with ``step_timing`` the captured decode step is
+    timed after the drain (``decode_step_ms``)."""
     from repro_torch.serving import EngineConfig
 
     cfg = model.cfg
     dev = model.device
-    ecfg = EngineConfig(paged_kv=paged, mixed_step=not legacy)
+    ecfg = EngineConfig(paged_kv=paged, mixed_step=not legacy or not model.supports_mixed_step)
     label = ("serve legacy" if legacy else "serve") + (" paged" if paged else "")
     rng = np.random.default_rng(0)
     # warm-up (cuBLAS handles, allocator, the eager prefill) outside the counted run
@@ -1916,11 +2004,16 @@ def phase_card_vs_cpu(cpu_model, card_model, *, paged: bool) -> tuple:
     return out, prompts, [h.result() for h in card_h]
 
 
-def captured_vs_eager(label, model, ecfg, prompts, max_new, handles, launches) -> dict:
+def captured_vs_eager(label, model, ecfg, prompts, max_new, handles, launches,
+                      engine_out: Optional[list] = None) -> dict:
     """Phase 5f's check of one run through captured steps (``handles``,
     ``launches``): the same traffic on the card with ``graphs=False`` must
-    give the same streams token for token and the same launch counts."""
-    eh, wall, engine = serve(model, ecfg, prompts, max_new, torch.device("cuda"), graphs=False)
+    give the same streams token for token and the same launch counts.  The
+    eager engine (its ``samples`` recorded) goes to ``engine_out``."""
+    eh, wall, engine = serve(model, ecfg, prompts, max_new, torch.device("cuda"), graphs=False,
+                             record=engine_out is not None)
+    if engine_out is not None:
+        engine_out.append(engine)
     eager_launches = read_launches()
     check_handles(eh, engine, max_new, model.cfg.vocab_size, f"{label} eager")
     exact = sum(np.array_equal(a.result(), b.result()) for a, b in zip(handles, eh))
@@ -2890,28 +2983,81 @@ def phase_breadth(name_line: str) -> dict:
     return runs
 
 
-def exact_serve(label: str, card_model, cpu_model, ecfg, prompts, max_new) -> dict:
+def exact_serve(label: str, card_model, cpu_model, ecfg, prompts, max_new, *,
+                eager: bool = False) -> dict:
     """One fp32 traffic on the card (captured) and on the CPU: streams equal
-    token for token, or diverging at a near-tie (``compare_streams``)."""
+    token for token, or diverging at a near-tie (``compare_streams``).  A
+    legacy engine (no mixed step) must launch the flash prefill once per
+    layer per prefill; a mixed one the q-chunk kernel.  With ``eager`` the
+    card run is repeated with ``graphs=False`` (``captured_vs_eager``)."""
     card_h, card_wall, card_eng = serve(card_model, ecfg, prompts, max_new, torch.device("cuda"),
                                         label=label)
     launches = read_launches()
     paged = ecfg.paged_kv
+    layers = card_model.cfg.n_layers
     for k_ in (("decode_attention_paged", "mixed_attention_paged") if paged
-               else ("decode_attention", "mixed_attention")):
+               else ("decode_attention", "mixed_attention" if card_eng.mixed else
+                     "flash_attention")):
         check(launches[k_] > 0, f"{label}: kernel {k_} never launched")
-    check_decode_launches(launches, card_eng, card_model.cfg.n_layers,
+    if not card_eng.mixed:
+        check(launches["flash_attention"] == layers * card_eng.telemetry.prefills,
+              f"{label}: {launches['flash_attention']} flash launches for "
+              f"{card_eng.telemetry.prefills} prefills of {layers} layers")
+    check_decode_launches(launches, card_eng, layers,
                           "decode_attention_paged" if paged else "decode_attention", label)
-    cpu_h, cpu_wall, cpu_eng = serve(cpu_model, ecfg, prompts, max_new, torch.device("cpu"))
+    out = dict(requests=len(prompts), layers=layers, max_len=ecfg.max_len, launches=launches,
+               mixed_steps=card_eng.telemetry.mixed_steps, card_wall_s=card_wall)
+    eager_eng = []
+    if eager:
+        out["eager"] = captured_vs_eager(label, card_model, ecfg, prompts, max_new, card_h,
+                                         launches, eager_eng)
+    cpu_h, cpu_wall, cpu_eng = serve(cpu_model, ecfg, prompts, max_new, torch.device("cpu"),
+                                     record=eager)
     vocab = card_model.cfg.vocab_size
     check_handles(card_h, card_eng, max_new, vocab, f"{label} card fp32")
     check_handles(cpu_h, cpu_eng, max_new, vocab, f"{label} cpu fp32")
-    exact, ties = compare_streams(prompts, [h.result() for h in card_h],
-                                  [h.result() for h in cpu_h], card_model, cpu_model,
-                                  ("card", "cpu"))
-    return dict(requests=len(prompts), exact_streams=exact, near_ties=ties,
-                layers=card_model.cfg.n_layers, max_len=ecfg.max_len, launches=launches,
-                card_wall_s=card_wall, cpu_wall_s=cpu_wall)
+    streams = [[h.result() for h in hs] for hs in (card_h, cpu_h)]
+    if eager:
+        exact, ties = compare_sampled(label, *streams, eager_eng[0].samples, cpu_eng.samples)
+    else:
+        exact, ties = compare_streams(prompts, *streams, card_model, cpu_model, ("card", "cpu"))
+    out.update(exact_streams=exact, near_ties=ties, cpu_wall_s=cpu_wall)
+    return out
+
+
+def compare_sampled(label, streams_a, streams_b, samples_a, samples_b) -> tuple:
+    """Streams equal token for token, counted; where any differ, the two
+    runs' sampling calls (every step of every slot, idle slots' garbage
+    included, from runs whose steps ran eagerly) walked in order to the
+    first call that drew another token in any row: there the two tokens'
+    margin in each run's own logits must be under ``NEAR_TIE``.  An MoE
+    model needs this: every token of a step competes for expert capacity,
+    so a flip in one slot (an idle one's too) moves the others' logits by
+    far more than a near-tie, and a prefill of the context (``_margin``)
+    routes another token set."""
+    exact = sum(np.array_equal(a, b) for a, b in zip(streams_a, streams_b))
+    if exact == len(streams_a):
+        return exact, []
+    for i, ((la, ta), (lb, tb)) in enumerate(zip(samples_a, samples_b)):
+        check(la.shape == lb.shape, f"{label}: sampling call {i} of shape {tuple(la.shape)} "
+                                    f"against {tuple(lb.shape)} before any token differs")
+        rows = torch.nonzero(ta.cpu() != tb.cpu()).flatten().tolist()
+        if not rows:
+            continue
+        ties = []
+        for r in rows:
+            a, b = int(ta[r]), int(tb[r])
+            m_a = float((la[r, a] - la[r, b]).abs())
+            m_b = float((lb[r, a] - lb[r, b]).abs())
+            ties.append(dict(call=i, row=r, card_token=a, cpu_token=b, margin_card=m_a,
+                             margin_cpu=m_b))
+            print(f"  {label}: sampling call {i} row {r} draws {a} on the card, {b} on the "
+                  f"cpu, logit margin {m_a:.3e} (card) / {m_b:.3e} (cpu)")
+            check(m_b < NEAR_TIE, f"{label}: the first differing draw (call {i}, row {r}) has "
+                                  f"a margin of {m_b:.3e} >= {NEAR_TIE}: not a near-tie")
+        return exact, ties
+    raise SmokeFailure(f"{label}: {len(streams_a) - exact} streams differ but no sampling "
+                       f"call drew another token")
 
 
 def _vlm_margin(model, batch, row: int, generated, a: int, b: int) -> float:
@@ -2988,6 +3134,227 @@ def phase_breadth_exact() -> dict:
     check(launches["flash_attention"] == 4, f"5l hubert launches: {launches}")
     runs["exact_hubert"] = dict(batch=1, frames=500, layers=4, max_abs_err=err, launches=launches)
     del cpu_model, card_model
+    free_memory()
+    return runs
+
+
+# --------------------------------------------------------------------------
+# phases 4y, 4z and 5m: the MoE arches
+# --------------------------------------------------------------------------
+
+# full width cut in depth: mixtral-8x22b to 4 of its 56 layers (20.4 GB in
+# bf16), arctic-480b to 2 of its 35 (55.1 GB)
+MIXTRAL_LAYERS, ARCTIC_LAYERS = 4, 2
+# 4y's second traffic: max_len past mixtral's window, so the flash prefill
+# runs windowed at S > W and decode wraps the ring of W = 4096 rows
+RING_MAX_LEN = 8192
+RING_CHECK_S = (4100, 6000)
+# decode after prefill(S) against prefill(S + 1): each output logit's
+# error over the logits' RMS, in bf16 (4y, 4 layers); max abs error, in
+# fp32 (5m, 1 layer).  Each limit lies between the right ring's error and
+# the JAX package's placement's (bf16 0.062, 0.086 against 0.186, 0.168 on
+# the H100), and the checks hold the latter above it.
+RING_BF16_REL = 0.12
+RING_FP32_ATOL = 1e-3
+
+
+def ring_check(model, S: int, seed: int) -> dict:
+    """A decode step after ``prefill(S)`` placed in the ring of an empty
+    cache at ``RING_MAX_LEN`` (offset 0, as ``_place_slot`` does) against
+    ``prefill(S + 1)``'s last logits.  Both run at the capacity factor E / k,
+    where no expert can overflow, since the two route different token sets.
+    Beside it the same decode from the JAX package's placement (the last W
+    keys unrolled at rows 0..W-1), whose error a right ring should not
+    share."""
+    cfg = model.cfg
+    W = cfg.sliding_window
+    model.cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    try:
+        toks = torch.as_tensor(np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                                    (1, S + 1)),
+                               device=model.device)
+        full, _ = model.prefill(toks)
+        _, pc = model.prefill(toks[:, :S])
+        lens = torch.tensor([S], dtype=torch.int32, device=model.device)
+        got = {}
+        for name, shift in (("ring", 0), ("jax_placement", -(S % W) if S > W else 0)):
+            cache = model.empty_cache(1, RING_MAX_LEN)
+            n = pc.k.shape[2]
+            cache.k[:, :, :n] = torch.roll(pc.k, shift, dims=2)
+            cache.v[:, :, :n] = torch.roll(pc.v, shift, dims=2)
+            got[name] = model.decode(toks[:, S:], cache, lens)
+            del cache
+    finally:
+        model.cfg = cfg
+    rms = float(full.float().pow(2).mean().sqrt())
+    err = {k_: float((g.float() - full.float()).abs().max()) for k_, g in got.items()}
+    return dict(S=S, window=W, ring_rows=int(pc.k.shape[2]), max_abs_err=err["ring"],
+                rel_err=err["ring"] / rms, jax_placement_max_abs_err=err["jax_placement"],
+                jax_placement_rel_err=err["jax_placement"] / rms,
+                argmax_equal=bool(got["ring"].argmax() == full.argmax()), logits_rms=rms)
+
+
+def phase_serve_ring(name_line: str, model) -> dict:
+    """Phase 4y's second traffic: mixtral at EngineConfig(max_len=8192), 4
+    prompts of 4100-6000 tokens and 64 new each through legacy admission:
+    the windowed flash prefill past the window, a ring of 4096 rows that
+    wraps; one flash launch per layer per admission, one split-K decode
+    launch per layer per decode step, nothing else; then ``ring_check`` at
+    S = 4100 and 6000, which the JAX package's placement must fail."""
+    from repro_torch.serving import EngineConfig
+
+    cfg = model.cfg
+    ecfg = EngineConfig(max_len=RING_MAX_LEN)
+    label = "serve ring"
+    prompts = prompts_for(np.random.default_rng(61), 4, 4100, 6000, cfg.vocab_size)
+    max_new = 64
+    torch.cuda.reset_peak_memory_stats()
+    handles, wall, engine = serve(model, ecfg, prompts, max_new, model.device, label=label)
+    launches = read_launches()
+    check_handles(handles, engine, max_new, cfg.vocab_size, label)
+    rows = handles[0]._client.session.cache.k.shape[2]
+    check(rows == cfg.sliding_window, f"{label}: a ring of {rows} rows, not {cfg.sliding_window}")
+    tel = engine.telemetry
+    check(launches["flash_attention"] == cfg.n_layers * tel.prefills,
+          f"{label}: {launches['flash_attention']} flash launches for {tel.prefills} prefills")
+    check_decode_launches(launches, engine, cfg.n_layers, "decode_attention_splitk", label)
+    for k_, n in launches.items():
+        check(k_ in ("flash_attention", "decode_attention_splitk") or n == 0,
+              f"{label}: kernel {k_} launched {n} times")
+    ttft = np.array([h.record.ttft_s for h in handles])
+    ring = [ring_check(model, S, 62 + i) for i, S in enumerate(RING_CHECK_S)]
+    for r in ring:
+        check(r["rel_err"] <= RING_BF16_REL,
+              f"{label}: decode after prefill({r['S']}) differs from prefill({r['S'] + 1}) by "
+              f"{r['rel_err']:.3f} of the logits' RMS (> {RING_BF16_REL})")
+        # the check sees the reference's placement fault in bf16 too
+        check(r["jax_placement_rel_err"] > RING_BF16_REL,
+              f"{label}: the JAX package's ring placement at S {r['S']} is within "
+              f"{RING_BF16_REL} of the logits' RMS too ({r['jax_placement_rel_err']:.3f})")
+    return dict(requests=len(handles), layers=cfg.n_layers, dtype=cfg.dtype,
+                max_len=ecfg.max_len, ring_rows=rows, max_new=max_new,
+                prompt_tokens=int(sum(len(p) for p in prompts)),
+                generated_tokens=int(sum(len(h.result()) for h in handles)), wall_s=wall,
+                tokens_per_s=sum(len(h.result()) for h in handles) / wall,
+                ttft_p50_s=float(np.percentile(ttft, 50)),
+                ttft_p99_s=float(np.percentile(ttft, 99)), prefills=tel.prefills,
+                decode_chunks=tel.chunks, launches=launches, ring_check=ring,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, capture=engine.capture,
+                card=name_line)
+
+
+def check_mixed_launches(run: dict, layers: int, name: str, label: str) -> None:
+    """One q-chunk launch per layer per mixed step (no verify step runs)."""
+    check(run["launches"][name] == layers * run["mixed_steps"],
+          f"{label}: {run['launches'][name]} {name} launches for {run['mixed_steps']} mixed "
+          f"steps of {layers} layers")
+
+
+def phase_moe(name_line: str) -> dict:
+    """Phases 4y and 4z, each model freed before the next: mixtral-8x22b at
+    ``MIXTRAL_LAYERS`` layers through legacy admission at the default
+    EngineConfig (phase 4's traffic) and at max_len 8192
+    (``phase_serve_ring``); arctic-480b at ``ARCTIC_LAYERS`` layers with
+    phase 4's traffic (mixed) and 4b's (paged).  Each default-config serve
+    times its captured decode step beside the weights' bytes bound."""
+    runs = {}
+
+    def line(tag, what, key):
+        print(f"[{tag}/6] {what} on {name_line}: " + json.dumps(runs[key]), flush=True)
+
+    t0 = time.perf_counter()
+    model = breadth_model("mixtral-8x22b", MIXTRAL_LAYERS)
+    runs["serve_mixtral"] = phase_serve(name_line, model, paged=False, legacy=True,
+                                        step_timing=True)
+    runs["serve_mixtral"].update(arch=model.cfg.name, depth_cut=f"{MIXTRAL_LAYERS} of 56 layers",
+                                 group=6, window=model.cfg.sliding_window)
+    free_memory()
+    line("4y", f"served mixtral-8x22b at full width, depth cut to {MIXTRAL_LAYERS} of 56 layers "
+         f"(legacy admission, the default EngineConfig) in {time.perf_counter() - t0:.1f} s",
+         "serve_mixtral")
+    t0 = time.perf_counter()
+    runs["serve_mixtral_ring"] = phase_serve_ring(name_line, model)
+    runs["serve_mixtral_ring"]["depth_cut"] = f"{MIXTRAL_LAYERS} of 56 layers"
+    del model
+    free_memory()
+    line("4y", f"served mixtral-8x22b at max_len {RING_MAX_LEN} (prompts past the window, the "
+         f"ring wrapping) in {time.perf_counter() - t0:.1f} s", "serve_mixtral_ring")
+
+    model = breadth_model("arctic-480b", ARCTIC_LAYERS)
+    for key, paged, mixed in (("serve_arctic", False, "mixed_attention"),
+                              ("serve_arctic_paged", True, "mixed_attention_paged")):
+        t0 = time.perf_counter()
+        runs[key] = phase_serve_breadth(name_line, model, paged=paged)
+        runs[key]["depth_cut"] = f"{ARCTIC_LAYERS} of 35 layers"
+        check_mixed_launches(runs[key], ARCTIC_LAYERS, mixed, f"4z {key}")
+        free_memory()
+        line("4z", f"served arctic-480b at full width, depth cut to {ARCTIC_LAYERS} of 35 layers "
+             f"({'paged, ' if paged else ''}mixed admission) in {time.perf_counter() - t0:.1f} s",
+             key)
+    del model
+    free_memory()
+    return runs
+
+
+def phase_moe_exact() -> dict:
+    """Phase 5m, fp32, card against CPU, each run again eagerly on the card
+    (``graphs=False``: token-exact, equal launches): the ``reduce()`` configs
+    at the default capacity factor (experts overflow), max_len 256, 8
+    requests of 16-200 prompt tokens and 48 new -- mixtral (window 64, the
+    ring wraps; head_dim widened from 32 to 64, the flash kernel's
+    narrowest) through legacy admission, arctic mixed and paged; then
+    mixtral at full width cut to 1 layer, 6 requests of 16-300 tokens and 8
+    new through 2 slots, and ``ring_check`` at S = 4100 and 6000 on the card
+    at ``RING_FP32_ATOL``, which the JAX package's placement must exceed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import EngineConfig
+
+    runs = {}
+    for arch, key, layouts in (("mixtral-8x22b", "exact_mixtral", (False,)),
+                               ("arctic-480b", "exact_arctic", (False, True))):
+        cfg = get_config(arch).reduce()
+        if cfg.sliding_window:
+            # legacy admission prefills through the flash kernel, whose
+            # narrowest head is 64
+            cfg = dataclasses.replace(cfg, head_dim=64)
+        cpu_model = Model(cfg, device="cpu").init_(torch.Generator().manual_seed(1))
+        card_model = Model(cpu_model.cfg, device="cuda")
+        card_model.load_state_dict(cpu_model.state_dict())
+        prompts = prompts_for(np.random.default_rng(71), 8, 16, 200, cpu_model.cfg.vocab_size)
+        for paged in layouts:
+            k_ = key + ("_paged" if paged else "")
+            runs[k_] = exact_serve(f"5m {k_}", card_model, cpu_model,
+                                   EngineConfig(max_len=256, paged_kv=paged), prompts, 48,
+                                   eager=True)
+            if arch == "arctic-480b":
+                check_mixed_launches(runs[k_], cpu_model.cfg.n_layers,
+                                     "mixed_attention_paged" if paged else "mixed_attention",
+                                     f"5m {k_}")
+        del cpu_model, card_model
+        free_memory()
+
+    # drawn on the card (seconds faster than the CPU's generator), copied to the CPU
+    card_model = breadth_model("mixtral-8x22b", 1, "float32", device="cuda", seed=1)
+    cpu_model = Model(card_model.cfg, device="cpu")
+    cpu_model.load_state_dict(card_model.state_dict())
+    prompts = prompts_for(np.random.default_rng(72), 6, 16, 300, cpu_model.cfg.vocab_size)
+    runs["exact_mixtral_full"] = exact_serve(
+        "5m mixtral full width", card_model, cpu_model, EngineConfig(max_len=512, decode_batch=2),
+        prompts, 8, eager=True)
+    del cpu_model
+    free_memory()
+    ring = [ring_check(card_model, S, 73 + i) for i, S in enumerate(RING_CHECK_S)]
+    for r in ring:
+        check(r["max_abs_err"] <= RING_FP32_ATOL,
+              f"5m: fp32 decode after prefill({r['S']}) differs from prefill({r['S'] + 1}) by "
+              f"{r['max_abs_err']:.3e} (> {RING_FP32_ATOL})")
+        # the check sees the reference's placement fault at this size
+        check(r["jax_placement_max_abs_err"] > RING_FP32_ATOL,
+              f"5m: the JAX package's ring placement at S {r['S']} is within "
+              f"{RING_FP32_ATOL} too ({r['jax_placement_max_abs_err']:.3e})")
+    runs["exact_mixtral_full"]["ring_check"] = ring
+    del card_model
     free_memory()
     return runs
 
@@ -4002,7 +4369,89 @@ def phase_timing() -> dict:
     fp32_timing(out, split_np, cl_np)
 
     single_stage_timing(out, single_np, table_bytes)
+    moe_group_timing(out, split_np, cl_np)
     return out
+
+
+def moe_group_timing(out: dict, lens_np, cl_np) -> None:
+    """The bf16 attention kernels at the MoE arches' group sizes (G 6:
+    mixtral, G 7: arctic; 8 kv heads of 128), each beside its plain version,
+    its bound and SDPA: the split-K decode and the mixed step at phase 6's
+    lengths, the single-stage decode at B=8 S=1024, the causal flash prefill
+    at B=1 S=2000, and (G 6) mixtral's windowed prefill at S=6000, window
+    4096, whose pairs are the ones inside the window.  As ``moe_groups``
+    sub-rows."""
+    from repro_torch.kernels.decode_attention import kernel, ref
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+
+    gen = torch.Generator("cuda").manual_seed(19)
+    dt, es, F = torch.bfloat16, 2, torch.nn.functional
+
+    def sub(name, key, ms, plain_ms, nbytes, ops, library_ms, shape):
+        b_ms, by = bound_ms(nbytes, ops, dt)
+        out[name].setdefault("moe_groups", {})[key] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=library_ms,
+            shape=shape)
+
+    for hkv, g, d in MOE_GROUPS:
+        key = f"G={g}"
+        for S, lens_src, name in ((S_MAX, lens_np, "decode_attention_splitk"),
+                                  (1024, np.minimum(lens_np, 1024), "decode_attention")):
+            k, v = _rand(gen, (B, S, hkv, d), dt), _rand(gen, (B, S, hkv, d), dt)
+            q = _rand(gen, (B, hkv * g, d), dt)
+            lens = torch.as_tensor(lens_src, dtype=torch.int32, device="cuda")
+            mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+            keys = int(np.sum(lens_src))
+            if name == "decode_attention":
+                fn, plain = (lambda: kernel.decode_attention_cuda(q, k, v, lens),
+                             lambda: ref.decode_attention(q, k, v, lens))
+            else:
+                fn, plain = (lambda: kernel.decode_attention_splitk_cuda(q, k, v, lens,
+                                                                         k_splits=8),
+                             lambda: ref.decode_attention_splitk(q, k, v, lens, k_splits=8))
+            sub(name, key, time_ms(fn, 200), time_ms(plain, 10),
+                2 * keys * hkv * d * es + 2 * B * hkv * g * d * es + 4 * B,
+                4 * keys * hkv * g * d, time_ms(lambda: _sdpa(q[:, None], k, v, mask), 50),
+                f"bf16 B={B} S={S} Hkv={hkv} G={g} D={d} lengths={list(map(int, lens_src))}")
+            if name == "decode_attention_splitk":
+                Q, W = 8, 2048
+                qm = _rand(gen, (B, Q, hkv * g, d), dt)
+                cl = torch.as_tensor(cl_np, dtype=torch.int32, device="cuda")
+                kw, vw = k[:, :W], v[:, :W]
+                qpos = cl[:, None] + torch.arange(Q, device="cuda")[None, :]
+                mmask = (torch.arange(W, device="cuda")[None, None, :] <= qpos[:, :, None])[:, None]
+                seen = int(np.minimum(cl_np + Q, W).sum())
+                pairs = int(sum((c + i + 1) for c in cl_np for i in range(Q)))
+                sub("mixed_attention", key,
+                    time_ms(lambda: kernel.mixed_attention_cuda(qm, kw, vw, cl), 200),
+                    time_ms(lambda: ref.mixed_attention(qm, kw, vw, cl), 10),
+                    2 * seen * hkv * d * es + 2 * B * Q * hkv * g * d * es + 4 * B,
+                    4 * pairs * hkv * g * d, time_ms(lambda: _sdpa(qm, kw, vw, mmask), 50),
+                    f"bf16 B={B} Q={Q} window={W} Hkv={hkv} G={g} D={d} "
+                    f"cache_lens={cl_np.tolist()}")
+            del k, v
+        for S, window in ((2000, 0),) + (((MOE_FLASH_S, MOE_WINDOW),) if g == 6 else ()):
+            q = _rand(gen, (1, S, hkv * g, d), dt)
+            k, v = _rand(gen, (1, S, hkv, d), dt), _rand(gen, (1, S, hkv, d), dt)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            if window:
+                pos = torch.arange(S, device="cuda")
+                wmask = ((pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window))
+                lib = time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=wmask, enable_gqa=True), 20)
+                pairs = sum(min(i + 1, window) for i in range(S))
+            else:
+                lib = time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True), 50)
+                pairs = S * (S + 1) // 2
+            sub("flash_attention", key + (f" window={window}" if window else ""),
+                time_ms(lambda: flash_kernel.flash_attention_cuda(q, k, v, causal=True,
+                                                                  window=window), 50),
+                time_ms(lambda: flash_ref.flash_attention(q, k, v, causal=True, window=window), 3),
+                (2 * S * hkv * g * d + 2 * S * hkv * d) * es, 4 * d * hkv * g * pairs, lib,
+                f"bf16 B=1 Sq=Sk={S} Hq={hkv * g} Hkv={hkv} D={d} causal window={window}")
+            del q, k, v
 
 
 def fp32_timing(out: dict, split_np, cl_np) -> None:
@@ -4236,21 +4685,29 @@ REPLACES = {
 ZAMBA2_PHASES = ("serve_zamba2", "generate_zamba2", "durable_zamba2")
 # the breadth arches' contiguous mixed-admission serving phases (4t, 4u, 4v, 4w)
 BREADTH_SERVE = ("serve_qwen3_4b", "serve_starcoder2", "serve_llava", "serve_llama3")
+# the MoE arches' serving phases (4y: mixtral legacy, at the default config
+# and past its window; 4z: arctic mixed, contiguous and paged) and their
+# fp32 phase (5m)
+MIXTRAL_SERVE = ("serve_mixtral", "serve_mixtral_ring")
 LAUNCH_PHASES = {
     "flash_attention": ("serve_legacy", "serve_legacy_paged", "generate") + ZAMBA2_PHASES
-    + ("generate_llava", "prefill_hubert"),
+    + ("generate_llava", "prefill_hubert") + MIXTRAL_SERVE,
     "decode_attention": ("serve_single", "card_vs_cpu", "zamba2_card_vs_cpu",
                          "durable_exact_zamba2", "fleet", "fleet_exact", "exact_starcoder2",
-                         "exact_llava"),
-    "decode_attention_splitk": ("serve",) + ZAMBA2_PHASES + BREADTH_SERVE + ("generate_llava",),
-    "mixed_attention": ("serve", "serve_single", "serve_spec", "fleet") + BREADTH_SERVE,
+                         "exact_llava", "exact_mixtral", "exact_arctic", "exact_mixtral_full"),
+    "decode_attention_splitk": ("serve",) + ZAMBA2_PHASES + BREADTH_SERVE + ("generate_llava",)
+    + MIXTRAL_SERVE + ("serve_arctic",),
+    "mixed_attention": ("serve", "serve_single", "serve_spec", "fleet") + BREADTH_SERVE
+    + ("serve_arctic",),
     "decode_attention_paged": ("serve_single_paged", "card_vs_cpu_paged", "durable_exact_mixed",
                                "durable_exact_legacy", "fleet_recovery", "multimodel",
-                               "multimodel_exact", "exact_starcoder2_paged"),
-    "decode_attention_paged_splitk": ("serve_paged", "durable_kv", "serve_starcoder2_paged"),
+                               "multimodel_exact", "exact_starcoder2_paged",
+                               "exact_arctic_paged"),
+    "decode_attention_paged_splitk": ("serve_paged", "durable_kv", "serve_starcoder2_paged",
+                                      "serve_arctic_paged"),
     "mixed_attention_paged": ("serve_paged", "serve_legacy_paged", "serve_single_paged",
                               "serve_spec_paged", "durable_kv", "fleet_recovery", "multimodel",
-                              "serve_starcoder2_paged"),
+                              "serve_starcoder2_paged", "serve_arctic_paged"),
     "wkv6": ("serve_rwkv", "generate_rwkv", "durable_rwkv", "multimodel"),
     "ssd": ZAMBA2_PHASES,
     "rmsnorm": ZAMBA2_PHASES,
@@ -4265,13 +4722,15 @@ _SPEC = tuple(("spec_card_vs_cpu", f"{layout}_k{k}") for layout in ("contiguous"
 FP32_PHASES = {
     "mixed_attention": ((("card_vs_cpu",), "mixed_attention"),
                         (("fleet_exact",), "mixed_attention"),
-                        (("exact_starcoder2",), "mixed_attention"))
+                        (("exact_starcoder2",), "mixed_attention"),
+                        (("exact_arctic",), "mixed_attention"))
     + tuple((run, "mixed_attention") for run in _SPEC if run[1].startswith("contiguous")),
     "mixed_attention_paged": ((("card_vs_cpu_paged",), "mixed_attention_paged"),
                               (_VS + ("paged",), "mixed_attention_paged"),
                               (("durable_exact_mixed",), "mixed_attention_paged"),
                               (("multimodel_exact",), "mixed_attention_paged"),
-                              (("exact_starcoder2_paged",), "mixed_attention_paged"))
+                              (("exact_starcoder2_paged",), "mixed_attention_paged"),
+                              (("exact_arctic_paged",), "mixed_attention_paged"))
     + tuple((run, "mixed_attention_paged") for run in _SPEC if run[1].startswith("paged")),
     "decode_attention_splitk": tuple(
         ((ph,), name) for ph in ("card_vs_cpu", "card_vs_cpu_paged", "zamba2_card_vs_cpu")
@@ -4280,7 +4739,7 @@ FP32_PHASES = {
                              for key in ("contiguous", "paged", "generate"))
     + tuple(((ph,), "flash_attention")
             for ph in ("zamba2_card_vs_cpu", "durable_exact_legacy", "durable_exact_zamba2",
-                       "exact_llava", "exact_hubert")),
+                       "exact_llava", "exact_hubert", "exact_mixtral", "exact_mixtral_full")),
     "wkv6": tuple(((ph,), "wkv6")
                   for ph in ("rwkv_card_vs_cpu", "durable_exact_rwkv", "multimodel_exact")),
     "ssd": tuple(((ph,), "ssd") for ph in ("zamba2_card_vs_cpu", "durable_exact_zamba2")),
@@ -4492,6 +4951,9 @@ def main() -> int:
     t0 = time.perf_counter()
     runs.update(phase_breadth(name_line))
     breadth_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runs.update(phase_moe(name_line))
+    moe_s = time.perf_counter() - t0
 
     small = dataclasses.replace(cfg, n_layers=4, dtype="float32")
     cpu_model = Model(small, device="cpu").init_(torch.Generator().manual_seed(1))
@@ -4576,6 +5038,14 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s: " + json.dumps(
               {k: runs[k] for k in ("exact_starcoder2", "exact_starcoder2_paged", "exact_llava",
                                     "exact_hubert")}), flush=True)
+    t0 = time.perf_counter()
+    runs.update(phase_moe_exact())
+    moe_s += time.perf_counter() - t0
+    print(f"[5m/6] MoE arches fp32 card vs cpu (reduced mixtral legacy with its ring wrapping, "
+          f"reduced arctic mixed and paged, mixtral at full width cut to 1 layer; each captured "
+          f"vs eager) in {time.perf_counter() - t0:.1f} s: " + json.dumps(
+              {k: runs[k] for k in ("exact_mixtral", "exact_arctic", "exact_arctic_paged",
+                                    "exact_mixtral_full")}), flush=True)
 
     lvm = runs["legacy_vs_mixed"]
     eager = {"5": runs["card_vs_cpu"]["eager"], "5b": runs["card_vs_cpu_paged"]["eager"],
@@ -4607,11 +5077,13 @@ def main() -> int:
                if "fp32" in t else {}),
             **{k: v for k, v in t.items()
                if k.startswith("phase_") or k in ("ms_by_cols", "ms_by_rows", "ms_by_cluster",
-                                                  "cluster", "bf16", "partial_ms", "q16")}))
+                                                  "cluster", "bf16", "partial_ms", "q16",
+                                                  "moe_groups")}))
     print(f"durable KV phases (4n, 4o, 5i): {durable_s:.1f} s")
     print(f"fleet phases (4p, 4q, 5j): {fleet_s:.1f} s")
     print(f"job and multi-model phases (4r, 4s, 5k): {jobs_s:.1f} s")
     print(f"breadth phases (4t-4x, 5l): {breadth_s:.1f} s")
+    print(f"MoE phases (4y, 4z, 5m): {moe_s:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(name_line)
     print(json.dumps({"kernels": rows}))

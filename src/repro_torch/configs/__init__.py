@@ -1,9 +1,10 @@
 """Architecture config registry of the port: ``get_config(arch)``, and
 ``resolve_serving_arch``, the fleet's lookup of a ``TierSpec.arch``.
 
-Only the arches whose path is ported are listed: the dense, vlm and
-encoder transformers (hubert-xlarge prefills only), rwkv6 and zamba2;
-the MoE arches join when their family is ported.  The job arch ``sd21`` (the
+Every arch of the JAX package is listed: the dense, vlm and encoder
+transformers (hubert-xlarge prefills only), the MoE transformers
+(mixtral-8x22b with its sliding window, arctic-480b with its dense
+residual), rwkv6 and zamba2.  The job arch ``sd21`` (the
 paper's Stable Diffusion 2.1 deployment units) is served by
 ``serving/diffusion.py``.
 """
@@ -20,6 +21,8 @@ _ARCH_MODULES = {
     "llama3-405b": "repro_torch.configs.llama3_405b",
     "qwen3-4b": "repro_torch.configs.qwen3_4b",
     "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
     "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
     "llava-next-mistral-7b": "repro_torch.configs.llava_next_mistral_7b",

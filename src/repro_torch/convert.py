@@ -12,7 +12,10 @@ r, k, v, w and g projects its own mixed input.  So do a Mamba-2 layer's
 (``A_log``, ``D`` and ``dt_bias`` stay fp32); the hybrid's one ``shared``
 block is fused as a dense layer is.  An untied ``lm_head`` is kept; a
 GELU layer's ``w_up``/``w_down`` stay unfused; the encoder's ``head``
-becomes ``encoder_head``, and it has no ``embed``.
+becomes ``encoder_head``, and it has no ``embed``.  An MoE layer's ``moe``
+leaves become ``moe.router`` (fp32 in any model dtype), ``moe.w_gu`` =
+[w_gate | w_up] per expert (E, d, 2f), ``moe.w_down``, and with a dense
+residual ``moe.res_gu`` = [res_gate | res_up] and ``moe.res_down``.
 
 ``diffusion_params_from_jax`` does the same for the job engine's two
 leaves (``DiffusionEngine.w_mix``, ``w_cond``), for
@@ -77,8 +80,24 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
             _decoder_layer(state, "shared.", sh, sh["attn"], sh["mlp"], None, cfg)
         return state
     for li in range(cfg.n_layers):
-        _decoder_layer(state, f"layers.{li}.", lay, lay["attn"], lay["mlp"], li, cfg)
+        _decoder_layer(state, f"layers.{li}.", lay, lay["attn"], lay.get("mlp"), li, cfg)
+        if cfg.is_moe:
+            _moe_layer(state, f"layers.{li}.moe.", lay["moe"], li, cfg)
     return state
+
+
+def _moe_layer(state: Dict[str, torch.Tensor], pre: str, m: Mapping, li: int,
+               cfg: ModelConfig) -> None:
+    """Layer ``li`` of the stacked JAX ``moe`` leaves, fused as ``moe.MoE``
+    holds them."""
+    dtype = cfg.torch_dtype
+    state[pre + "router"] = _t(m["router"][li], torch.float32)
+    state[pre + "w_gu"] = torch.cat([_t(m["w_gate"][li], dtype), _t(m["w_up"][li], dtype)], -1)
+    state[pre + "w_down"] = _t(m["w_down"][li], dtype)
+    if cfg.moe_dense_residual:
+        state[pre + "res_gu"] = layers.fuse_gate_up_weights(_t(m["res_gate"][li], dtype),
+                                                             _t(m["res_up"][li], dtype))
+        state[pre + "res_down"] = _t(m["res_down"][li], dtype)
 
 
 def diffusion_params_from_jax(w_mix, w_cond) -> Dict[str, torch.Tensor]:
@@ -93,7 +112,8 @@ def diffusion_params_from_jax(w_mix, w_cond) -> Dict[str, torch.Tensor]:
 def _decoder_layer(state: Dict[str, torch.Tensor], pre: str, lay: Mapping, at: Mapping,
                    mlp: Mapping, li, cfg: ModelConfig) -> None:
     """One ``DecoderLayer``'s entries under ``pre``, fused: layer ``li`` of
-    stacked leaves, or with ``li`` None unstacked leaves (the shared block)."""
+    stacked leaves, or with ``li`` None unstacked leaves (the shared block);
+    an MoE layer's ``moe`` block is ``_moe_layer``'s."""
     dtype = cfg.torch_dtype
 
     def leaf(tree, name):
@@ -107,6 +127,8 @@ def _decoder_layer(state: Dict[str, torch.Tensor], pre: str, lay: Mapping, at: M
     if cfg.qk_norm:
         state[pre + "attn.qk_norm"] = attention.fuse_qk_norm(
             leaf(at, "q_norm"), leaf(at, "k_norm"), cfg.n_heads, cfg.n_kv_heads).contiguous()
+    if cfg.is_moe:
+        return
     if cfg.mlp_type == "gelu":
         state[pre + "w_up"] = leaf(mlp, "w_up")
     else:

@@ -2,11 +2,23 @@
 over a whole prompt (prefill), against a contiguous KV cache or a shared
 page pool.
 
-Counterpart of the JAX package's ``models/attention.py`` for full
-attention (the sliding-window ring comes with a later slice).  The cache
-is a per-layer (B, S_max, Hkv, Dh) pair, or with a block table the
-per-layer page pool (P, page_size, Hkv, Dh), updated IN PLACE — where the
-JAX engine donated the buffer to its jitted step, the port writes into it.
+Counterpart of the JAX package's ``models/attention.py``, full attention
+and the sliding window.  The cache is a per-layer (B, S_max, Hkv, Dh)
+pair, or with a block table the per-layer page pool (P, page_size, Hkv,
+Dh), updated IN PLACE — where the JAX engine donated the buffer to its
+jitted step, the port writes into it.  With a sliding window W the
+contiguous cache is a ring of ``min(max_len, W)`` rows: position p lives
+at row p % W, a decode step writes there and attends to the ``min(len +
+1, W)`` rows the ring holds (the ring bounds the window, so the decode
+kernels take no window argument); the prefill passes W to the flash
+kernel.  The paged pool and the mixed step take no window, as in JAX.
+
+Where the JAX package differs: its prefill keeps the last W keys at ring
+rows 0..W-1 and its engine places them at offset 0, so for a prompt of S
+>= W tokens with S % W != 0 its decode overwrites a key still inside the
+window.  Here position p is at row p % W from the prefill on
+(``ring_rows``): the same rows, rolled, and equal to the JAX placement
+whenever S < W or S % W == 0.
 
 On a CUDA tensor the attention itself always runs the hand-written
 kernels (``kernels.flash_attention.ops`` for a prefill,
@@ -88,8 +100,19 @@ def attention_block(p: Attention, x: torch.Tensor,
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, cfg, positions)
-    out = flash_ops.flash_attention(q, k, v, causal=cfg.causal)
+    out = flash_ops.flash_attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window)
     return out.reshape(B, S, cfg.q_dim) @ p.wo, KVCache(k, v)
+
+
+def ring_rows(kv: torch.Tensor, window: int) -> torch.Tensor:
+    """A prompt's (B, S, Hkv, Dh) keys or values as a decode cache holds
+    them: all S rows at full attention or when S <= W; else the last W
+    positions, position p at row p % W (a roll of JAX's last-W slice by S
+    % W rows)."""
+    S = kv.shape[1]
+    if window <= 0 or S <= window:
+        return kv
+    return torch.roll(kv[:, S - window:], shifts=S % window, dims=1)
 
 
 def attention_decode(
@@ -100,22 +123,31 @@ def attention_decode(
     cfg: ModelConfig,
     *,
     page_table: Optional[torch.Tensor] = None,   # (B, nb) int32 => paged pool
+    write_plan: Optional[tuple] = None,          # paged_decode_plan, with page_table
 ) -> torch.Tensor:
     """One decode step: write the new token's KV at ``cache_len[b]``
     (clamped to the last row, as ``dynamic_update_slice`` clamps), then
-    attend to the first ``cache_len[b] + 1`` positions."""
+    attend to the first ``cache_len[b] + 1`` positions.  With a sliding
+    window the cache is the ring: the write goes to row ``cache_len[b] %
+    S`` and attention reads the ``min(cache_len[b] + 1, S)`` rows held.
+    A paged step (``page_table``) needs ``write_plan``, made once a step."""
     if cache_len.dim() != 1:
         raise ValueError("decode requires (B,) per-slot cache lengths")
     if page_table is not None:
-        return _attention_decode_paged(p, x, cache, cache_len, cfg, page_table)
+        if write_plan is None:
+            raise ValueError("a paged decode step needs paged_decode_plan's write_plan")
+        return _attention_decode_paged(p, x, cache, cache_len, cfg, page_table, write_plan)
     B = x.shape[0]
     S = cache.k.shape[1]
     q, k_new, v_new = _project_qkv(p, x, cfg, cache_len[:, None])
     rows = torch.arange(B, device=x.device)
-    write_at = cache_len.clamp(max=S - 1).long()
+    if cfg.sliding_window > 0:
+        write_at, eff_len = (cache_len % S).long(), torch.clamp(cache_len + 1, max=S)
+    else:
+        write_at, eff_len = cache_len.clamp(max=S - 1).long(), cache_len + 1
     cache.k[rows, write_at] = k_new[:, 0].to(cache.k.dtype)
     cache.v[rows, write_at] = v_new[:, 0].to(cache.v.dtype)
-    out = ops.decode_attention(q[:, 0], cache.k, cache.v, cache_len + 1)
+    out = ops.decode_attention(q[:, 0], cache.k, cache.v, eff_len)
     return (out.reshape(B, cfg.q_dim) @ p.wo)[:, None, :]
 
 
@@ -126,19 +158,27 @@ def _attention_decode_paged(
     cache_len: torch.Tensor,    # (B,) int32
     cfg: ModelConfig,
     page_table: torch.Tensor,   # (B, nb) int32, on x's device
+    write_plan: tuple,          # paged_decode_plan's (page, row, src)
 ) -> torch.Tensor:
     """Paged decode step: the new token's KV goes to row ``len % ps`` of
-    page ``table[b, len // ps]``, then attention reads through the table."""
+    page ``table[b, len // ps]`` (``write_plan``, made once a step), then
+    attention reads through the table.  A sliding window raises
+    ``ValueError``, as in JAX."""
+    if cfg.sliding_window > 0:
+        raise ValueError("paged KV does not support sliding-window attention")
     B = x.shape[0]
-    ps = pool.k.shape[1]
     q, k_new, v_new = _project_qkv(p, x, cfg, cache_len[:, None])
-    page = page_table.gather(1, (cache_len // ps)[:, None].long())[:, 0].long()
-    row = (cache_len % ps).long()
+    page, row, src = write_plan
+    k_new, v_new = k_new[:, 0], v_new[:, 0]
+    if src is not None:
+        k_new, v_new = k_new.index_select(0, src), v_new.index_select(0, src)
     # Idle slots' tables are all TRASH_PAGE, so their writes all land on
     # page 0 at once.  index_put_ with repeated indices is nondeterministic;
-    # that is harmless only because nothing real ever reads page 0.
-    pool.k[page, row] = k_new[:, 0].to(pool.k.dtype)
-    pool.v[page, row] = v_new[:, 0].to(pool.v.dtype)
+    # that is harmless to a dense model, whose idle slots' outputs are
+    # dropped.  An MoE model's idle slots compete for expert capacity, so
+    # its plan (``dedupe``) gives colliding rows one value.
+    pool.k[page, row] = k_new.to(pool.k.dtype)
+    pool.v[page, row] = v_new.to(pool.v.dtype)
     out = ops.decode_attention(q[:, 0], pool.k, pool.v, cache_len + 1, page_table=page_table)
     return (out.reshape(B, cfg.q_dim) @ p.wo)[:, None, :]
 
@@ -172,23 +212,59 @@ def mixed_write_plan(cache_lens: torch.Tensor, new_lens: torch.Tensor, Q: int,
             take.reshape(-1))
 
 
+def last_writer(trash: torch.Tensor, row: torch.Tensor, ps: int) -> torch.Tensor:
+    """For N rows written in order, where those flagged ``trash`` land on
+    row ``row`` of the trash page (and collide) and the others each on a
+    row of their own: the index of the row whose value each row should
+    write -- itself, or for a trash row the last row writing the same trash
+    row -- so that colliding writes carry one value, which is what a
+    sequential write leaves, in any order.  Static shapes; ``amax`` is
+    order-free, so the result is deterministic on the card too."""
+    n = row.shape[0]
+    idx = torch.arange(n, device=row.device)
+    key = torch.where(trash, row, ps)
+    last = torch.full((ps + 1,), -1, dtype=torch.long, device=row.device).scatter_reduce_(
+        0, key, idx, "amax")
+    return torch.where(trash, last[row], idx)
+
+
+def paged_decode_plan(cache_len: torch.Tensor, page_table: torch.Tensor, ps: int, *,
+                      dedupe: bool = False) -> Tuple[torch.Tensor, torch.Tensor,
+                                                      Optional[torch.Tensor]]:
+    """Where a paged decode step writes, made once for every layer: slot b's
+    new row goes to row ``len % ps`` of page ``table[b, len // ps]``.
+    Returns (page, row, src); with ``dedupe`` ``src`` is ``last_writer``'s
+    map (idle slots collide on the trash page), else None."""
+    page = page_table.gather(1, (cache_len // ps)[:, None].long())[:, 0].long()
+    row = (cache_len % ps).long()
+    src = last_writer(page == TRASH_PAGE, row, ps) if dedupe else None
+    return page, row, src
+
+
 def paged_write_plan(cache_lens: torch.Tensor, new_lens: torch.Tensor, Q: int,
-                     tables: torch.Tensor, ps: int) -> Tuple[torch.Tensor, None, None]:
+                     tables: torch.Tensor, ps: int, *, dedupe: bool = False
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor], None]:
     """``mixed_write_plan`` through (B, nb) block tables, on the device:
     chunk row ``i`` of slot ``b`` writes position t = cache_lens[b] + i at
     flat pool row tables[b, t // ps]·ps + t % ps when i < new_lens[b] and
     t < nb·ps; every other row goes to its row of the trash page, as in
     JAX.  Only the trash page takes repeated writes (after copy-on-write
-    every page a slot writes is its own), and nothing reads it.  Returns
-    (dst, None, None): every chunk row is written, in order."""
+    every page a slot writes is its own); a dense model's padding rows read
+    it and are dropped.  An MoE model's padding rows compete for expert
+    capacity, so with ``dedupe`` the colliding rows write one value, the
+    last one's (``last_writer``), and the trash page is the same on every
+    device.  Returns (dst, src, None): every chunk row is written, in
+    order, row ``src[j]``'s value at ``dst[j]`` (src None: its own)."""
     dev = cache_lens.device
     nb = tables.shape[1]
     pos = cache_lens.long()[:, None] + torch.arange(Q, device=dev)[None, :]
     valid = ((torch.arange(Q, device=dev)[None, :] < new_lens.long()[:, None])
              & (pos < nb * ps))
     page = tables.long().gather(1, (pos // ps).clamp(max=nb - 1))
-    page = torch.where(valid, page, TRASH_PAGE)
-    return (page * ps + pos % ps).reshape(-1), None, None
+    page = torch.where(valid, page, TRASH_PAGE).reshape(-1)
+    row = (pos % ps).reshape(-1)
+    src = last_writer(page == TRASH_PAGE, row, ps) if dedupe else None
+    return page * ps + row, src, None
 
 
 def mixed_write_index(cache_lens: np.ndarray, new_lens: np.ndarray, Q: int,
@@ -255,7 +331,9 @@ def attention_mixed(
     position ``<= cache_lens[b] + i``.  ``attn_window`` bounds the span
     read: the kernel takes the ``[:, :W]`` view of a contiguous cache, or
     the ``[:, :ceil(W / ps)]`` column slice of the tables, in place (no
-    copy)."""
+    copy).  A sliding window raises ``ValueError``, as in JAX."""
+    if cfg.sliding_window > 0:
+        raise ValueError("the mixed-batch step does not support sliding-window attention")
     B, Q, _ = x.shape
     positions = cache_lens[:, None] + torch.arange(Q, device=x.device, dtype=cache_lens.dtype)
     q, k_new, v_new = _project_qkv(p, x, cfg, positions)

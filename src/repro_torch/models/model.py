@@ -1,4 +1,4 @@
-"""Model facade of the port (dense, vlm, encoder, rwkv and hybrid
+"""Model facade of the port (dense, moe, vlm, encoder, rwkv and hybrid
 families): prefill, decode and mixed steps.
 
     model = Model(cfg, device="cuda").init_(torch.Generator("cuda").manual_seed(0))
@@ -13,8 +13,9 @@ families): prefill, decode and mixed steps.
     logits = model.prefill_paged(suffix, pool, page_row, start)  # (1, V)
 
 Counterpart of the JAX package's ``models/model.py`` for the serving path.
-The dense KV cache keeps the JAX layout ``(L, B, S, Hkv, Dh)``, the page
-pool ``(L, P, page_size, Hkv, Dh)``; the rwkv cache is an
+The dense KV cache keeps the JAX layout ``(L, B, S, Hkv, Dh)`` (with a
+sliding window W, a ring of ``S = min(max_len, W)`` rows, position p at
+row p % W), the page pool ``(L, P, page_size, Hkv, Dh)``; the rwkv cache is an
 ``RWKVLayerCache`` of (L, B, H, N, N) fp32 states and (L, B, d) shift
 rows, whatever ``max_len``; the hybrid cache a ``Zamba2Cache`` of (L, B,
 K-1, conv_ch) conv tails, (L, B, H, P, N) fp32 Mamba-2 states and one
@@ -22,8 +23,13 @@ K-1, conv_ch) conv tails, (L, B, H, P, N) fp32 Mamba-2 states and one
 updated in place (the JAX engine donated them).  The rwkv and hybrid
 families have no mixed step and no paged KV (``step_mixed``,
 ``prefill_paged`` and ``empty_page_pool`` raise ``ValueError``, as in
-JAX).  The encoder family (hubert) takes frame embeddings in place of
-tokens, attends without a causal mask and does not decode: ``decode``,
+JAX); nor has a model with a sliding window (mixtral), whose decode
+cache is the ring.  The moe family routes every token of a call through
+its experts together (``moe.moe_block``), idle slots and padding columns
+included, so its paged writes to the trash page carry one value per row
+(``attention.last_writer``).  The encoder family (hubert) takes frame
+embeddings in place of tokens, attends without a causal mask and does
+not decode: ``decode``,
 ``step_mixed``, ``prefill_paged`` and ``empty_page_pool`` raise
 ``ValueError``.  A vlm prefills its patch embeddings ahead of the text
 and then decodes and steps on text as a dense model does.  ``device``
@@ -54,7 +60,7 @@ Cache = Union[DecoderKVCache, rwkv6.RWKVLayerCache, zamba2.Zamba2Cache]
 
 class Model(nn.Module):
     """Embedding (none for embeds input), an ``nn.ModuleList`` of
-    ``DecoderLayer``s (dense, vlm, encoder), ``RWKVLayer``s (rwkv) or
+    ``DecoderLayer``s (dense, moe, vlm, encoder), ``RWKVLayer``s (rwkv) or
     ``Mamba2Layer``s (hybrid, with the one ``shared`` attention
     ``DecoderLayer``) and the final norm; the head is the encoder's
     ``encoder_head`` (d, V) (JAX's ``head`` leaf), the tied embedding, or
@@ -161,7 +167,8 @@ class Model(nn.Module):
         (B, V) — the all-position logits of a 2000-token prompt at full width
         would be 1.2 GB of fp32 — or with ``all_logits`` every position's (B,
         S, V) (the encoder's output), and the prompt cache: KV (L, B, S, Hkv,
-        Dh), for rwkv the states and shift rows after the last token, for
+        Dh) (with a sliding window W < S, the ring of the last W positions,
+        position p at row p % W), for rwkv the states and shift rows after the last token, for
         hybrid the conv tails, states and (G, B, S, Hkv, Dh) shared-attention
         KV."""
         x = self._embed(tokens, patches, embeds)
@@ -221,11 +228,16 @@ class Model(nn.Module):
             x = zamba2.run_zamba2_decode(self.layers, self.shared, x, cache,
                                          cache_len.to(self.device, torch.int32), self.cfg)
             return self._logits(x)[:, 0]
+        cache_len = cache_len.to(self.device, torch.int32)
+        plan = None
         if page_table is not None:
             page_table = self._ints(page_table)
-        x = transformer.run_layers_decode(self.layers, x, cache.k, cache.v,
-                                          cache_len.to(self.device, torch.int32), self.cfg,
-                                          page_table)
+            # an MoE model's idle slots compete for expert capacity: their
+            # colliding trash-page rows must read the same on any device
+            plan = attention.paged_decode_plan(cache_len, page_table, cache.k.shape[2],
+                                               dedupe=self.cfg.is_moe)
+        x = transformer.run_layers_decode(self.layers, x, cache.k, cache.v, cache_len, self.cfg,
+                                          page_table, plan)
         return self._logits(x)[:, 0]
 
     @torch.no_grad()
@@ -253,7 +265,8 @@ class Model(nn.Module):
         cl, nl = self._ints(cache_lens), self._ints(new_lens)
         if page_table is not None:
             page_table = self._ints(page_table)
-            plan = attention.paged_write_plan(cl, nl, Q, page_table, cache.k.shape[2])
+            plan = attention.paged_write_plan(cl, nl, Q, page_table, cache.k.shape[2],
+                                              dedupe=self.cfg.is_moe)
         else:
             plan = attention.mixed_write_plan(cl, nl, Q, cache.k.shape[2])
         x = self.embed[tokens]
@@ -299,14 +312,17 @@ class Model(nn.Module):
         return DecoderKVCache(k=pool.k, v=pool.v)
 
     def empty_cache(self, batch: int, max_len: int) -> Cache:
-        """The (L, B, max_len, Hkv, Dh) cache, zeroed; for rwkv the zeroed
-        (L, B, H, N, N) fp32 states and (L, B, d) shift rows; for hybrid
-        the zeroed ``Zamba2Cache``."""
+        """The (L, B, max_len, Hkv, Dh) cache, zeroed (with a sliding
+        window W, the ring of min(max_len, W) rows, as JAX sizes it); for
+        rwkv the zeroed (L, B, H, N, N) fp32 states and (L, B, d) shift
+        rows; for hybrid the zeroed ``Zamba2Cache``."""
         cfg = self.cfg
         if self.is_rwkv:
             return rwkv6.empty_cache(cfg, cfg.n_layers, batch, cfg.torch_dtype, self.device)
         if self.is_hybrid:
             return zamba2.empty_cache(cfg, batch, max_len, cfg.torch_dtype, self.device)
+        if cfg.sliding_window > 0:
+            max_len = min(max_len, cfg.sliding_window)
         shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
         kw = dict(dtype=cfg.torch_dtype, device=self.device)
         return DecoderKVCache(k=torch.zeros(shape, **kw), v=torch.zeros(shape, **kw))

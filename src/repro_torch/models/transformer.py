@@ -3,12 +3,13 @@ the prefill, decode and mixed layer loops, the logits head, and the check
 of which configs the port serves.
 
 Counterpart of the JAX package's ``models/transformer.py`` for the dense,
-vlm and encoder families.  The JAX stack scans over stacked (L, ...) leaves
-and builds the fused ``wqkv``/``w_gu`` once per jitted dispatch; the port
-keeps one ``DecoderLayer`` module per layer, holding those fused matrices
-from the moment weights load, so no step ever rebuilds them.  A GELU layer
-(``mlp_type="gelu"``) holds ``w_up``/``w_down`` unfused, as JAX has no
-``w_gu`` for it.  The layer loops are
+moe, vlm and encoder families.  The JAX stack scans over stacked (L, ...)
+leaves and builds the fused ``wqkv``/``w_gu`` once per jitted dispatch; the
+port keeps one ``DecoderLayer`` module per layer, holding those fused
+matrices from the moment weights load, so no step ever rebuilds them.  A
+GELU layer (``mlp_type="gelu"``) holds ``w_up``/``w_down`` unfused, as JAX
+has no ``w_gu`` for it; an MoE layer holds a ``moe.MoE`` in place of its
+MLP (JAX ``mlp_block``'s MoE branch).  The layer loops are
 Python loops (no scan grouping or remat: the port serves, it does not
 train yet); each layer writes its KV slice in place.
 """
@@ -21,12 +22,13 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe
 
 
 class DecoderLayer(nn.Module):
     """ln1 → attention → residual → ln2 → SwiGLU (fused [w_gate|w_up]), or
-    with ``mlp_type="gelu"`` the GELU MLP (``w_up``, ``w_down``)."""
+    with ``mlp_type="gelu"`` the GELU MLP (``w_up``, ``w_down``), or in an
+    MoE model the ``moe.MoE`` block."""
 
     def __init__(self, cfg: ModelConfig, *, device, dtype):
         super().__init__()
@@ -34,6 +36,9 @@ class DecoderLayer(nn.Module):
         self.ln1 = nn.Parameter(torch.ones(cfg.d_model, **kw), requires_grad=False)
         self.ln2 = nn.Parameter(torch.ones(cfg.d_model, **kw), requires_grad=False)
         self.attn = attention.Attention(cfg, device=device, dtype=dtype)
+        if cfg.is_moe:
+            self.moe = moe.MoE(cfg, device=device, dtype=dtype)
+            return
         if cfg.mlp_type == "gelu":
             self.w_up = nn.Parameter(torch.empty(cfg.d_model, cfg.d_ff, **kw), requires_grad=False)
         else:
@@ -43,12 +48,14 @@ class DecoderLayer(nn.Module):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves the dense and vlm token-LM families and prefills the
-    encoder family (SwiGLU or GELU, tied or untied, full attention), and
-    serves the rwkv family (token input, decoding) and the hybrid family
-    (token input, decoding, a SwiGLU shared block with full attention after
-    every ``attention_every`` Mamba-2 layers).  MoE and sliding-window
-    attention are not ported yet."""
+    """The port serves the dense, moe and vlm token-LM families and prefills
+    the encoder family (SwiGLU or GELU, tied or untied; the moe family's
+    experts top-k routed, with or without a dense residual), with full
+    attention or, on the dense and moe families, a sliding window (the
+    decode cache a ring); and serves the rwkv family (token input, decoding)
+    and the hybrid family (token input, decoding, a SwiGLU shared block
+    with full attention after every ``attention_every`` Mamba-2 layers).
+    Anything else raises ``NotImplementedError``."""
     if cfg.family in ("rwkv", "hybrid"):
         if cfg.input_mode != "tokens" or not cfg.supports_decode:
             raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is ported for "
@@ -60,21 +67,24 @@ def check_supported(cfg: ModelConfig) -> None:
                 f"{cfg.name}: the hybrid family is ported with a SwiGLU shared block, full "
                 f"attention and whole groups of attention_every layers")
         return
-    if (cfg.family not in ("dense", "vlm", "encoder") or cfg.is_moe
+    if (cfg.family not in ("dense", "moe", "vlm", "encoder")
+            or cfg.is_moe != (cfg.family == "moe")
             or cfg.mlp_type not in ("swiglu", "gelu")):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense, vlm and encoder families with a SwiGLU or GELU MLP, "
-            f"the rwkv family and the hybrid family are ported (family {cfg.family!r}, "
-            f"mlp {cfg.mlp_type!r}, experts {cfg.n_experts})")
+            f"{cfg.name}: only the dense, moe, vlm and encoder families with a SwiGLU or GELU "
+            f"MLP (experts in the moe family alone), the rwkv family and the hybrid family are "
+            f"ported (family {cfg.family!r}, mlp {cfg.mlp_type!r}, experts {cfg.n_experts})")
+    if cfg.is_moe and not 0 < cfg.top_k <= cfg.n_experts:
+        raise NotImplementedError(f"{cfg.name}: top_k {cfg.top_k} of {cfg.n_experts} experts")
     encoder = cfg.family == "encoder"
     if cfg.input_mode != ("embeds" if encoder else "tokens") or (encoder and cfg.supports_decode):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is ported with "
             f"{'embeds input and no decode' if encoder else 'token input'} "
             f"(input_mode {cfg.input_mode!r}, supports_decode {cfg.supports_decode})")
-    if cfg.sliding_window > 0:
+    if cfg.sliding_window > 0 and cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: sliding-window attention is not ported yet (it comes with mixtral)")
+            f"{cfg.name}: sliding-window attention is ported on the dense and moe families only")
 
 
 def _normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
@@ -93,18 +103,41 @@ def init_layer_(layer: DecoderLayer, cfg: ModelConfig, generator: torch.Generato
     d = cfg.d_model
     _normal_(layer.attn.wqkv, 1.0 / math.sqrt(d), generator)
     _normal_(layer.attn.wo, 1.0 / math.sqrt(cfg.q_dim), generator)
-    _normal_(layer.w_up if cfg.mlp_type == "gelu" else layer.w_gu, 1.0 / math.sqrt(d), generator)
-    _normal_(layer.w_down, 1.0 / math.sqrt(cfg.d_ff), generator)
+    if cfg.is_moe:
+        _init_moe_(layer.moe, cfg, generator)
+    else:
+        _normal_(layer.w_up if cfg.mlp_type == "gelu" else layer.w_gu, 1.0 / math.sqrt(d),
+                 generator)
+        _normal_(layer.w_down, 1.0 / math.sqrt(cfg.d_ff), generator)
     layer.ln1.fill_(1.0)
     layer.ln2.fill_(1.0)
     if layer.attn.qk_norm is not None:
         layer.attn.qk_norm.fill_(1.0)
 
 
+def _init_moe_(p: moe.MoE, cfg: ModelConfig, generator: torch.Generator) -> None:
+    """The JAX ``init_moe_params`` distributions: ``router`` N(0, 0.02²) in
+    fp32, the experts' and the residual's matrices N(0, 1/fan_in).  The
+    experts are drawn one at a time: arctic's whole ``w_gu`` drawn at once
+    would need an fp32 temporary of twice its bf16 size."""
+    d = cfg.d_model
+    _normal_(p.router, 0.02, generator)
+    for e in range(cfg.n_experts):
+        _normal_(p.w_gu[e], 1.0 / math.sqrt(d), generator)
+        _normal_(p.w_down[e], 1.0 / math.sqrt(cfg.d_ff), generator)
+    if cfg.moe_dense_residual:
+        _normal_(p.res_gu, 1.0 / math.sqrt(d), generator)
+        _normal_(p.res_down, 1.0 / math.sqrt(p.res_down.shape[0]), generator)
+
+
 def _mlp(layer: DecoderLayer, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """ln2, the layer's MLP (GELU or fused SwiGLU), residual: the one MLP
-    of every layer loop."""
+    """ln2, the layer's MLP (the MoE block, GELU or fused SwiGLU), residual:
+    the one MLP of every layer loop (JAX ``mlp_block``).  An MoE call routes
+    every token of ``x`` together: B for a decode step, B·Q for a mixed
+    step, the prompt for a prefill."""
     h = layers.rms_norm(x, layer.ln2, cfg.norm_eps)
+    if cfg.is_moe:
+        return x + moe.moe_block(layer.moe, h, cfg)[0]
     if cfg.mlp_type == "gelu":
         return x + layers.gelu_mlp(h, layer.w_up, layer.w_down)
     return x + layers.swiglu_fused(h, layer.w_gu, layer.w_down)
@@ -117,17 +150,22 @@ def run_layers_seq(
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """The prefill layer loop.  Returns x and the stacked prompt caches
     k, v (L, B, S, Hkv, Dh), each layer's copied into one preallocated
-    buffer so no layer's projection outlives it.  A dense model has no MoE
-    auxiliary loss to return."""
+    buffer so no layer's projection outlives it; with a sliding window W
+    below S, only the ring a decode cache holds (L, B, W, Hkv, Dh), the
+    last W positions with position p at row p % W
+    (``attention.ring_rows``).  The serving path takes no MoE auxiliary
+    loss."""
     B, S, _ = x.shape
-    shape = (len(layer_list), B, S, cfg.n_kv_heads, cfg.resolved_head_dim)
+    W = cfg.sliding_window
+    rows = min(S, W) if W > 0 else S
+    shape = (len(layer_list), B, rows, cfg.n_kv_heads, cfg.resolved_head_dim)
     ks = torch.empty(shape, dtype=x.dtype, device=x.device)
     vs = torch.empty(shape, dtype=x.dtype, device=x.device)
     for li, layer in enumerate(layer_list):
         h = layers.rms_norm(x, layer.ln1, cfg.norm_eps)
         a, cache = attention.attention_block(layer.attn, h, cfg)
-        ks[li].copy_(cache.k)
-        vs[li].copy_(cache.v)
+        ks[li].copy_(attention.ring_rows(cache.k, W))
+        vs[li].copy_(attention.ring_rows(cache.v, W))
         x = _mlp(layer, x + a, cfg)
     return x, (ks, vs)
 
@@ -140,12 +178,13 @@ def run_layers_decode(
     cache_len: torch.Tensor,       # (B,) int32
     cfg: ModelConfig,
     page_table: Optional[torch.Tensor] = None,   # (B, nb) int32 => paged pool
+    write_plan: Optional[tuple] = None,          # attention.paged_decode_plan
 ) -> torch.Tensor:
     for li, layer in enumerate(layer_list):
         h = layers.rms_norm(x, layer.ln1, cfg.norm_eps)
         x = x + attention.attention_decode(
             layer.attn, h, attention.KVCache(cache_k[li], cache_v[li]), cache_len, cfg,
-            page_table=page_table)
+            page_table=page_table, write_plan=write_plan)
         x = _mlp(layer, x, cfg)
     return x
 

@@ -19,7 +19,10 @@ ignore ``spec_k``, as in JAX.  A model without
 a mixed step (the rwkv family, ``Model.supports_mixed_step`` False) takes
 legacy admission whatever ``mixed_step`` says, as in JAX: its per-slot
 cache is a recurrent state (L, B, H, N, N) and two shift rows (L, B, d),
-which admission replaces whole for the slot.  The hybrid family (zamba2)
+which admission replaces whole for the slot.  So does a model with a
+sliding window (mixtral): its contiguous cache is a ring of min(max_len,
+W) rows, written by the prefill and every decode step at row p % W.  The
+hybrid family (zamba2)
 also has no mixed step: admission replaces its conv tails (L, B, K-1, C)
 and Mamba-2 states (L, B, H, P, N) whole and writes each shared
 application's KV (G, B, S, Hkv, Dh) over [0, S).
@@ -421,7 +424,8 @@ class ServingEngine:
     @staticmethod
     def _load_prefill(cache, pcache) -> None:
         """The prefill cache into the fixed decode buffer, leaf by leaf: a KV
-        leaf at the head of its zeroed (L, B, max_len, ...) buffer; a leaf
+        leaf at the head of its zeroed (L, B, max_len, ...) buffer (a
+        sliding window's ring rows at the head of the ring); a leaf
         of the buffer's own shape (rwkv states, shift rows, the hybrid's
         conv tails and states) copied whole."""
         for buf, c in zip(cache, pcache):
@@ -432,7 +436,9 @@ class ServingEngine:
     def _place_slot(self, cache, pcache, slot: int) -> None:
         """Write a B=1 prefill cache into slot ``slot`` of the decode buffer,
         in place, over every leaf at a zero offset in every axis but the
-        batch: KV at positions [0, S); rwkv states and shift rows, and the
+        batch: KV at positions [0, S) (with a sliding window, the prefill's
+        ring rows, position p at row p % W, so the offset-0 write places
+        every position at its ring row); rwkv states and shift rows, and the
         hybrid's conv tails and Mamba-2 states, replaced whole, so nothing
         an idle slot decoded survives admission."""
         for buf, c in zip(cache, pcache):

@@ -66,10 +66,13 @@ def test_config_matches_reference(arch):
 
 
 def test_registry_lists_the_ported_arches():
-    assert len(ARCH_IDS) == 8
+    from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+
+    assert len(ARCH_IDS) == 10
     assert set(ARCHES) <= set(ARCH_IDS)
+    assert set(ARCH_IDS) == set(JAX_ARCH_IDS)
     for arch in ("mixtral-8x22b", "arctic-480b"):
-        assert arch not in ARCH_IDS
+        assert arch in ARCH_IDS
 
 
 @pytest.mark.parametrize("arch", ARCHES)
@@ -287,20 +290,23 @@ def test_seeded_init_draws_every_leaf():
 
 
 def test_check_supported_takes_the_five_and_refuses_moe():
-    for arch in ARCHES + ("qwen3-0.6b", "rwkv6-7b", "zamba2-2.7b"):
+    """Every arch of the JAX package is taken, the MoE pair too; what the
+    port still refuses raises ``NotImplementedError``."""
+    for arch in ARCHES + ("qwen3-0.6b", "rwkv6-7b", "zamba2-2.7b", "mixtral-8x22b",
+                          "arctic-480b"):
         jc = jax_get_config(arch)
         transformer.check_supported(ModelConfig(**{f.name: getattr(jc, f.name)
                                                    for f in dataclasses.fields(ModelConfig)}))
-    for arch in ("mixtral-8x22b", "arctic-480b"):
-        jc = jax_get_config(arch)
-        cfg = ModelConfig(**{f.name: getattr(jc, f.name) for f in dataclasses.fields(ModelConfig)})
-        with pytest.raises(NotImplementedError):
-            transformer.check_supported(cfg)
     base = get_config("qwen3-4b").reduce()
-    for bad in (dict(sliding_window=64), dict(mlp_type="geglu"), dict(family="moe"),
-                dict(input_mode="embeds"), dict(family="encoder")):
+    transformer.check_supported(dataclasses.replace(base, sliding_window=64))
+    for bad in (dict(mlp_type="geglu"), dict(family="moe"), dict(n_experts=4, top_k=2),
+                dict(family="moe", n_experts=4, top_k=0), dict(input_mode="embeds"),
+                dict(family="encoder"), dict(family="vlm", sliding_window=64)):
         with pytest.raises(NotImplementedError):
             transformer.check_supported(dataclasses.replace(base, **bad))
+    with pytest.raises(NotImplementedError):
+        transformer.check_supported(
+            dataclasses.replace(get_config("zamba2-2.7b").reduce(), sliding_window=64))
     enc = get_config("hubert-xlarge")
     with pytest.raises(NotImplementedError):
         transformer.check_supported(dataclasses.replace(enc, supports_decode=True))

@@ -62,7 +62,12 @@ breadth``): the single-stage, one-launch split-K and mixed kernels and the
 causal flash prefill at (Hkv, G, D) = (8, 4, 128), (4, 12, 128) and (8,
 16, 128), both layouts and dtypes, and hubert's non-causal flash prefill
 at Hq = Hkv = 16, D 80, each call exactly one kernel launch, and NaN past
-the lengths ignored at G 12.  The traced which-kernel tests take a trace
+the lengths ignored at G 12; and the MoE arches (``-k moe``): the same
+kernels at (8, 6, 128) and (8, 7, 128), mixtral's causal flash prefill at
+window 4096 over 6000 tokens, NaN ignored at G 6 and 7, ``moe_block`` in
+fp32 on the card against the CPU (reduced, and arctic's width with 8 of
+its experts, T 8 and 64), and captured MoE sessions (mixtral's ring
+wrapping, arctic contiguous and paged) against eager.  The traced which-kernel tests take a trace
 again while it counts fewer kernels than ``LAUNCHES`` does.
 
 Marked ``gpu``; each test asks the ``cuda`` fixture for the card, which
@@ -2656,8 +2661,12 @@ def test_breadth_flash_noncausal_head_dim_80(cuda, dtype, B, S):
 def test_breadth_kernels_ignore_nan_at_group_12(cuda, dtype):
     """starcoder2's G 12: NaN in the cache past every length (the decode
     kernels) and past every cache_len + Q (the mixed step) is never read."""
-    rng = np.random.default_rng(3600)
-    Hkv, G, D, S, Q = 4, 12, 128, SINGLE_S, 13
+    _kernels_ignore_nan(cuda, dtype, 4, 12)
+
+
+def _kernels_ignore_nan(cuda, dtype, Hkv, G):
+    rng = np.random.default_rng(3600 + (G != 12) * G)
+    D, S, Q = 128, SINGLE_S, 13
     lens_l = [1, 129, 300, 511, 512, 700, 1000, S]
     B = len(lens_l)
     k, v = _kv(rng, B, S, Hkv, D, dtype, cuda)
@@ -2680,3 +2689,160 @@ def test_breadth_kernels_ignore_nan_at_group_12(cuda, dtype):
     out = kernel.mixed_attention_cuda(qm, kn, vn, cl)
     assert bool(torch.isfinite(out).all())
     _close(out, ref.mixed_attention(qm, k, v, cl), dtype)
+
+
+# ---------------------------------------------------------------------------
+# the MoE arches (``-k moe``): the attention kernels at their group sizes,
+# mixtral's windowed prefill past its window, the MoE block card against
+# CPU, and captured MoE steps against eager
+# ---------------------------------------------------------------------------
+
+# mixtral-8x22b (48 q / 8 kv heads), arctic-480b (56 / 8)
+MOE_SHAPES = [(8, 6, 128), (8, 7, 128)]
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("Hkv,G,D", MOE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_single_stage_vs_plain(cuda, dtype, Hkv, G, D, paged):
+    test_breadth_single_stage_vs_plain(cuda, dtype, Hkv, G, D, paged)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("Hkv,G,D", MOE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_fused_splitk_vs_plain(cuda, dtype, Hkv, G, D, paged):
+    test_breadth_fused_splitk_vs_plain(cuda, dtype, Hkv, G, D, paged)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("Q", [1, 13, 64])
+@pytest.mark.parametrize("Hkv,G,D", MOE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_mixed_vs_plain(cuda, dtype, Hkv, G, D, Q, paged):
+    test_breadth_mixed_vs_plain(cuda, dtype, Hkv, G, D, Q, paged)
+
+
+@pytest.mark.parametrize("S", [17, 700])
+@pytest.mark.parametrize("Hkv,G,D", MOE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_flash_causal_vs_plain(cuda, dtype, Hkv, G, D, S):
+    test_breadth_flash_causal_vs_plain(cuda, dtype, Hkv, G, D, S)
+
+
+@pytest.mark.parametrize("Hkv,G,D", MOE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_flash_window_past_the_window(cuda, dtype, Hkv, G, D):
+    """mixtral's prefill of a 6000-token prompt: causal, window 4096, one
+    launch."""
+    rng = np.random.default_rng(3700 + G)
+    q, k, v = _flash_inputs(rng, 1, 6000, 6000, Hkv, G, D, dtype, cuda)
+    out = _one_launch(flash_kernel, "flash_attention",
+                      lambda: flash_kernel.flash_attention_cuda(q, k, v, causal=True,
+                                                                window=4096))
+    _close(out, flash_ref.flash_attention(q, k, v, causal=True, window=4096), dtype)
+
+
+@pytest.mark.parametrize("G", [6, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_kernels_ignore_nan(cuda, dtype, G):
+    _kernels_ignore_nan(cuda, dtype, 8, G)
+
+
+def _moe_pair(arch, *, n_experts=0, full_width=False, seed=0):
+    """A CPU fp32 ``MoE`` block of ``arch`` (``reduce()``, or its full width
+    with ``n_experts`` experts) with seeded weights, its copy on the card,
+    and the config."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config(arch) if full_width else get_config(arch).reduce()
+    cfg = dataclasses.replace(cfg, dtype="float32", n_experts=n_experts or cfg.n_experts)
+    gen = torch.Generator().manual_seed(seed)
+    cpu = moe.MoE(cfg, device="cpu", dtype=torch.float32)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            std = 0.02 if name == "router" else p.shape[-2] ** -0.5
+            p.copy_(torch.randn(p.shape, generator=gen) * std)
+    card = moe.MoE(cfg, device="cuda", dtype=torch.float32)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card, cfg
+
+
+@pytest.mark.parametrize("T", [8, 64])
+@pytest.mark.parametrize("arch,n_experts,full", [("mixtral-8x22b", 0, False),
+                                                 ("arctic-480b", 0, False),
+                                                 ("arctic-480b", 8, True)])
+def test_moe_block_card_vs_cpu(cuda, arch, n_experts, full, T):
+    """``moe_block`` in fp32 on the card against the CPU at T tokens: the
+    same experts picked, the same slots kept (capacity factor 1.25 drops at
+    T 64 here), the outputs within atol 2e-5 reduced and 1e-4 at arctic's
+    width (d 7168, f 4864, a dense residual of 7168; 8 of its 128
+    experts)."""
+    from repro_torch.models import moe
+
+    cpu, card, cfg = _moe_pair(arch, n_experts=n_experts, full_width=full, seed=T)
+    rng = np.random.default_rng(3800 + T)
+    x = torch.as_tensor(rng.standard_normal((2, T // 2, cfg.d_model)), dtype=torch.float32)
+    x[:, ::2] += 2.0
+    xf = x.reshape(T, -1)
+    routes = [moe.route(xx, m.router, cfg.top_k) for xx, m in ((xf, cpu), (xf.to(cuda), card))]
+    assert torch.equal(routes[0][1], routes[1][1].cpu())
+    cap = moe.capacity(T, cfg)
+    d_cpu = moe.dispatch(xf, *routes[0][:2], cfg.n_experts, cap)
+    d_card = moe.dispatch(xf.to(cuda), *routes[1][:2], cfg.n_experts, cap)
+    assert torch.equal(d_cpu.slot, d_card.slot.cpu())
+    want, _ = moe.moe_block(cpu, x, cfg)
+    got, _ = moe.moe_block(card, x.to(cuda), cfg)
+    atol = 1e-4 if full else 2e-5
+    torch.testing.assert_close(got.cpu(), want, atol=atol, rtol=1e-4)
+
+
+def _moe_graph_model(arch):
+    """``arch``'s ``reduce()`` in fp32, head_dim 64 (the flash kernel's
+    narrowest), seeded weights on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_config(arch).reduce(), head_dim=64)
+    return Model(cfg, device="cuda").init_(torch.Generator("cuda").manual_seed(0))
+
+
+@pytest.mark.parametrize("arch,paged", [("mixtral-8x22b", False), ("arctic-480b", False),
+                                        ("arctic-480b", True)])
+def test_moe_captured_session_equals_eager(cuda, arch, paged):
+    """A session whose decode chunks (and, arctic, mixed steps) route their
+    tokens through the MoE block, replayed from CUDA graphs: the eager
+    streams token for token, the same launch counts.  Mixtral's max_len
+    256 is a ring of 64 rows that every stream here wraps."""
+    from repro_torch.serving import EngineClient, EngineConfig, InferenceRequest, ServingEngine
+
+    model = _moe_graph_model(arch)
+    rng = np.random.default_rng(3900)
+    reqs = [(rng.integers(0, model.cfg.vocab_size, int(p)), 40) for p in (5, 30, 61, 90, 17)]
+    outs = []
+    for graphs in (True, False):
+        eng = ServingEngine(model, EngineConfig(max_len=256, decode_batch=3, decode_chunk=4,
+                                                prefill_chunk=24, paged_kv=paged),
+                            graphs=graphs)
+        if graphs:
+            eng.warm_mixed_traces([24])
+            eng.warm_decode()
+        kernel.reset_launches()
+        flash_kernel.reset_launches()
+        cli = EngineClient(eng)
+        hs = [cli.submit(InferenceRequest(prompt=p, max_new=m)) for p, m in reqs]
+        cli.drain()
+        outs.append(([h.result() for h in hs], {**kernel.LAUNCHES, **flash_kernel.LAUNCHES}))
+    (got, launches), (want, want_launches) = outs
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert launches == want_launches
+    if arch == "mixtral-8x22b":
+        assert launches["flash_attention"] == 2 * len(reqs) and launches["mixed_attention"] == 0
+    else:
+        assert launches["mixed_attention_paged" if paged else "mixed_attention"] > 0

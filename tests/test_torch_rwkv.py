@@ -335,7 +335,7 @@ def test_prefill_matches_jax_with_random_bonus_and_decay(pair):
 
 def test_options_the_family_refuses(pair):
     """No mixed step and no paged KV for rwkv, in the port as in JAX; the
-    MoE family is not ported yet (the hybrid family is)."""
+    hybrid and MoE families are ported."""
     jmodel, jparams, cfg, model = pair
     assert not model.supports_mixed_step and not model.supports_paged_kv
     assert not jmodel.supports_mixed_step and not jmodel.supports_paged_kv
@@ -353,15 +353,10 @@ def test_options_the_family_refuses(pair):
         ServingEngine(model, EngineConfig(max_len=32, paged_kv=True), device="cpu")
     with pytest.raises(ValueError):
         JaxServingEngine(jmodel, jparams, JaxEngineConfig(max_len=32, paged_kv=True))
-    for arch, ported in (("zamba2-2.7b", True), ("mixtral-8x22b", False)):
+    for arch in ("zamba2-2.7b", "mixtral-8x22b", "arctic-480b"):
         jc = jax_get_config(arch)
-        port_cfg = ModelConfig(**{f.name: getattr(jc, f.name)
-                                  for f in dataclasses.fields(ModelConfig)})
-        if ported:
-            transformer.check_supported(port_cfg)
-            continue
-        with pytest.raises(NotImplementedError):
-            transformer.check_supported(port_cfg)
+        transformer.check_supported(ModelConfig(**{f.name: getattr(jc, f.name)
+                                                   for f in dataclasses.fields(ModelConfig)}))
 
 
 # ---------------------------------------------------------------------------
