@@ -2,8 +2,9 @@
 """Chip smoke test of the PyTorch port: serve qwen3-0.6b, rwkv6-7b,
 zamba2-2.7b, qwen3-4b, starcoder2-15b, llava-next-mistral-7b,
 llama3-405b (cut to 4 layers), mixtral-8x22b (cut to 4 layers) and
-arctic-480b (cut to 2 layers), and prefill hubert-xlarge, on one NVIDIA
-GPU.
+arctic-480b (cut to 2 layers), prefill hubert-xlarge, and train
+qwen3-0.6b, rwkv6-7b (cut to 2 layers) and zamba2-2.7b (cut to 6 layers),
+on one NVIDIA GPU.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
@@ -335,6 +336,24 @@ Phases (any failure exits non-zero; nothing is caught):
    1 layer, 6 requests (prompts 16..300, 8 new) through 2 slots; streams
    equal or near-ties under ``NEAR_TIE``; then ``ring_check`` on that
    model at S = 4100 and 6000 within ``RING_FP32_ATOL``;
+3 (training). each kernel's ``autograd.Function`` (the kernel's forward,
+   the plain version's autograd recomputed as its backward) against the
+   plain version's autograd on the card at the training phases' shapes,
+   bf16 and fp32 (``train_grad_checks``);
+4tr. ``launch.train.run``, the launcher's loop, at full width: qwen3-0.6b
+   in bf16, 20 steps of 8 x 1024 tokens in 2 microbatches on
+   ``batch_for_step`` data (every loss finite, the flash kernel twice a
+   layer a microbatch and nothing else), then 30 steps on one repeated
+   batch whose loss must halve; step ms, tokens/s, peak memory and the
+   plain attention backward's share of a step;
+4ts. the same loop for rwkv6-7b cut to 2 layers and zamba2-2.7b cut to 6
+   (one shared application), full width, bf16, 4 steps: WKV6, SSD,
+   RMSNorm (both forms) and flash launched twice per call site per
+   microbatch (the forward and the layer's recompute), nothing else;
+5n. one fp32 train step of qwen3-0.6b, rwkv6-7b and zamba2-2.7b
+   ``reduce()`` (head dim 64) on the card against the CPU, and the
+   launcher's crash drill on the card (exit 17 at step 5, resumed from
+   step 4) against the uninterrupted run;
 6. timing: every kernel, its plain version and the one PyTorch call with
    the same result (scaled_dot_product_attention, used only as a
    yardstick; no one call reads a block table or computes the WKV6 or SSD
@@ -402,6 +421,7 @@ TOL = {torch.float32: dict(atol=2e-5, rtol=1e-3), torch.bfloat16: dict(atol=2e-2
 # different bf16 values, an output element moves by at most 2^-7 * p * |v|.
 BF16_ROW_FRAC = 0.1
 ROW_FRAC = {}              # check -> worst bf16 row error as a share of its RMS
+OUTSIDE_FWD_TOL = {}       # bf16 gradient -> elements outside the forward's atol 2e-2
 NEAR_TIE = 1e-3            # logit margin below which an argmax flip is a near-tie
 # A bf16 flip between tokens a and b is a near-tie when their fp32 margin
 # (the same weights in fp32) is under this many times bf16's own logit
@@ -4057,6 +4077,366 @@ def phase_day_fleet_exact() -> dict:
                 launches=cout["launches"], dtype="float32")
 
 
+# --------------------------------------------------------------------------
+# training: phase 3's gradient checks, phases 4tr, 4ts and 5n
+# --------------------------------------------------------------------------
+
+# 4tr: full-width qwen3-0.6b, bf16, 8 sequences of 1024 a step in 2 microbatches
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM = 1024, 8, 2
+TRAIN_STEPS, REPEAT_STEPS = 20, 30
+# the repeated batch: 4 sequences of 512 in 2 microbatches at lr 1e-3 (the
+# full 8 x 1024 batch fell from 12.13 to 6.30 in 30 steps at lr 1e-3 and to
+# 7.33 at 2e-3, short of half; JAX's small-model test memorises 4 x 32)
+REPEAT_SEQ, REPEAT_BATCH, REPEAT_LR = 512, 4, 1e-3
+# 4ts: the scan families at full width, cut in depth, 2 microbatches of 1 x 512
+SCAN_TRAIN = (("rwkv6-7b", 2), ("zamba2-2.7b", 6))
+SCAN_TRAIN_SEQ, SCAN_TRAIN_STEPS = 512, 4
+
+
+def _grad_pair(fn, plain, inputs, cots):
+    """(the autograd.Function's gradients, the plain version's autograd's)."""
+    out = []
+    for f in (fn, plain):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        res = f(*leaves)
+        res = res if isinstance(res, tuple) else (res,)
+        out.append(torch.autograd.grad(res, leaves, cots))
+    return out
+
+
+# gradients: fp32 as the forwards; bf16 elementwise within one bf16 ulp at
+# the value (rtol 2^-7: the flash backward sums its 512-query chunks' fp32
+# shares of dk and dv and rounds once, the plain autograd, at the backward's
+# key tile, its whole fp32 sum once: the same terms in another order) and
+# each row within a tenth of its RMS, as the forwards
+GRAD_TOL = {torch.float32: TOL[torch.float32], torch.bfloat16: dict(atol=2e-2, rtol=2 ** -7)}
+
+
+def train_grad_checks(gen) -> dict:
+    """Phase 3's gradient checks: each kernel's ``autograd.Function`` (the
+    kernel's forward, the plain version's autograd as its backward) against
+    the plain version's autograd on the card (flash's at the backward's
+    512-key tile), bf16 and fp32, at the
+    training phases' shapes: flash at 4tr's microbatch (B=4, S=1024, 16 q /
+    8 kv heads of 128, causal) and 4ts's zamba2 (B=1, S=512, 32 heads of
+    80), WKV6 at 4ts's rwkv6 (B=1, S=512, 64 heads of 64), SSD at 4ts's
+    zamba2 (B=1, S=512, 80 heads of P=N=64) and at a strong decay (A =
+    -exp(3 + 0.5 N(0, 1)), 300 tokens), RMSNorm in both forms at (512,
+    2560) and (512, 5120).  Flash and RMSNorm at ``GRAD_TOL``; the scans
+    at atol 5e-4, rtol 1e-3; every gradient finite.  Returns the max abs error per
+    kernel and dtype."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.rmsnorm import ops as norm_ops
+    from repro_torch.kernels.rmsnorm import ref as norm_ref
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+    from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+
+    errs = {}
+
+    def note(name, dtype, got, want, scan):
+        tol = SCAN_TOL if scan else GRAD_TOL[dtype]
+        for i, (a, b) in enumerate(zip(got, want)):
+            label = f"{name} grad {i}"
+            err = _err(a, b)
+            bad = (a.float() - b.float()).abs() > tol["atol"] + tol["rtol"] * b.float().abs()
+            check(not bool(bad.any()) and bool(torch.isfinite(a).all()),
+                  f"{label} {dtype}: max abs err {err:.3e} outside atol {tol['atol']} "
+                  f"rtol {tol['rtol']}")
+            if dtype == torch.bfloat16 and not scan:
+                diff = (a.float() - b.float()).abs().amax(-1)
+                rms = b.float().pow(2).mean(-1).sqrt()
+                worst = float((diff / rms.clamp(min=1e-6)).max())
+                ROW_FRAC[label] = worst
+                # elements outside the forward's bf16 tolerance (rtol 0), noted only
+                OUTSIDE_FWD_TOL[label] = int(((a.float() - b.float()).abs()
+                                              > TOL[dtype]["atol"]).sum())
+                check(bool((diff <= BF16_ROW_FRAC * rms + 1e-6).all()),
+                      f"{label} bf16: a row's max error is {worst:.3f} of its RMS")
+            errs.setdefault(name, {})
+            errs[name][str(dtype)] = max(errs[name].get(str(dtype), 0.0), err)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for b_, s_, hq, hkv, d in ((4, TRAIN_SEQ, 16, 8, 128), (1, SCAN_TRAIN_SEQ, 32, 32, 80)):
+            q = _rand(gen, (b_, s_, hq, d), dtype)
+            k, v = _rand(gen, (b_, s_, hkv, d), dtype), _rand(gen, (b_, s_, hkv, d), dtype)
+            note("flash_attention", dtype, *_grad_pair(
+                flash_ops.flash_attention,
+                lambda q, k, v: flash_ref.flash_attention(q, k, v, block_k=flash_ref.BWD_BLOCK_K),
+                (q, k, v),
+                (_rand(gen, q.shape, dtype),)), scan=False)
+        r, k, v, logw, u, s0 = wkv_inputs(gen, 1, SCAN_TRAIN_SEQ, 64, 64, dtype)
+        y, st = wkv_ref.wkv6_chunked(r, k, v, logw, u, s0)
+        cots = (_rand(gen, y.shape, torch.float32), _rand(gen, st.shape, torch.float32))
+        note("wkv6", dtype, *_grad_pair(wkv_ops.wkv6, wkv_ref.wkv6_chunked,
+                                        (r, k, v, logw, u, s0), cots), scan=True)
+        for B_, S, H, mu in ((1, SCAN_TRAIN_SEQ, 80, None), (2, 300, 4, 3.0)):
+            x, dt, A, Bm, Cm, s0 = ssd_inputs(gen, B_, S, H, 64, 64, dtype, mu=mu)
+            y, st = ssd_ref.ssd_chunked(x, dt, A, Bm, Cm, s0)
+            cots = (_rand(gen, y.shape, torch.float32), _rand(gen, st.shape, torch.float32))
+            note("ssd", dtype, *_grad_pair(ssd_ops.ssd, ssd_ref.ssd_chunked,
+                                           (x, dt, A, Bm, Cm, s0), cots), scan=True)
+        for d in (2560, 5120):
+            x, w = (3.0 * _rand(gen, (SCAN_TRAIN_SEQ, d), torch.float32)).to(dtype), \
+                _rand(gen, (d,), dtype)
+            g = _rand(gen, x.shape, dtype)
+            note("rmsnorm", dtype, *_grad_pair(
+                lambda x, w: norm_ops.rms_norm(x, w), lambda x, w: norm_ref.rmsnorm_ref(x, w)[0],
+                (x, w), (g,)), scan=False)
+            res = _rand(gen, x.shape, dtype)
+            note("rmsnorm_fused", dtype, *_grad_pair(
+                lambda x, w, r: norm_ops.rmsnorm(x, w, r),
+                lambda x, w, r: norm_ref.rmsnorm_ref(x, w, r), (x, w, res),
+                (g, _rand(gen, x.shape, dtype))), scan=False)
+    return errs
+
+
+def _train_run(cfg, shape, steps: int, accum: int, tag: str, **kw) -> dict:
+    """The launcher's loop in process (``launch.train.run``) on the card,
+    its counts set to 0 just before and read just after; returns the model,
+    the state, the per-step losses and seconds, the launches, the printed
+    lines and the peak memory."""
+    from repro_torch.launch import train as launcher
+
+    losses, secs, lines = [], [], []
+
+    def on_step(i, metrics, dt):
+        losses.append(float(metrics["loss"]))
+        secs.append(dt)
+
+    def log(line):
+        lines.append(line)
+        print(f"  {tag} {line}", flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    model, state = launcher.run(cfg, shape, steps=steps, accum=accum, device="cuda",
+                                log=log, on_step=on_step, **kw)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(all(math.isfinite(x) for x in losses), f"{tag}: a loss is not finite: {losses}")
+    return dict(model=model, state=state, losses=losses, secs=secs, lines=lines,
+                launches=launches, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def phase_train(name_line: str) -> dict:
+    """Phase 4tr: ``python -m repro_torch.launch.train``'s loop in process
+    at full width (qwen3-0.6b, bf16, 1024 tokens, 8 sequences a step in 2
+    microbatches, ``batch_for_step`` data) for 20 steps: every loss finite,
+    the flash kernel launched twice a layer a microbatch (the forward and
+    the layer's recompute) and nothing else; step ms (median of steps
+    2-19), tokens/s and peak memory.  Then 30 steps on one repeated batch
+    (``REPEAT_*``): the loss must halve, as in
+    ``test_loss_descends_small_model``.  Then the plain attention backward
+    (``ref.flash_attention_vjp``) alone at a layer's microbatch: its device
+    ms (queued behind a sleep kernel) and its wall ms (synchronised), and
+    the wall's share of a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as ts
+    from repro_torch.training.data import DataConfig, batch_for_step
+
+    cfg = get_config("qwen3-0.6b")
+    shape = InputShape("smoke", "train", TRAIN_SEQ, TRAIN_BATCH)
+    out = _train_run(cfg, shape, TRAIN_STEPS, TRAIN_ACCUM, "4tr", lr=3e-4)
+    L = cfg.n_layers
+    check_launches(out["launches"], {"flash_attention": 2 * L * TRAIN_ACCUM * TRAIN_STEPS}, "4tr")
+    step_s = float(np.median(out["secs"][2:]))
+    model = out.pop("model")
+    del out["state"]
+    free_memory()
+
+    ocfg = opt.AdamWConfig(lr=REPEAT_LR, warmup_steps=3, decay_steps=10 * REPEAT_STEPS)
+    step, state = ts.make_train_step(model, ocfg), ts.init_state(model, ocfg)
+    batch = batch_for_step(cfg, InputShape("repeat", "train", REPEAT_SEQ, REPEAT_BATCH),
+                           DataConfig(seed=1, accum_steps=TRAIN_ACCUM), 0)
+    repeated = []
+    for _ in range(REPEAT_STEPS):
+        state, m = step(state, batch)
+        repeated.append(float(m["loss"]))
+    check(all(math.isfinite(x) for x in repeated), f"4tr repeated batch: {repeated}")
+    check(repeated[-1] < 0.5 * repeated[0],
+          f"4tr: the loss on one repeated batch fell from {repeated[0]:.4f} to "
+          f"{repeated[-1]:.4f}, not below half")
+    peak_gb = max(out["peak_gb"], torch.cuda.max_memory_allocated() / 1e9)
+    del model, state, step
+    free_memory()
+
+    gen = torch.Generator("cuda").manual_seed(40)
+    micro = TRAIN_BATCH // TRAIN_ACCUM
+    q = _rand(gen, (micro, TRAIN_SEQ, cfg.n_heads, cfg.resolved_head_dim), torch.bfloat16)
+    k, v = (_rand(gen, (micro, TRAIN_SEQ, cfg.n_kv_heads, cfg.resolved_head_dim),
+                  torch.bfloat16) for _ in range(2))
+    g = _rand(gen, q.shape, torch.bfloat16)
+    vjp_ms = time_ms(lambda: flash_ref.flash_attention_vjp(q, k, v, g), 3, warm=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        flash_ref.flash_attention_vjp(q, k, v, g)
+    torch.cuda.synchronize()
+    vjp_wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+    return dict(card=name_line, steps=TRAIN_STEPS, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                accum=TRAIN_ACCUM, step_ms=step_s * 1e3,
+                tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s, peak_gb=peak_gb,
+                first_step_ms=out["secs"][0] * 1e3, losses=out["losses"],
+                repeated_losses=repeated, launches=out["launches"],
+                repeated_batch=f"{REPEAT_BATCH} x {REPEAT_SEQ}, lr {REPEAT_LR}",
+                attention_backward_device_ms_per_layer=vjp_ms,
+                attention_backward_wall_ms_per_layer=vjp_wall_ms,
+                attention_backward_share=vjp_wall_ms * L * TRAIN_ACCUM / (step_s * 1e3))
+
+
+def expected_train_launches(cfg, micro_steps: int) -> dict:
+    """A train step's launches per microbatch, times ``micro_steps``: every
+    kernel call site twice (the forward and its layer's recompute)."""
+    if cfg.family == "rwkv":
+        per = {"wkv6": cfg.n_layers}
+    elif cfg.family == "hybrid":
+        G = cfg.n_layers // cfg.attention_every
+        per = {"ssd": cfg.n_layers, "flash_attention": G, "rmsnorm": 2 * cfg.n_layers + G,
+               "rmsnorm_fused": G}
+    else:
+        per = {"flash_attention": cfg.n_layers}
+    return {k: 2 * n * micro_steps for k, n in per.items()}
+
+
+def phase_train_scan(name_line: str) -> dict:
+    """Phase 4ts: the launcher's loop at full width in bf16 for rwkv6-7b cut
+    to 2 layers and zamba2-2.7b cut to 6 (one shared application), 4 steps
+    of 2 microbatches of 1 x 512: finite losses, and WKV6, SSD, RMSNorm
+    (both forms) and flash launched exactly twice per call site per
+    microbatch."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+
+    res = {}
+    for arch, n_layers in SCAN_TRAIN:
+        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+        shape = InputShape("smoke", "train", SCAN_TRAIN_SEQ, 2)
+        out = _train_run(cfg, shape, SCAN_TRAIN_STEPS, 2, "4ts " + arch)
+        check_launches(out["launches"], expected_train_launches(cfg, 2 * SCAN_TRAIN_STEPS), "4ts " + arch)
+        del out["model"], out["state"]
+        free_memory()
+        res[arch] = dict(card=name_line, layers=n_layers, step_ms=float(
+            np.median(out["secs"][1:])) * 1e3, losses=out["losses"], peak_gb=out["peak_gb"],
+            launches=out["launches"])
+    return res
+
+
+def adamw_close(cfg, model_a, model_b, st_a, st_b, ocfg, label: str) -> dict:
+    """Two runs of t AdamW steps from the same weights (card against CPU,
+    or a resumed run against a whole one), leaf by leaf
+    (``convert.leaf_view``): the moments within rtol 1e-3 and 1e-4 of the
+    leaf's largest; the parameters within 0.05·lr·t where the update's
+    denominator sqrt(v̂) exceeds 1e-6 (100 x eps), and within 2·lr·t
+    elsewhere, where the direction m̂/(sqrt(v̂) + eps) follows fp32 noise
+    near eps.  Returns the worst of each."""
+    from repro_torch import convert
+
+    t = int(st_a.step)
+    check(int(st_b.step) == t, f"{label}: steps {int(st_b.step)} and {t}")
+    out = dict(steps=t, max_m_err=0.0, max_v_err=0.0, max_param_err=0.0,
+               max_param_err_near_eps=0.0)
+    named = [dict(m.named_parameters()) for m in (model_a, model_b)]
+    moments = zip(st_a.m, st_b.m, st_a.v, st_b.v)
+    for leaf, (ma, mb, va, vb) in zip(convert.leaf_view(cfg), moments):
+        a, b = (convert.leaf_tensor(n, leaf).detach().float().cpu() for n in named)
+        for name, x, y in (("m", ma, mb), ("v", va, vb)):
+            x, y = x.float().cpu(), y.float().cpu()
+            err = (y - x).abs()
+            check(bool((err <= 1e-4 * x.abs().max() + 1e-3 * x.abs()).all()),
+                  f"{label} {leaf.key}: moment {name} {float(err.max()):.3e} apart")
+            out[f"max_{name}_err"] = max(out[f"max_{name}_err"], float(err.max()))
+        strong = (va.float().cpu() / (1 - ocfg.b2 ** t)).sqrt() > 1e-6
+        p_err = (b - a).abs()
+        near = float(p_err[~strong].max()) if bool((~strong).any()) else 0.0
+        far = float(p_err[strong].max()) if bool(strong.any()) else 0.0
+        check(far <= 0.05 * ocfg.lr * t and near <= 2 * ocfg.lr * t,
+              f"{label} {leaf.key}: parameter {far:.3e} ({near:.3e} near eps) apart")
+        out["max_param_err"] = max(out["max_param_err"], far)
+        out["max_param_err_near_eps"] = max(out["max_param_err_near_eps"], near)
+    return out
+
+
+def phase_train_exact() -> dict:
+    """Phase 5n: one fp32 train step (A=2, 2 x 128 tokens) of qwen3-0.6b,
+    rwkv6-7b and zamba2-2.7b ``reduce()`` (head dim 64, the flash kernel's
+    narrowest) on the card against the CPU from the same weights: loss and
+    grad norm at rtol 1e-5, the moments and parameters after it as
+    ``adamw_close``, the per-head norm copies equal; then the launcher's
+    crash drill on the card (reduced qwen3, 6 steps, checkpoints every 2,
+    a simulated node loss at step 5, exit 17, resumed from step 4) against
+    the uninterrupted run: bit for bit (one device, deterministic kernels;
+    the CUDA ``index_put_`` of the embedding's backward sorts its
+    indices), and as ``adamw_close``."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.models import Model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as ts
+
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1)
+    res = {}
+    for key, arch in (("qwen3", "qwen3-0.6b"), ("rwkv6", "rwkv6-7b"), ("zamba2", "zamba2-2.7b")):
+        cfg = get_config(arch).reduce()
+        if cfg.n_heads:
+            cfg = dataclasses.replace(cfg, head_dim=64)
+        cpu = Model(cfg, device="cpu").init_(torch.Generator().manual_seed(0))
+        card = Model(cfg, device="cuda")
+        card.load_state_dict(cpu.state_dict())
+        toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 2, 129)).astype(np.int32)
+        batch = {"inputs": toks[..., :-1], "targets": toks[..., 1:]}
+        mets, states = [], []
+        for m in (cpu, card):
+            reset_launches()
+            st, met = ts.make_train_step(m, ocfg)(ts.init_state(m, ocfg), batch)
+            mets.append({k: float(v) for k, v in met.items()})
+            states.append(st)
+        launches = read_launches()
+        check_launches(launches, expected_train_launches(cfg, 2), f"5n {arch}")
+        for k in ("loss", "grad_norm"):
+            check(abs(mets[1][k] - mets[0][k]) <= 1e-5 * abs(mets[0][k]),
+                  f"5n {arch} {k}: card {mets[1][k]} cpu {mets[0][k]}")
+        errs = adamw_close(cfg, cpu, card, *states, ocfg, f"5n {arch}")
+        if cfg.qk_norm:
+            for layer in card.layers:
+                qk = layer.attn.qk_norm
+                check(bool((qk[:cfg.n_heads] == qk[0]).all()), f"5n {arch}: q_norm copies differ")
+        res[key] = dict(loss_card=mets[1]["loss"], loss_cpu=mets[0]["loss"],
+                        grad_norm_card=mets[1]["grad_norm"], grad_norm_cpu=mets[0]["grad_norm"],
+                        launches=launches, **errs)
+    cfg = dataclasses.replace(get_config("qwen3-0.6b").reduce(), name="qwen3-0.6b", head_dim=64)
+    shape = InputShape("smoke", "train", 64, 4)
+    kw = dict(steps=6, accum=2, lr=1e-3, device="cuda", log=lambda line: None)
+    from repro_torch.launch import train as launcher
+
+    whole = launcher.run(cfg, shape, **kw)
+    with tempfile.TemporaryDirectory() as d:
+        try:
+            launcher.run(cfg, shape, ckpt_dir=d, ckpt_every=2, simulate_failure_at=5, **kw)
+            check(False, "5n: the simulated node loss did not stop the run")
+        except SystemExit as e:
+            check(e.code == 17, f"5n: the simulated node loss exited {e.code}, not 17")
+        lines = []
+        resumed = launcher.run(cfg, shape, ckpt_dir=d, ckpt_every=2,
+                               **dict(kw, log=lines.append))
+    check("resumed from step 4" in lines and lines[-1] == "done", f"5n resume: {lines}")
+    ocfg6 = opt.AdamWConfig(lr=kw["lr"], warmup_steps=1, decay_steps=kw["steps"])
+    errs = adamw_close(cfg, whole[0], resumed[0], whole[1], resumed[1], ocfg6, "5n resume")
+    bit_equal = all(torch.equal(a, b) for a, b in zip(whole[0].state_dict().values(),
+                                                      resumed[0].state_dict().values()))
+    check(bit_equal, "5n: the resumed run's weights are not bit for bit the whole run's")
+    res["resume"] = dict(resumed_from=4, bit_equal=bit_equal, **errs)
+    return res
+
+
 def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[dtype]
@@ -4691,7 +5071,7 @@ BREADTH_SERVE = ("serve_qwen3_4b", "serve_starcoder2", "serve_llava", "serve_lla
 MIXTRAL_SERVE = ("serve_mixtral", "serve_mixtral_ring")
 LAUNCH_PHASES = {
     "flash_attention": ("serve_legacy", "serve_legacy_paged", "generate") + ZAMBA2_PHASES
-    + ("generate_llava", "prefill_hubert") + MIXTRAL_SERVE,
+    + ("generate_llava", "prefill_hubert") + MIXTRAL_SERVE + ("train", "train_zamba2"),
     "decode_attention": ("serve_single", "card_vs_cpu", "zamba2_card_vs_cpu",
                          "durable_exact_zamba2", "fleet", "fleet_exact", "exact_starcoder2",
                          "exact_llava", "exact_mixtral", "exact_arctic", "exact_mixtral_full"),
@@ -4708,10 +5088,10 @@ LAUNCH_PHASES = {
     "mixed_attention_paged": ("serve_paged", "serve_legacy_paged", "serve_single_paged",
                               "serve_spec_paged", "durable_kv", "fleet_recovery", "multimodel",
                               "serve_starcoder2_paged", "serve_arctic_paged"),
-    "wkv6": ("serve_rwkv", "generate_rwkv", "durable_rwkv", "multimodel"),
-    "ssd": ZAMBA2_PHASES,
-    "rmsnorm": ZAMBA2_PHASES,
-    "rmsnorm_fused": ZAMBA2_PHASES,
+    "wkv6": ("serve_rwkv", "generate_rwkv", "durable_rwkv", "multimodel", "train_rwkv"),
+    "ssd": ZAMBA2_PHASES + ("train_zamba2",),
+    "rmsnorm": ZAMBA2_PHASES + ("train_zamba2",),
+    "rmsnorm_fused": ZAMBA2_PHASES + ("train_zamba2",),
 }
 # the fp32 phases whose launches each fp32 route reports: by kernel row,
 # (the run, the counter read) for phases 5, 5b, 5c (its legacy runs and its
@@ -4739,10 +5119,13 @@ FP32_PHASES = {
                              for key in ("contiguous", "paged", "generate"))
     + tuple(((ph,), "flash_attention")
             for ph in ("zamba2_card_vs_cpu", "durable_exact_legacy", "durable_exact_zamba2",
-                       "exact_llava", "exact_hubert", "exact_mixtral", "exact_mixtral_full")),
+                       "exact_llava", "exact_hubert", "exact_mixtral", "exact_mixtral_full"))
+    + tuple((("train_exact", fam), "flash_attention") for fam in ("qwen3", "zamba2")),
     "wkv6": tuple(((ph,), "wkv6")
-                  for ph in ("rwkv_card_vs_cpu", "durable_exact_rwkv", "multimodel_exact")),
-    "ssd": tuple(((ph,), "ssd") for ph in ("zamba2_card_vs_cpu", "durable_exact_zamba2")),
+                  for ph in ("rwkv_card_vs_cpu", "durable_exact_rwkv", "multimodel_exact"))
+    + ((("train_exact", "rwkv6"), "wkv6"),),
+    "ssd": tuple(((ph,), "ssd") for ph in ("zamba2_card_vs_cpu", "durable_exact_zamba2"))
+    + ((("train_exact", "zamba2"), "ssd"),),
 }
 
 
@@ -4825,7 +5208,16 @@ def main() -> int:
     errs = phase_kernels()
     print(f"[3/6] kernels vs plain in {time.perf_counter() - t0:.1f} s: "
           + json.dumps(errs), flush=True)
+    t0 = time.perf_counter()
+    grad_errs = train_grad_checks(torch.Generator("cuda").manual_seed(7))
+    free_memory()
+    train_s = time.perf_counter() - t0
+    print(f"[3/6] gradients under autograd (the kernels' forwards, the plain versions' "
+          f"autograd) vs the plain autograd in {train_s:.1f} s: " + json.dumps(grad_errs),
+          flush=True)
     print("  worst bf16 row error / row RMS: " + json.dumps(ROW_FRAC), flush=True)
+    print("  bf16 gradient elements outside atol 2e-2, rtol 0: " + json.dumps(OUTSIDE_FWD_TOL),
+          flush=True)
 
     cfg = get_config("qwen3-0.6b")
     model = Model(cfg, device="cuda").init_(torch.Generator("cuda").manual_seed(0))
@@ -4954,6 +5346,22 @@ def main() -> int:
     t0 = time.perf_counter()
     runs.update(phase_moe(name_line))
     moe_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runs["train"] = phase_train(name_line)
+    free_memory()
+    train_s += time.perf_counter() - t0
+    print(f"[4tr/6] trained full-width qwen3-0.6b (bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens a "
+          f"step in {TRAIN_ACCUM} microbatches, {TRAIN_STEPS} steps, then {REPEAT_STEPS} on one "
+          f"batch) in {time.perf_counter() - t0:.1f} s on {name_line}: "
+          + json.dumps(runs["train"]), flush=True)
+    t0 = time.perf_counter()
+    scan_train = phase_train_scan(name_line)
+    runs["train_rwkv"], runs["train_zamba2"] = scan_train["rwkv6-7b"], scan_train["zamba2-2.7b"]
+    free_memory()
+    train_s += time.perf_counter() - t0
+    print(f"[4ts/6] trained full-width rwkv6-7b (2 layers) and zamba2-2.7b (6 layers) in bf16 "
+          f"in {time.perf_counter() - t0:.1f} s on {name_line}: " + json.dumps(scan_train),
+          flush=True)
 
     small = dataclasses.replace(cfg, n_layers=4, dtype="float32")
     cpu_model = Model(small, device="cpu").init_(torch.Generator().manual_seed(1))
@@ -5046,6 +5454,13 @@ def main() -> int:
           f"vs eager) in {time.perf_counter() - t0:.1f} s: " + json.dumps(
               {k: runs[k] for k in ("exact_mixtral", "exact_arctic", "exact_arctic_paged",
                                     "exact_mixtral_full")}), flush=True)
+    t0 = time.perf_counter()
+    runs["train_exact"] = phase_train_exact()
+    free_memory()
+    train_s += time.perf_counter() - t0
+    print(f"[5n/6] fp32 train steps card vs cpu (qwen3, rwkv6, zamba2 reduce()), the crash "
+          f"drill resumed equal to the whole run, in {time.perf_counter() - t0:.1f} s: "
+          + json.dumps(runs["train_exact"]), flush=True)
 
     lvm = runs["legacy_vs_mixed"]
     eager = {"5": runs["card_vs_cpu"]["eager"], "5b": runs["card_vs_cpu_paged"]["eager"],
@@ -5070,6 +5485,7 @@ def main() -> int:
             replaces=REPLACES[name], launches=sum(by_phase.values()),
             launches_by_phase=by_phase,
             max_abs_err=e[str(torch.bfloat16)], max_abs_err_fp32=e[str(torch.float32)],
+            **({"grad_max_abs_err": grad_errs[name]} if name in grad_errs else {}),
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], shape=t["shape"],
             **({"head_dim_80": t["d80"]} if "d80" in t else {}),
@@ -5084,6 +5500,7 @@ def main() -> int:
     print(f"job and multi-model phases (4r, 4s, 5k): {jobs_s:.1f} s")
     print(f"breadth phases (4t-4x, 5l): {breadth_s:.1f} s")
     print(f"MoE phases (4y, 4z, 5m): {moe_s:.1f} s")
+    print(f"training phases (3's gradients, 4tr, 4ts, 5n): {train_s:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(name_line)
     print(json.dumps({"kernels": rows}))

@@ -1,7 +1,8 @@
 """``ModelConfig``: architecture hyper-parameters (the port's own copy).
 
 Same fields, derived properties and ``reduce()`` as the JAX package's
-``configs/base.py``, minus ``use_pallas``: the port has no kernel switch —
+``configs/base.py`` (and its ``InputShape``, which the training data
+pipeline reads), minus ``use_pallas``: the port has no kernel switch —
 attention on a CUDA tensor always runs the hand-written kernels.
 """
 from __future__ import annotations
@@ -145,3 +146,11 @@ class ModelConfig:
             sliding_window=min(self.sliding_window, 64) if self.sliding_window else 0,
             dtype="float32",
         )
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    kind: str            # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int

@@ -15,7 +15,10 @@ form (``mamba2_layer``) runs the scan through ``kernels.ssd_scan.ops.ssd``
 x, B and C in place as slices of the conv output; the one-token step
 (``ssd_decode``) and the conv are plain PyTorch, as in JAX.  Both norms of
 a layer run through ``kernels.rmsnorm.ops`` (the CUDA kernel on the card,
-``layers.rms_norm`` op for op on the CPU).
+``layers.rms_norm`` op for op on the CPU).  Under autograd (the training
+loop, ``zamba2.run_zamba2_train``) the scan and the norms are
+differentiable: their kernels' forwards with the plain versions' autograd
+as the backward.
 
 Each ``Mamba2Layer`` holds the leaves of the JAX ``init_mamba2_layer``
 under the same names; ``A_log``, ``D`` and ``dt_bias`` stay fp32.  The

@@ -1,5 +1,5 @@
 """Model facade of the port (dense, moe, vlm, encoder, rwkv and hybrid
-families): prefill, decode and mixed steps.
+families): prefill, decode and mixed steps, and the training loss.
 
     model = Model(cfg, device="cuda").init_(torch.Generator("cuda").manual_seed(0))
     logits, pcache = model.prefill(tokens)                       # (B, V), (L, B, ...)
@@ -11,8 +11,14 @@ families): prefill, decode and mixed steps.
     pool = model.empty_page_pool(num_pages, page_size)           # paged KV
     logits = model.decode(tokens, pool, cache_len, page_table=tables)
     logits = model.prefill_paged(suffix, pool, page_row, start)  # (1, V)
+    loss, metrics = model.train_().loss(batch)                   # {"ce", "moe_aux"}
 
-Counterpart of the JAX package's ``models/model.py`` for the serving path.
+Counterpart of the JAX package's ``models/model.py``.  ``loss`` takes
+JAX's batch dict for one microbatch (``inputs``/``targets``; the vlm's
+``patches``; the encoder's ``embeds``/``targets``/``mask``) and runs the
+cache-free training loops under autograd; ``train_()`` turns
+``requires_grad`` on for every parameter (``train_(False)`` off again).
+The serving methods run under ``no_grad`` whatever the flag.
 The dense KV cache keeps the JAX layout ``(L, B, S, Hkv, Dh)`` (with a
 sliding window W, a ring of ``S = min(max_len, W)`` rows, position p at
 row p % W), the page pool ``(L, P, page_size, Hkv, Dh)``; the rwkv cache is an
@@ -47,6 +53,10 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, mamba2, rwkv6, transformer, zamba2
+
+
+# weight of the MoE load-balancing loss in the training objective (JAX ``MOE_AUX_WEIGHT``)
+MOE_AUX_WEIGHT = 0.01
 
 
 class DecoderKVCache(NamedTuple):
@@ -137,6 +147,42 @@ class Model(nn.Module):
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         return transformer.logits_from_hidden(self.head, self.final_norm, x, self.cfg)
+
+    # -- training -------------------------------------------------------------
+    def train_(self, flag: bool = True) -> "Model":
+        """Turn ``requires_grad`` on (``flag``) or off for every parameter.
+        Parameters are created with it off; the serving methods never
+        record a graph either way."""
+        for p in self.parameters():
+            p.requires_grad_(flag)
+        return self
+
+    def loss(self, batch) -> Tuple[torch.Tensor, dict]:
+        """The training objective on one microbatch (JAX ``Model.loss``):
+        the backbone without a cache under autograd, the logits, the mean
+        cross-entropy (the encoder's masked by ``mask``; the vlm's over the
+        text positions only), plus ``MOE_AUX_WEIGHT`` times the MoE
+        auxiliary loss summed over layers.  ``batch`` holds arrays or
+        tensors: ``inputs`` (B, S) and ``targets`` (B, S); a vlm also
+        ``patches`` (B, Np, d), its targets (B, S_text); the encoder
+        ``embeds`` (B, S, d), ``targets`` and ``mask`` (B, S).  Returns
+        (loss, {"ce", "moe_aux"}), fp32 scalars."""
+        cfg = self.cfg
+        x = self._embed(batch.get("inputs"), batch.get("patches"), batch.get("embeds"))
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        if self.is_rwkv:
+            x = rwkv6.run_rwkv_train(self.layers, x, cfg)
+        elif self.is_hybrid:
+            x = zamba2.run_zamba2_train(self.layers, self.shared, x, cfg)
+        else:
+            x, aux = transformer.run_layers_train(self.layers, x, cfg)
+        targets = torch.as_tensor(batch["targets"], device=self.device)
+        # the vlm's logits at the text positions only (JAX cuts them after the head)
+        logits = self._logits(x[:, x.shape[1] - targets.shape[1]:])
+        mask = batch.get("mask")
+        mask = None if mask is None else torch.as_tensor(mask, device=self.device)
+        ce = transformer.softmax_xent(logits, targets, mask)
+        return ce + MOE_AUX_WEIGHT * aux, {"ce": ce, "moe_aux": aux}
 
     # -- serving ------------------------------------------------------------
     def _embed(self, tokens, patches, embeds) -> torch.Tensor:

@@ -25,7 +25,9 @@ arithmetic allows:
   in their CUDA graphs.
 
 The expert products are batched matmuls (``torch.bmm``), as the JAX
-expert products are einsums outside any Pallas kernel.  The layer holds
+expert products are einsums outside any Pallas kernel.  Under autograd
+(``moe_block(..., aux=True)`` in the training loop) every piece is
+differentiable; the card's bf16 gate product through ``GateUp``.  The layer holds
 the gate and up matrices fused, ``w_gu`` (E, d, 2f), as the dense layer
 holds ``w_gu``: one batched matmul with an fp32 result, whose up half is
 rounded to the model dtype exactly as a model-dtype matmul rounds it.
@@ -125,14 +127,38 @@ def combine(y: torch.Tensor, slot: torch.Tensor, combine_w: torch.Tensor, T: int
     return picked.reshape(T, -1, d).sum(dim=1)
 
 
+class GateUp(torch.autograd.Function):
+    """The bf16 batched product with an fp32 result on the card, with a
+    backward: ``torch.bmm(..., out_dtype=torch.float32)`` has none.  The
+    gradients are JAX's transpose of its ``preferred_element_type=float32``
+    einsum: the fp32 cotangent times the other operand widened to fp32,
+    rounded to the operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, buf, w_gu):
+        ctx.save_for_backward(buf, w_gu)
+        return torch.bmm(buf, w_gu, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        buf, w_gu = ctx.saved_tensors
+        g = g.float()
+        d_buf = (torch.bmm(g, w_gu.float().transpose(1, 2)).to(buf.dtype)
+                 if ctx.needs_input_grad[0] else None)
+        d_w = (torch.bmm(buf.float().transpose(1, 2), g).to(w_gu.dtype)
+               if ctx.needs_input_grad[1] else None)
+        return d_buf, d_w
+
+
 def gate_up(buf: torch.Tensor, w_gu: torch.Tensor) -> torch.Tensor:
     """(E, C, d) x (E, d, 2f) with an fp32 result: on the card a bf16 batched
-    matmul with an fp32 output; on the CPU, which has no such kernel, the
-    same products of the same values in fp32."""
+    matmul with an fp32 output (``GateUp``, for its backward); on
+    the CPU, which has no such kernel, the same products of the same values
+    in fp32."""
     if buf.dtype == torch.float32:
         return torch.bmm(buf, w_gu)
     if buf.is_cuda:
-        return torch.bmm(buf, w_gu, out_dtype=torch.float32)
+        return GateUp.apply(buf, w_gu)
     return torch.bmm(buf.float(), w_gu.float())
 
 

@@ -15,10 +15,12 @@ hoisted ``lax.scan`` (``wkv_chunked``, the default) or the Pallas kernel
 (``wkv_decode``) is plain PyTorch, as in JAX.
 
 Each ``RWKVLayer`` holds the leaves of the JAX ``init_rwkv_layer`` under
-the same names.  The layer loops are Python loops (no scan grouping or
-remat: the port serves, it does not train yet); ``run_rwkv_decode``
+the same names.  The layer loops are Python loops; ``run_rwkv_decode``
 updates the stacked (L, B, ...) cache leaves in place, where the JAX
-engine donates them.  The casts follow the JAX code: tanh of the LoRAs,
+engine donates them, and ``run_rwkv_train``, the training loop, keeps no
+cache and rematerialises each layer (JAX's per-layer ``jax.checkpoint``);
+under autograd ``ops.wkv6`` is differentiable (the plain chunk form's
+autograd, recomputed).  The casts follow the JAX code: tanh of the LoRAs,
 ``-exp`` of the log-decay, silu of the gate, relu² and sigmoid in fp32;
 ``(y · g)`` and relu² cast to the working dtype before their matmuls.
 """
@@ -33,7 +35,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rwkv6_scan import ops
-from repro_torch.models import layers
+from repro_torch.models import layers, transformer
 
 DECAY_LORA = 64
 MIX_LORA = 32
@@ -236,6 +238,18 @@ def run_rwkv_seq(layer_list: nn.ModuleList, x: torch.Tensor,
         for buf, leaf in zip(cache, c):
             buf[li].copy_(leaf)
     return x, cache
+
+
+def _rwkv_layer_train(layer: RWKVLayer, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return rwkv_layer(layer, x, cfg)[0]
+
+
+def run_rwkv_train(layer_list: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The training layer loop over x (B, S, d), differentiable: no cache,
+    every layer rematerialised (``transformer.remat``)."""
+    for layer in layer_list:
+        x = transformer.remat(_rwkv_layer_train, layer, x, cfg)
+    return x
 
 
 def run_rwkv_decode(layer_list: nn.ModuleList, x: torch.Tensor, caches: RWKVLayerCache,

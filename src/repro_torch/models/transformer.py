@@ -1,6 +1,6 @@
-"""Decoder transformer of the serving path: layer modules, seeded init,
-the prefill, decode and mixed layer loops, the logits head, and the check
-of which configs the port serves.
+"""Decoder transformer of the port: layer modules, seeded init, the
+prefill, decode and mixed layer loops, the training layer loop, the logits
+head and the loss, and the check of which configs the port serves.
 
 Counterpart of the JAX package's ``models/transformer.py`` for the dense,
 moe, vlm and encoder families.  The JAX stack scans over stacked (L, ...)
@@ -9,9 +9,11 @@ port keeps one ``DecoderLayer`` module per layer, holding those fused
 matrices from the moment weights load, so no step ever rebuilds them.  A
 GELU layer (``mlp_type="gelu"``) holds ``w_up``/``w_down`` unfused, as JAX
 has no ``w_gu`` for it; an MoE layer holds a ``moe.MoE`` in place of its
-MLP (JAX ``mlp_block``'s MoE branch).  The layer loops are
-Python loops (no scan grouping or remat: the port serves, it does not
-train yet); each layer writes its KV slice in place.
+MLP (JAX ``mlp_block``'s MoE branch).  The layer loops are Python loops;
+the serving loops write each layer's KV slice in place.  The training loop
+(``run_layers_train``) writes no cache, rematerialises every layer under
+``torch.utils.checkpoint`` (JAX's per-layer ``jax.checkpoint``) and sums
+the MoE auxiliary loss over layers, as JAX's ``run_layers_seq`` does.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
@@ -130,17 +133,22 @@ def _init_moe_(p: moe.MoE, cfg: ModelConfig, generator: torch.Generator) -> None
         _normal_(p.res_down, 1.0 / math.sqrt(p.res_down.shape[0]), generator)
 
 
-def _mlp(layer: DecoderLayer, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _mlp(layer: DecoderLayer, x: torch.Tensor, cfg: ModelConfig, *, aux: bool = False):
     """ln2, the layer's MLP (the MoE block, GELU or fused SwiGLU), residual:
     the one MLP of every layer loop (JAX ``mlp_block``).  An MoE call routes
     every token of ``x`` together: B for a decode step, B·Q for a mixed
-    step, the prompt for a prefill."""
+    step, the prompt for a prefill or a training microbatch.  With ``aux``
+    returns (x, the MoE auxiliary loss, 0 without experts)."""
     h = layers.rms_norm(x, layer.ln2, cfg.norm_eps)
     if cfg.is_moe:
-        return x + moe.moe_block(layer.moe, h, cfg)[0]
-    if cfg.mlp_type == "gelu":
-        return x + layers.gelu_mlp(h, layer.w_up, layer.w_down)
-    return x + layers.swiglu_fused(h, layer.w_gu, layer.w_down)
+        m, loss = moe.moe_block(layer.moe, h, cfg, aux=aux)
+    else:
+        if cfg.mlp_type == "gelu":
+            m = layers.gelu_mlp(h, layer.w_up, layer.w_down)
+        else:
+            m = layers.swiglu_fused(h, layer.w_gu, layer.w_down)
+        loss = torch.zeros((), dtype=torch.float32, device=x.device) if aux else None
+    return (x + m, loss) if aux else x + m
 
 
 def run_layers_seq(
@@ -154,7 +162,7 @@ def run_layers_seq(
     below S, only the ring a decode cache holds (L, B, W, Hkv, Dh), the
     last W positions with position p at row p % W
     (``attention.ring_rows``).  The serving path takes no MoE auxiliary
-    loss."""
+    loss; the training loop, ``run_layers_train``, does."""
     B, S, _ = x.shape
     W = cfg.sliding_window
     rows = min(S, W) if W > 0 else S
@@ -168,6 +176,39 @@ def run_layers_seq(
         vs[li].copy_(attention.ring_rows(cache.v, W))
         x = _mlp(layer, x + a, cfg)
     return x, (ks, vs)
+
+
+def _layer_train(layer: DecoderLayer, x: torch.Tensor,
+                 cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer of the training loop: no cache; returns x and the layer's
+    MoE auxiliary loss (0 without experts)."""
+    h = layers.rms_norm(x, layer.ln1, cfg.norm_eps)
+    a, _ = attention.attention_block(layer.attn, h, cfg)
+    return _mlp(layer, x + a, cfg, aux=True)
+
+
+def remat(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are dropped after the forward and recomputed in the
+    backward, the counterpart of ``jax.checkpoint``.  Without grad mode it
+    is a plain call."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
+def run_layers_train(layer_list: nn.ModuleList, x: torch.Tensor,
+                     cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training layer loop over x (B, S, d), differentiable: no KV
+    cache, every layer rematerialised (``remat``; JAX checkpoints each layer
+    of its scan, and with ``cfg.remat`` each group too, which changes its
+    memory, not its values).  Returns x and the MoE auxiliary loss summed
+    over layers (fp32; 0 without experts), as JAX's ``run_layers_seq``."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in layer_list:
+        x, a = remat(_layer_train, layer, x, cfg)
+        aux = aux + a
+    return x, aux
 
 
 def run_layers_decode(
@@ -216,3 +257,16 @@ def logits_from_hidden(head: torch.Tensor, final_norm: torch.Tensor, x: torch.Te
     ``embed.T`` when tied, ``lm_head`` otherwise: (B, S, d) -> (B, S, V)."""
     x = layers.rms_norm(x, final_norm, cfg.norm_eps)
     return x @ head
+
+
+def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean cross-entropy over valid positions, in fp32: logsumexp minus the
+    gold logit, the mean over every position, or with ``mask`` the masked
+    sum over ``max(sum(mask), 1)`` (JAX ``softmax_xent``)."""
+    lf = logits.float()
+    nll = torch.logsumexp(lf, dim=-1) - lf.gather(-1, targets.long()[..., None])[..., 0]
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return nll.mean()

@@ -12,7 +12,10 @@ fused ``w_gu``, ``w_down``) held once and applied ``n_groups`` times.
 Caches: the stacked Mamba-2 conv tails and states (L, B, ...) and one KV
 cache per application (G, B, Sc, Hkv, Dh): each application attends over
 its own history.  The layer loops are Python loops; ``run_zamba2_decode``
-updates every leaf in place, where the JAX engine donates the cache.  The
+updates every leaf in place, where the JAX engine donates the cache, and
+``run_zamba2_train``, the training loop, keeps no cache and rematerialises
+each Mamba-2 layer and each shared application (JAX checkpoints each
+Mamba-2 layer and each group).  The
 shared block's norms run through ``kernels.rmsnorm.ops``: ln1 in the plain
 form, and the residual add + ln2 as the fused form (``x + a`` summed in
 fp32 and normalised before it is rounded; in fp32 this is JAX's
@@ -28,7 +31,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rmsnorm import ops as norm_ops
 from repro_torch.models import attention, layers, mamba2
-from repro_torch.models.transformer import DecoderLayer
+from repro_torch.models.transformer import DecoderLayer, remat
 
 
 class Zamba2Cache(NamedTuple):
@@ -81,6 +84,28 @@ def run_zamba2_seq(layer_list: nn.ModuleList, shared: DecoderLayer, x: torch.Ten
         ks[g].copy_(kv.k)
         vs[g].copy_(kv.v)
     return x, Zamba2Cache(conv=m.conv, state=m.state, attn_k=ks, attn_v=vs)
+
+
+def _mamba2_layer_train(layer: mamba2.Mamba2Layer, x: torch.Tensor,
+                        cfg: ModelConfig) -> torch.Tensor:
+    return mamba2.mamba2_layer(layer, x, cfg)[0]
+
+
+def _shared_block_train(shared: DecoderLayer, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return _shared_block_seq(shared, x, cfg)[0]
+
+
+def run_zamba2_train(layer_list: nn.ModuleList, shared: DecoderLayer, x: torch.Tensor,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """The training layer loop over x (B, S, d), differentiable: no cache,
+    every Mamba-2 layer and every shared application rematerialised
+    (``transformer.remat``)."""
+    G, Lg = n_groups(cfg), cfg.attention_every
+    for g in range(G):
+        for li in range(g * Lg, (g + 1) * Lg):
+            x = remat(_mamba2_layer_train, layer_list[li], x, cfg)
+        x = remat(_shared_block_train, shared, x, cfg)
+    return x
 
 
 def run_zamba2_decode(layer_list: nn.ModuleList, shared: DecoderLayer, x: torch.Tensor,

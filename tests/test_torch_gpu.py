@@ -67,7 +67,15 @@ kernels at (8, 6, 128) and (8, 7, 128), mixtral's causal flash prefill at
 window 4096 over 6000 tokens, NaN ignored at G 6 and 7, ``moe_block`` in
 fp32 on the card against the CPU (reduced, and arctic's width with 8 of
 its experts, T 8 and 64), and captured MoE sessions (mixtral's ring
-wrapping, arctic contiguous and paged) against eager.  The traced which-kernel tests take a trace
+wrapping, arctic contiguous and paged) against eager; and training (``-k
+train``): each kernel's ``autograd.Function`` (the kernel's forward, the
+plain version's autograd as its backward) against the plain version's
+autograd on the card, in bf16 (each gradient row within a tenth of its
+RMS, the forward's check) and fp32 (atol 2e-5, the scans at 5e-4), one
+forward launch each, and at the training shapes of the hybrid and rwkv6;
+the MoE gate product's backward in bf16; and one fp32 train step on the
+card against the CPU per family (qwen3, rwkv6, zamba2 ``reduce()``, head
+dim 64 for the flash kernel).  The traced which-kernel tests take a trace
 again while it counts fewer kernels than ``LAUNCHES`` does.
 
 Marked ``gpu``; each test asks the ``cuda`` fixture for the card, which
@@ -2846,3 +2854,209 @@ def test_moe_captured_session_equals_eager(cuda, arch, paged):
         assert launches["flash_attention"] == 2 * len(reqs) and launches["mixed_attention"] == 0
     else:
         assert launches["mixed_attention_paged" if paged else "mixed_attention"] > 0
+
+
+# ---------------------------------------------------------------------------
+# training: the kernels under autograd, and a train step card vs CPU
+# ---------------------------------------------------------------------------
+
+
+def _grads(fn, inputs, cots):
+    """Gradients of ``fn(*inputs)`` for the outputs' cotangents ``cots``."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return torch.autograd.grad(outs, leaves, cots)
+
+
+# bf16 gradients: the forward's row check, and elementwise atol 2e-2 with
+# rtol 2^-7 (one bf16 ulp at the value): the flash backward sums its
+# 512-query chunks' fp32 shares of dk and dv and rounds once, the plain
+# autograd (at the backward's key tile) rounds its whole fp32 sum once, so
+# the two round the same fp32 terms summed in another order
+GRAD_BF16_TOL = dict(atol=2e-2, rtol=2 ** -7)
+
+
+def _grad_close(got, want, dtype, tol=None):
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        if tol is None and dtype == torch.bfloat16:
+            torch.testing.assert_close(g.float(), w.float(), **GRAD_BF16_TOL)
+            diff = (g.float() - w.float()).abs().amax(-1)
+            rms = w.float().pow(2).mean(-1).sqrt()
+            assert bool((diff <= BF16_ROW_FRAC * rms + 1e-6).all())
+        else:
+            torch.testing.assert_close(g.float(), w.float(), **(tol or TOL[dtype]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,causal,window,S", [(2, True, 0, 1024), (1, True, 0, 700),
+                                               (2, False, 0, 300), (2, True, 96, 600)])
+def test_train_flash_grad_vs_plain(cuda, dtype, G, causal, window, S):
+    gen = torch.Generator(cuda).manual_seed(S + G)
+    q = torch.randn((2, S, 8 * G, 128), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((2, S, 8, 128), generator=gen, device=cuda).to(dtype) for _ in range(2))
+    g = torch.randn(q.shape, generator=gen, device=cuda).to(dtype)
+    flash_kernel.reset_launches()
+    got = _grads(lambda q, k, v: flash_ops.flash_attention(q, k, v, causal=causal,
+                                                           window=window), (q, k, v), (g,))
+    assert flash_kernel.LAUNCHES["flash_attention"] == 1
+    want = _grads(lambda q, k, v: flash_ref.flash_attention(
+        q, k, v, causal=causal, window=window, block_k=flash_ref.BWD_BLOCK_K), (q, k, v), (g,))
+    _grad_close(got, want, dtype)
+
+
+def _scan_cots(outs, gen):
+    return tuple(torch.randn(o.shape, generator=gen, device=o.device) for o in outs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,N,mu", [(1, 512, 64, 64, -2.0), (2, 300, 4, 32, 3.0)])
+def test_train_wkv6_grad_vs_plain(cuda, dtype, B, S, H, N, mu):
+    gen = torch.Generator(cuda).manual_seed(S)
+    r, k, v = (torch.randn((B, S, H, N), generator=gen, device=cuda).to(dtype) for _ in range(3))
+    logw = -torch.exp(mu + 0.5 * torch.randn((B, S, H, N), generator=gen, device=cuda))
+    u = (0.5 * torch.randn((H, N), generator=gen, device=cuda)).to(dtype)
+    s0 = torch.randn((B, H, N, N), generator=gen, device=cuda)
+    args = (r, k, v, logw, u, s0)
+    cots = _scan_cots(wkv_ref.wkv6_chunked(*args), gen)
+    wkv_kernel.reset_launches()
+    got = _grads(wkv_ops.wkv6, args, cots)
+    assert wkv_kernel.LAUNCHES["wkv6"] == 1
+    want = _grads(wkv_ref.wkv6_chunked, args, cots)
+    _grad_close(got, want, dtype, tol=dict(atol=5e-4, rtol=1e-3))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N,mu", [(1, 512, 80, 64, 64, None), (2, 300, 4, 64, 16, 3.0)])
+def test_train_ssd_grad_vs_plain(cuda, dtype, B, S, H, P, N, mu):
+    gen = torch.Generator(cuda).manual_seed(S + N)
+    x = torch.randn((B, S, H, P), generator=gen, device=cuda).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen, device=cuda))
+    z = torch.randn((H,), generator=gen, device=cuda)
+    A = -torch.exp(mu + 0.5 * z) if mu is not None else -torch.exp(0.3 * z)
+    Bm, Cm = (torch.randn((B, S, N), generator=gen, device=cuda).to(dtype) for _ in range(2))
+    s0 = torch.randn((B, H, P, N), generator=gen, device=cuda)
+    args = (x, dt, A, Bm, Cm, s0)
+    cots = _scan_cots(ssd_ref.ssd_chunked(*args), gen)
+    ssd_kernel.reset_launches()
+    got = _grads(ssd_ops.ssd, args, cots)
+    assert ssd_kernel.LAUNCHES["ssd"] == 1
+    want = _grads(ssd_ref.ssd_chunked, args, cots)
+    _grad_close(got, want, dtype, tol=dict(atol=5e-4, rtol=1e-3))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("d", [2560, 5120])
+def test_train_rmsnorm_grad_vs_plain(cuda, dtype, fused, d):
+    gen = torch.Generator(cuda).manual_seed(d + fused)
+    x = (3.0 * torch.randn((2, 300, d), generator=gen, device=cuda)).to(dtype)
+    w = torch.randn((d,), generator=gen, device=cuda).to(dtype)
+    g = torch.randn(x.shape, generator=gen, device=cuda).to(dtype)
+    norm_kernel.reset_launches()
+    if fused:
+        res = torch.randn(x.shape, generator=gen, device=cuda).to(dtype)
+        cots = (g, torch.randn(x.shape, generator=gen, device=cuda).to(dtype))
+        got = _grads(lambda x, w, r: norm_ops.rmsnorm(x, w, r), (x, w, res), cots)
+        want = _grads(lambda x, w, r: norm_ref.rmsnorm_ref(x, w, r), (x, w, res), cots)
+    else:
+        got = _grads(lambda x, w: norm_ops.rms_norm(x, w), (x, w), (g,))
+        want = _grads(lambda x, w: norm_ref.rmsnorm_ref(x, w)[0], (x, w), (g,))
+    assert norm_kernel.LAUNCHES["rmsnorm_fused" if fused else "rmsnorm"] == 1
+    _grad_close(got, want, dtype)
+
+
+def test_train_moe_gate_up_backward(cuda):
+    """The bf16 gate product (``torch.bmm(..., out_dtype=torch.float32)`` on
+    the card) under autograd: its gradients equal those of the same product
+    of the fp32-widened operands."""
+    from repro_torch.models import moe
+
+    gen = torch.Generator(cuda).manual_seed(0)
+    buf = torch.randn((4, 16, 256), generator=gen, device=cuda).to(torch.bfloat16)
+    w = torch.randn((4, 256, 128), generator=gen, device=cuda).to(torch.bfloat16)
+    g = torch.randn((4, 16, 128), generator=gen, device=cuda)
+    got = _grads(moe.gate_up, (buf, w), (g,))
+    want = _grads(lambda b, w: torch.bmm(b.float(), w.float()), (buf, w), (g,))
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), b.float(), atol=0.0, rtol=2 ** -7)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-7b", "zamba2-2.7b", "mixtral-8x22b",
+                                  "arctic-480b"])
+def test_train_step_card_vs_cpu(cuda, arch):
+    """One fp32 train step (A=2) of ``reduce()`` (head dim 64, the flash
+    kernel's narrowest; the MoE arches' windowed and routed layers too) on
+    the card against the CPU from the same weights and batch: loss and grad
+    norm at rtol 1e-5; each JAX leaf's first moment (0.1·clip·g) at rtol
+    1e-3 and 1e-4 of the leaf's largest; the parameters within 0.05·lr
+    where |g| exceeds 1e-6 (100 x AdamW's eps), within 2·lr elsewhere
+    (there the step's direction g/(|g| + eps) follows fp32 noise: one step
+    moved such an element 8% of lr)."""
+    import dataclasses
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as ts
+
+    cfg = get_config(arch).reduce()
+    if cfg.n_heads:
+        cfg = dataclasses.replace(cfg, head_dim=64)
+    cpu = Model(cfg, device="cpu").init_(torch.Generator().manual_seed(0))
+    card = Model(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 2, 129)).astype(np.int32)
+    batch = {"inputs": toks[..., :-1], "targets": toks[..., 1:]}
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1)
+    outs, states = [], []
+    for m in (cpu, card):
+        st, met = ts.make_train_step(m, ocfg)(ts.init_state(m, ocfg), batch)
+        outs.append({k: float(v) for k, v in met.items()})
+        states.append(st)
+    assert np.isfinite(outs[1]["loss"])
+    np.testing.assert_allclose(outs[1]["loss"], outs[0]["loss"], rtol=1e-5)
+    np.testing.assert_allclose(outs[1]["grad_norm"], outs[0]["grad_norm"], rtol=1e-5)
+    named = [dict(m.named_parameters()) for m in (cpu, card)]
+    for leaf, ma, mb, va in zip(convert.leaf_view(cfg), states[0].m, states[1].m, states[0].v):
+        a, b = (convert.leaf_tensor(n, leaf).detach().cpu() for n in named)
+        torch.testing.assert_close(mb.cpu(), ma, rtol=1e-3, atol=1e-4 * float(ma.abs().max()),
+                                   msg=leaf.key)
+        strong = va.sqrt() > 1e-6
+        err = (b - a).abs()
+        assert float(err[strong].max()) <= 0.05 * ocfg.lr, leaf.key
+        assert float(err.max()) <= 2 * ocfg.lr, leaf.key
+
+
+def test_train_moe_bf16_step_on_the_card(cuda):
+    """A bf16 train step of arctic's ``reduce()`` (head dim 64) on the card,
+    its gate product through ``moe.GateUp``: the bf16 loss within 2% of the
+    fp32 CPU loss of the same weights before it, the step's loss and grad
+    norm finite, every parameter finite and every matrix moved."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as ts
+
+    cfg = dataclasses.replace(get_config("arctic-480b").reduce(), head_dim=64)
+    cpu = Model(cfg, device="cpu").init_(torch.Generator().manual_seed(0))
+    card = Model(dataclasses.replace(cfg, dtype="bfloat16"), device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    before = {k: v.clone() for k, v in card.state_dict().items()}
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 2, 65)).astype(np.int32)
+    batch = {"inputs": toks[..., :-1], "targets": toks[..., 1:]}
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1)
+    micro = {k: v[0] for k, v in batch.items()}
+    want = float(ts.make_eval_step(cpu)(cpu, micro))
+    assert abs(float(ts.make_eval_step(card)(card, micro)) - want) < 0.02 * want
+    _, met = ts.make_train_step(card, ocfg)(ts.init_state(card, ocfg), batch)
+    assert np.isfinite(float(met["loss"])) and np.isfinite(float(met["grad_norm"]))
+    for name, v in card.state_dict().items():
+        assert torch.isfinite(v).all(), name
+        # a unit norm weight does not move by lr 1e-3 in bf16 (ulp 2^-7): the matrices do
+        assert v.dim() < 2 or not torch.equal(v, before[name]), name
